@@ -1,0 +1,226 @@
+"""H-DenseFormer 3-D, fine grid, forward (eval) only.
+
+Counterpart of ``hdenseformer_tpu/models/hdenseformer.py``: each input
+modality runs through its own densely connected transformer over 16^3-patch
+tokens, whose upsampled maps are added into a 4-level UNet encoder, with a
+ConvTranspose decoder and four deep-supervision heads. Input
+``(N, D, H, W, C_mod)``, output the channels-last logits list
+``[full, /2, /4, /8]``, fp32.
+
+Differences from the JAX module, none of which changes the function:
+
+- The modality paths are a ``ModuleList`` of ``DenseTransformerBlock``s,
+  run one after the other, where JAX runs one ``nn.vmap`` over stacked
+  parameters; ``weights.from_jax_params`` splits the stacked axis.
+- Every UNet level runs on the fine grid. JAX packs level 0 by default
+  (space-to-depth, ``s2d=None``), and its tests show packed equals fine.
+- Eval only: no dropout and no rematerialisation (training is a later
+  slice of the port).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from hdenseformer_tpu_torch.models.layers import (
+    BasicConv,
+    Conv,
+    ConvTranspose,
+    Dense,
+    LayerNorm,
+    UpConv,
+    gelu_exact,
+)
+from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
+from hdenseformer_tpu_torch.ops.resize import max_pool, resize_nearest
+
+PATCH = 16  # tokens are PATCH^3 patches
+GROWTH = 32  # width of the transformer's features
+HEADS = 8  # attention heads, of width GROWTH / HEADS = 4
+INNER_DEPTH = 4  # attention layers per dense block; transformer_depth counts them
+
+
+class DenseForward(nn.Module):
+    """Linear -> GELU -> Linear (dropout is off in eval)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.fc1 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class DenseAttention(nn.Module):
+    """Multi-head self-attention at tiny width: ``dim`` = HEADS heads of dim / HEADS.
+
+    ``use_kernels`` selects ``ops.dense_attention`` (the CUDA kernel for a
+    CUDA tensor) or its plain version ``attention_ref``.
+    """
+
+    def __init__(self, dim: int, use_kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.use_kernels = use_kernels
+        self.to_qkv = Dense(dim, dim * 3, use_bias=False, dtype=dtype, device=device)
+        self.to_out = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, dim = x.shape
+        q, k, v = (
+            t.view(b, n, HEADS, dim // HEADS).transpose(1, 2)
+            for t in self.to_qkv(x).split(dim, dim=-1)
+        )
+        attend = dense_attention if self.use_kernels else attention_ref
+        out = attend(q, k, v).to(q.dtype).transpose(1, 2).reshape(b, n, dim)
+        return self.to_out(out)
+
+
+class DensePreConvAttentionBlock(nn.Module):
+    """Densely connected attention block of INNER_DEPTH inner layers.
+
+    Each inner layer squeezes the concatenated features to GROWTH channels,
+    applies pre-normed attention and feed-forward with residuals, and
+    appends the same pre-normed feed-forward applied once more to the
+    updated stream (the reference does this, HDenseFormer.py:98).
+    """
+
+    def __init__(self, channels: int, use_kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        g = GROWTH
+        kw = dict(dtype=dtype, device=device)
+        for i in range(INNER_DEPTH):
+            self.add_module(f"squeeze_{i}", Dense(channels + i * g, g, **kw))
+            self.add_module(f"attn_norm_{i}", LayerNorm(g, device=device))
+            self.add_module(f"attn_{i}", DenseAttention(g, use_kernels=use_kernels, **kw))
+            self.add_module(f"ff_norm_{i}", LayerNorm(g, device=device))
+            self.add_module(f"ff_{i}", DenseForward(g, 2 * g, g, **kw))
+        self.out_layer = DenseForward(channels + INNER_DEPTH * g, 2 * g, channels, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        features = [x]
+        for i in range(INNER_DEPTH):
+            ff, ff_norm = getattr(self, f"ff_{i}"), getattr(self, f"ff_norm_{i}")
+            y = getattr(self, f"squeeze_{i}")(torch.cat(features, dim=-1))
+            y = getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(y)) + y
+            y = ff(ff_norm(y)) + y
+            features.append(ff(ff_norm(y)))
+        return self.out_layer(torch.cat(features, dim=-1))
+
+
+class DenseTransformerBlock(nn.Module):
+    """PATCH^3 patch embed + ``depth`` dense blocks + re-gridding of the tokens."""
+
+    def __init__(self, out_channels: int, image_size: Sequence[int], depth: int,
+                 use_kernels: bool = True, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.out_channels = out_channels
+        self.grid = tuple(s // PATCH for s in image_size)
+        num_patches = 1
+        for g in self.grid:
+            num_patches *= g
+        self.patch_embed = Conv(1, out_channels, PATCH, PATCH, 0, dtype=dtype, device=device)
+        self.pos_embed = nn.Parameter(torch.empty(num_patches, out_channels, device=device))
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block_{i}", DensePreConvAttentionBlock(
+                out_channels, use_kernels=use_kernels, dtype=dtype, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.pos_embed)  # the JAX initialiser
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(x)
+        b, actual_grid = x.shape[0], tuple(x.shape[1:-1])
+        x = x.reshape(b, -1, self.out_channels)
+        x = x + self.pos_embed.to(x.dtype)[None]
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x)
+        x = x.reshape(b, *actual_grid, self.out_channels)
+        if actual_grid != self.grid:
+            x = resize_nearest(x, self.grid)
+        return x
+
+
+class HDenseFormer(nn.Module):
+    """Hybrid densely connected transformer + UNet, 3-D.
+
+    Input ``(N, D, H, W, in_channels)``; output ``[(N, D, H, W, n_cls), /2,
+    /4, /8]`` logits in fp32.
+    """
+
+    def __init__(self, in_channels: int, n_cls: int, n_filters: int,
+                 image_size: Sequence[int] = (144, 144, 144),
+                 transformer_depth: int = 12, use_kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        nf = n_filters
+        image_size = tuple(image_size)
+        if len(image_size) != 3:
+            raise ValueError(f"the port's HDenseFormer is 3-D, got image_size {image_size}")
+        kw = dict(dtype=dtype, device=device)
+        blk = dict(use_kernels=use_kernels, **kw)
+        self.attns = nn.ModuleList(
+            DenseTransformerBlock(4 * nf, image_size, transformer_depth // INNER_DEPTH,
+                                  use_kernels=use_kernels, **kw)
+            for _ in range(in_channels)
+        )
+        self.deep_conv = UpConv(in_channels * 4 * nf, 8 * nf, **blk)
+        self.up1 = UpConv(8 * nf, 4 * nf, **blk)
+        self.up2 = UpConv(4 * nf, 2 * nf, **blk)
+        self.up3 = UpConv(2 * nf, nf, **blk)
+        widths = {1: nf, 2: 2 * nf, 3: 4 * nf, 4: 8 * nf}
+        cin = in_channels
+        for lvl in (1, 2, 3, 4):
+            ch = widths[lvl]
+            self.add_module(f"block_{lvl}_1_left", BasicConv(cin, ch, **blk))
+            self.add_module(f"block_{lvl}_2_left", BasicConv(ch, ch, **blk))
+            cin = ch
+        self.head_d3 = Conv(8 * nf, n_cls, 1, out_f32=True, **kw)
+        for lvl, head in ((3, "head_d2"), (2, "head_d1"), (1, "head")):
+            ch = widths[lvl]
+            self.add_module(f"upconv_{lvl}", ConvTranspose(2 * ch, ch, 3, 2, 1, 1, **kw))
+            self.add_module(f"block_{lvl}_1_right", BasicConv(2 * ch, ch, **blk))
+            self.add_module(f"block_{lvl}_2_right", BasicConv(ch, ch, **blk))
+            self.add_module(head, Conv(ch, n_cls, 1, out_f32=True, **kw))
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        # modality-major channels, as JAX's moveaxis + reshape of the vmap output
+        attnall = torch.cat(
+            [attn(x[..., m:m + 1]) for m, attn in enumerate(self.attns)], dim=-1
+        )
+        attnout = self.deep_conv(attnall)  # 1/8
+        at1 = self.up1(attnout)  # 1/4
+        at2 = self.up2(at1)  # 1/2
+        at3 = self.up3(at2)  # 1/1
+
+        skips = []
+        h = x
+        for lvl, ats in ((1, at3), (2, at2), (3, at1)):
+            d = getattr(self, f"block_{lvl}_1_left")(h)
+            d = getattr(self, f"block_{lvl}_2_left")(d) + ats
+            skips.append(d)
+            h = max_pool(d)
+        y = self.block_4_2_left(self.block_4_1_left(h)) + attnout
+        outs = [self.head_d3(y)]
+        for lvl, head in ((3, "head_d2"), (2, "head_d1"), (1, "head")):
+            up = getattr(self, f"upconv_{lvl}")(y)
+            y = torch.cat([up, skips[lvl - 1]], dim=-1)
+            y = getattr(self, f"block_{lvl}_1_right")(y)
+            y = getattr(self, f"block_{lvl}_2_right")(y)
+            outs.append(getattr(self, head)(y))
+        return outs[::-1]
+
+
+def HDenseFormer_32(in_channels, n_cls, image_size, transformer_depth, **kw):
+    return HDenseFormer(in_channels, n_cls, 32, tuple(image_size), transformer_depth, **kw)
+
+
+def HDenseFormer_16(in_channels, n_cls, image_size, transformer_depth, **kw):
+    return HDenseFormer(in_channels, n_cls, 16, tuple(image_size), transformer_depth, **kw)

@@ -1,0 +1,58 @@
+"""The port stands alone: no JAX, no JAX package, the GPU by default."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+PORT_MODULES = [
+    "hdenseformer_tpu_torch",
+    "hdenseformer_tpu_torch.ops",
+    "hdenseformer_tpu_torch.ops._build",
+    "hdenseformer_tpu_torch.ops.dense_attention",
+    "hdenseformer_tpu_torch.ops.instance_norm",
+    "hdenseformer_tpu_torch.ops.resize",
+    "hdenseformer_tpu_torch.models",
+    "hdenseformer_tpu_torch.models.layers",
+    "hdenseformer_tpu_torch.models.hdenseformer",
+    "hdenseformer_tpu_torch.weights",
+    "hdenseformer_tpu_torch.data",
+    "hdenseformer_tpu_torch.data.transforms",
+    "hdenseformer_tpu_torch.data.io",
+    "hdenseformer_tpu_torch.infer",
+    "hdenseformer_tpu_torch.infer.sliding",
+]
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'hdenseformer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "import jax" not in src and "hdenseformer_tpu." not in src
+
+
+def test_get_net_defaults_to_the_gpu(monkeypatch):
+    from hdenseformer_tpu_torch.models import get_net
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_net("HDenseFormer_32", 2, 2, (32, 32, 32), transformer_depth=4)
