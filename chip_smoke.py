@@ -4,23 +4,34 @@
     python3 chip_smoke.py [--seed 0] [--depth 24]
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
-the port's CUDA kernels from csrc/ and drives the serving path:
+the port's CUDA kernels from csrc/ and drives the serving paths of
+HDenseFormer_32 and Hecktor20Top1:
 
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
 1. each kernel against its plain version on the card at the serving
    shapes, with its stated tolerance, timed beside the plain version, one
-   PyTorch call that computes the same function, and its bound (the larger
-   of bytes over 3.35 TB/s and operations over the peak for the input type);
+   PyTorch call that computes the same function where there is one, and
+   its bound (the larger of bytes over 3.35 TB/s and operations over the
+   peak for the input type); then the path of the half-shift's backward
+   kernel: the gradient of sum(conv3_packed(x, w)^2) through autograd;
 2. the full-width HDenseFormer_32 forward (2 modalities, 144^3, depth 24,
    bf16, 8 windows), once through the kernels and once through the plain
    versions: logit difference, argmax agreement, kernel launch counts;
+2b. the full-width Hecktor20Top1 forward (n_filters 32, 2 modalities,
+   144^3, bf16, 8 windows): packed level 1 through the kernels (the
+   default), packed through the plain versions, and fine through the
+   kernels; then packed against fine in fp32 at 64^3;
 3. serving: predict_volume on a synthetic 200^3 two-channel volume (patch
    144^3, step 72^3, window_batch 8, one model call of 8 windows): first
    call, p50 of 3 warm calls, peak device memory, launch counts, and the
-   labels against the plain path's;
+   labels against the plain path's; 3b. the same for Hecktor20Top1;
 4. a {"kernels": [...]} line with each kernel's numbers;
 5. the result line {"ok": true, "device": {...}}.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after; a kernel of the path that did not launch fails the
+run.
 
 Any failed check exits non-zero before the result line, as does a machine
 without a CUDA device. fp32 comparisons run with TF32 off in cuDNN and
@@ -50,6 +61,13 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu,
     instance_norm_relu_ref,
 )
+from hdenseformer_tpu_torch.ops.s2d import conv3_packed
+from hdenseformer_tpu_torch.ops.shift_pack import (
+    shift_pack,
+    shift_pack_ref,
+    shift_unpack,
+    shift_unpack_ref,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -68,7 +86,23 @@ KERNELS = {
         source="hdenseformer_tpu_torch/csrc/instance_norm_relu.cu",
         replaces="hdenseformer_tpu/ops/instance_norm.py:56",
     ),
+    "shift_pack": dict(
+        wrapper=shift_pack,
+        source="hdenseformer_tpu_torch/csrc/shift_pack.cu",
+        replaces="hdenseformer_tpu/ops/shift_pack.py:95",
+    ),
+    "shift_pack_backward": dict(
+        wrapper=shift_unpack,
+        source="hdenseformer_tpu_torch/csrc/shift_pack.cu",
+        replaces="hdenseformer_tpu/ops/shift_pack.py:133",
+    ),
 }
+# packed-plain grid and channel counts of Hecktor20Top1's four half-shifts in
+# one serving forward (8 windows of 144^3, n_filters 32): the k7 stem (2
+# channels), block_1_2_left (32), block_1_1_right (64), block_1_2_right (32)
+SHIFT_FC = (16, 256, 512, 256)
+HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 4,
+                  "shift_pack_backward": 0}
 
 
 def fail(msg: str) -> None:
@@ -220,7 +254,88 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
         del x, got, again, plain
     torch.cuda.empty_cache()
+
+    # --- s2d half-shift, forward and backward ----------------------------
+    # A pure copy: the kernel must equal the plain version bit for bit. The
+    # serving forward runs it at SHIFT_FC; no single PyTorch call computes
+    # it (library_ms null). Bound: read the input once, write the output once.
+    g = PATCH // 2
+    per_forward = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for fc in sorted(set(SHIFT_FC)):
+        x = torch.randn((WINDOWS, g, g, g, fc), generator=gen, device=dev).to(torch.bfloat16)
+        got = shift_pack(x)
+        plain = shift_pack_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            fail(f"shift_pack {tuple(x.shape)}: differs from the plain version")
+        nbytes = (x.numel() + got.numel()) * x.element_size()
+        rec = dict(shape=list(x.shape), dtype="bfloat16", bitwise_equal=True,
+                   launches_per_serving_forward=SHIFT_FC.count(fc))
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 0, torch.bfloat16)
+        rec["ms"] = cuda_ms(lambda: shift_pack(x), iters=10)
+        rec["plain_ms"] = cuda_ms(lambda: shift_pack_ref(x), iters=5)
+        rec["library_ms"] = None
+        emit("kernel_check", kernel="shift_pack", **rec)
+        for key in per_forward:
+            per_forward[key] += rec[key] * SHIFT_FC.count(fc)
+        if fc == max(SHIFT_FC):
+            main["shift_pack"] = dict(max_abs_err=0.0, **{
+                key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        del x, got, plain
+        torch.cuda.empty_cache()
+    emit("shift_pack_per_serving_forward", launches=len(SHIFT_FC), **per_forward)
+    main["shift_pack"].update({f"per_forward_{k}": v for k, v in per_forward.items()})
+
+    dy = torch.randn((WINDOWS, g + 1, g + 1, g + 1, max(SHIFT_FC)), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    got = shift_unpack(dy)
+    plain = shift_unpack_ref(dy)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        fail(f"shift_unpack {tuple(dy.shape)}: differs from the plain version")
+    rec = dict(shape=list(dy.shape), dtype="bfloat16", bitwise_equal=True)
+    rec["bound_ms"], rec["bound_by"] = bound((dy.numel() + got.numel()) * 2, 0, torch.bfloat16)
+    rec["ms"] = cuda_ms(lambda: shift_unpack(dy), iters=10)
+    rec["plain_ms"] = cuda_ms(lambda: shift_unpack_ref(dy), iters=5)
+    rec["library_ms"] = None
+    emit("kernel_check", kernel="shift_pack_backward", **rec)
+    main["shift_pack_backward"] = dict(max_abs_err=0.0, **{
+        key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    del dy, got, plain
+    torch.cuda.empty_cache()
     return main
+
+
+def phase_shift_grad(gen) -> dict:
+    """The backward kernel's path: d/dx sum(conv3_packed(x, w)^2) via autograd.
+
+    fp32 with TF32 off, at (2, 20^3, 256) (C = 32, a 40^3 fine grid). Both
+    paths run the same cuDNN convolutions on bitwise-equal operands (the
+    shift is a copy), but cuDNN may pick another algorithm, and so another
+    summation order, for each call: 1e-5 of the gradient's scale.
+    """
+    dev = torch.device("cuda")
+    x = torch.randn((2, 20, 20, 20, 256), generator=gen, device=dev)
+    w = torch.randn((32, 32, 3, 3, 3), generator=gen, device=dev) * 0.05
+    grads = {}
+    for use in (True, False):
+        xr = x.clone().requires_grad_()
+        reset_counts()
+        conv3_packed(xr, w, use_kernels=use).square().sum().backward()
+        torch.cuda.synchronize()
+        grads[use] = (xr.grad, read_counts())
+    (got, counts), (ref, plain_counts) = grads[True], grads[False]
+    expect = {"dense_attention": 0, "instance_norm_relu": 0, "shift_pack": 1,
+              "shift_pack_backward": 1}
+    if counts != expect or any(plain_counts.values()):
+        fail(f"autograd path launched {counts} (plain path {plain_counts}), expected {expect}")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    emit("shift_grad", shape=list(x.shape), launches=counts, max_abs_err=err, scale=scale,
+         atol=1e-5 * scale)
+    if not (torch.isfinite(got).all() and err <= 1e-5 * scale):
+        fail(f"conv3_packed gradient through the kernels: {err} over {1e-5 * scale}")
+    return counts
 
 
 def build_models(args):
@@ -234,6 +349,11 @@ def build_models(args):
     return nets
 
 
+def hdf_expect(args) -> dict:
+    return {"dense_attention": 2 * args.depth, "instance_norm_relu": 18, "shift_pack": 0,
+            "shift_pack_backward": 0}
+
+
 def timed_forward(net, x):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -245,7 +365,7 @@ def timed_forward(net, x):
 def phase_forward(args, net, plain, gen) -> None:
     """Full-width forward through the kernels and through the plain versions."""
     x = torch.randn((WINDOWS, PATCH, PATCH, PATCH, 2), generator=gen, device="cuda")
-    expect = {"dense_attention": 2 * args.depth, "instance_norm_relu": 18}
+    expect = hdf_expect(args)
     with torch.inference_mode():
         reset_counts()
         outs, first_ms = timed_forward(net, x)
@@ -291,7 +411,7 @@ def synthetic_volume(seed: int) -> np.ndarray:
     return np.stack([ct, pet])
 
 
-def phase_serving(args, net, plain) -> dict:
+def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
     image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
 
     def serve(model):
@@ -319,7 +439,7 @@ def phase_serving(args, net, plain) -> dict:
     p50 = statistics.median(warm)
     n_windows = int(np.prod([len(s) for s in cal_steps((VOLUME,) * 3, (PATCH,) * 3,
                                                         (STEP,) * 3)]))
-    emit("serving", volume=[VOLUME] * 3, patch=PATCH, step=STEP, window_batch=WINDOWS,
+    emit(tag, volume=[VOLUME] * 3, patch=PATCH, step=STEP, window_batch=WINDOWS,
          windows=n_windows, label_shape=list(labels.shape), label_dtype=str(labels.dtype),
          class_histogram=np.bincount(labels.ravel(), minlength=N_CLS).tolist(),
          first_call_ms=first_ms, warm_ms=warm, p50_ms=p50,
@@ -327,14 +447,93 @@ def phase_serving(args, net, plain) -> dict:
          max_memory_allocated_bytes=peak, launches_first_call=first_counts,
          launches_per_warm_call=per_call, plain_path_ms=plain_ms,
          label_agreement_vs_plain=agree)
-    expect = {"dense_attention": 2 * args.depth, "instance_norm_relu": 18}
     if labels.shape != (VOLUME,) * 3 or labels.min() < 0 or labels.max() >= N_CLS:
         fail(f"labels {labels.shape} in [{labels.min()}, {labels.max()}]")
     if first_counts != expect or any(c != expect for c in per_call):
-        fail(f"serving launched {first_counts} / {per_call}, expected {expect} per call")
+        fail(f"{tag} launched {first_counts} / {per_call}, expected {expect} per call")
     if agree < 0.99:
-        fail(f"serving labels agree with the plain path on {agree} of voxels, under 0.99")
+        fail(f"{tag} labels agree with the plain path on {agree} of voxels, under 0.99")
     return first_counts
+
+
+def compare_logits(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Max |dlogit|, argmax agreement overall and where ref's top-two margin > 0.1."""
+    top = ref.topk(2, dim=-1).values
+    decided = top[..., 0] - top[..., 1] > 0.1
+    same = got.argmax(-1) == ref.argmax(-1)
+    return dict(max_abs_logit_diff=float((got - ref).abs().max()),
+                logit_scale=float(ref.abs().max()),
+                argmax_agreement=float(same.float().mean()),
+                decided_fraction=float(decided.float().mean()),
+                argmax_agreement_margin_gt_0p1=float(same[decided].float().mean()))
+
+
+def build_hecktor(seed: int, size: int, dtype):
+    """Hecktor20Top1 (n_filters 32) three ways, one set of random weights:
+    packed with the kernels (get_net's default at even dims), packed with the
+    plain versions, and fine with the kernels."""
+    nets = {
+        name: get_net("hecktor20top1", 2, N_CLS, (size,) * 3, dtype=dtype, s2d=s2d,
+                      use_kernels=use, device="cuda")
+        for name, s2d, use in (("packed", None, True), ("packed_plain", None, False),
+                               ("fine", False, True))
+    }
+    init_weights(nets["packed"], torch.Generator().manual_seed(seed))
+    for net in nets.values():
+        net.load_state_dict(nets["packed"].state_dict())
+    if not nets["packed"].packed or nets["fine"].packed:
+        fail("get_net's s2d=None did not pack Hecktor20Top1 at even dims")
+    return nets
+
+
+def phase_hecktor_forward(args, nets, gen) -> None:
+    """Full-width Hecktor20Top1 forward, three ways; then packed vs fine in fp32."""
+    x = torch.randn((WINDOWS, PATCH, PATCH, PATCH, 2), generator=gen, device="cuda")
+    rec, outs = {}, {}
+    with torch.inference_mode():
+        for name, net in nets.items():
+            reset_counts()
+            outs[name], first_ms = timed_forward(net, x)
+            counts = read_counts()
+            outs[name], warm_ms = timed_forward(net, x)
+            rec[name] = dict(first_ms=first_ms, warm_ms=warm_ms, launches=counts)
+    expect = {"packed": HECKTOR_EXPECT,
+              "packed_plain": dict.fromkeys(HECKTOR_EXPECT, 0),
+              "fine": dict(HECKTOR_EXPECT, shift_pack=0)}
+    for name, out in outs.items():
+        if rec[name]["launches"] != expect[name]:
+            fail(f"Hecktor {name} forward launched {rec[name]['launches']}, "
+                 f"expected {expect[name]}")
+        if out.shape != (WINDOWS, PATCH, PATCH, PATCH, N_CLS) or out.dtype != torch.float32:
+            fail(f"Hecktor {name} logits {tuple(out.shape)} {out.dtype}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"Hecktor {name} logits are not finite")
+    vs_plain = compare_logits(outs["packed"], outs["packed_plain"])
+    vs_fine = compare_logits(outs["packed"], outs["fine"])
+    emit("hecktor_forward", shape=list(x.shape), dtype="bfloat16", runs=rec,
+         kernels_vs_plain=vs_plain, packed_vs_fine_bf16=vs_fine)
+    # the same bar as HDenseFormer's kernel path against its plain path (bf16)
+    if vs_plain["argmax_agreement"] < 0.99 or vs_plain["argmax_agreement_margin_gt_0p1"] < 0.999:
+        fail(f"Hecktor kernels vs plain path: {vs_plain}")
+    del outs, x
+    torch.cuda.empty_cache()
+
+    # packed against fine in fp32 (TF32 off) at 64^3, n_filters 32: JAX's bar
+    # for its own packed-vs-fine test, 2e-2 of the logit scale
+    small = build_hecktor(args.seed, 64, None)
+    x = torch.randn((2, 64, 64, 64, 2), generator=gen, device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        got = small["packed"](x)
+        counts = read_counts()
+        ref = small["fine"](x)
+    cmp = compare_logits(got, ref)
+    emit("hecktor_packed_vs_fine_fp32", shape=list(x.shape), launches=counts,
+         atol=2e-2 * cmp["logit_scale"], **cmp)
+    if counts != HECKTOR_EXPECT or not cmp["max_abs_logit_diff"] <= 2e-2 * cmp["logit_scale"]:
+        fail(f"Hecktor packed vs fine fp32: {cmp}, launches {counts}")
+    del small, got, ref
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -352,14 +551,23 @@ def main() -> int:
 
     smi = phase_env(args)
     main_shapes = phase_kernels(gen)
+    by_path = {"shift_grad": phase_shift_grad(gen)}
     net, plain = build_models(args)
     phase_forward(args, net, plain, gen)
-    launches = phase_serving(args, net, plain)
+    by_path["serve-200"] = phase_serving(args, net, plain, "serving", hdf_expect(args))
+    del net, plain
+    torch.cuda.empty_cache()
+    nets = build_hecktor(args.seed, PATCH, torch.bfloat16)
+    phase_hecktor_forward(args, nets, gen)
+    by_path["serve-200-hecktor"] = phase_serving(
+        args, nets["packed"], nets["packed_plain"], "serving_hecktor", HECKTOR_EXPECT)
 
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-             launches=launches[name], **main_shapes[name])
+             launches=sum(counts[name] for counts in by_path.values()),
+             launches_by_path={path: counts[name] for path, counts in by_path.items()},
+             **main_shapes[name])
         for name, k in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

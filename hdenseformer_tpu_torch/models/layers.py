@@ -16,9 +16,14 @@ Parameters are created uninitialised, as flax modules hold none until
 initialisation, drawn on the CPU so that a seed gives the same weights on
 every device) or load them with ``weights.load_jax_params``.
 
-Not ported here: the space-to-depth packed arguments (``packed``,
-``packed_dims``, ``shift``, ``packed_out``), the BatchNorm variants, 1-D and
-2-D convolutions and dilation, all off the HDenseFormer 3-D serving path.
+The space-to-depth packed arguments run at full rank (``ops/s2d.py``):
+``Conv(packed=True)`` for odd kernels and for k1, ``ConvTranspose(
+packed_out=True)`` for k3 s2 p1 op1, and ``InstanceNorm(packed=True)``,
+which is what Hecktor20Top1's level 1 runs. Not ported here: partial-rank
+packing (``packed_dims`` naming fewer dims raises), the shift-free conv pair
+(``packed_shift``/``shift``, HDenseFormer's packed level 0), the BatchNorm
+variants, 1-D and 2-D convolutions and dilation (ROADMAP.md queue 1 items 3
+and 4).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu_ref,
 )
 from hdenseformer_tpu_torch.ops.resize import upsample_linear
+from hdenseformer_tpu_torch.ops.s2d import conv1_packed, conv_transpose_packed, convk_packed
 
 _CL = torch.channels_last_3d
 EPS = 1e-5  # torch's InstanceNorm and LayerNorm default, as in the JAX modules
@@ -52,16 +58,29 @@ class Conv(nn.Module):
     deep-supervision heads) computes in fp32 on the upcast activation with
     the weight rounded to ``dtype``, as the JAX heads multiply bf16 operands
     with fp32 accumulation; the logits are never rounded to bf16.
+
+    ``packed=True`` takes and returns the s2d packed-plain layout (the same
+    weight): an odd kernel with SAME padding runs ``ops.s2d.convk_packed``
+    (the half-shift through the kernel wrapper, or its plain version when
+    ``use_kernels`` is False), k1 runs ``conv1_packed``, which returns fp32
+    as JAX's does.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, out_f32: bool = False,
+                 packed: bool = False, packed_dims=None, use_kernels: bool = True,
                  device=None):
         super().__init__()
         k = kernel_size
+        if packed and (stride != 1 or k % 2 != 1 or padding != k // 2 or out_f32):
+            raise ValueError(
+                f"a packed conv is SAME and stride 1 with an odd kernel: got k{k}, "
+                f"stride {stride}, padding {padding}, out_f32 {out_f32}"
+            )
         self.stride, self.padding = stride, padding
         self.dtype, self.out_f32 = dtype, out_f32
+        self.packed, self.packed_dims, self.use_kernels = packed, packed_dims, use_kernels
         self.weight = nn.Parameter(torch.empty(features, in_features, k, k, k, device=device))
         self.bias = (
             nn.Parameter(torch.empty(features, device=device)) if use_bias else None
@@ -75,6 +94,11 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        if self.packed:
+            if self.weight.shape[-1] == 1:
+                return conv1_packed(x, self.weight, self.bias, self.packed_dims)
+            return convk_packed(x, self.weight, self.bias, dt, self.packed_dims,
+                                self.use_kernels)
         w = self.weight.to(dt, memory_format=_CL)
         if self.out_f32:
             y = F.conv3d(x.float().movedim(-1, 1), w.float(), self.bias,
@@ -90,15 +114,23 @@ class ConvTranspose(nn.Module):
 
     The JAX module stores the spatially flipped equivalent-conv kernel
     (k, k, k, in, out); ``weights.from_jax_params`` flips it back.
+    ``packed_out=True`` (k3, s2, p1, op1 only) emits the s2d packed-plain
+    layout of the upsampled grid (``ops.s2d.conv_transpose_packed``).
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, packed_out: bool = False,
+                 device=None):
         super().__init__()
         k = kernel_size
+        if packed_out and (k, stride, padding, output_padding) != (3, 2, 1, 1):
+            raise ValueError(
+                "a packed-output ConvTranspose is k3 s2 p1 op1, got "
+                f"k{k} s{stride} p{padding} op{output_padding}"
+            )
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
-        self.dtype = dtype
+        self.dtype, self.packed_out = dtype, packed_out
         self.weight = nn.Parameter(torch.empty(in_features, features, k, k, k, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
@@ -110,6 +142,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        if self.packed_out:
+            return conv_transpose_packed(x, self.weight, self.bias, dt)
         w = self.weight.to(dt, memory_format=_CL)
         y = F.conv_transpose3d(x.to(dt).movedim(-1, 1), w, self.bias.to(dt), self.stride,
                                self.padding, self.output_padding)
@@ -147,12 +181,18 @@ class InstanceNorm(nn.Module):
     variance, fp32 statistics, optional affine and ReLU. ``use_kernels``
     selects the kernel wrapper (the CUDA kernel for a CUDA tensor) or the
     plain version.
+
+    ``packed=True`` takes an s2d packed tensor (N, *g, f*features) and pools
+    each channel's statistics over (spatial, parity): with parity-major
+    channels that is the plain per-channel norm of the free view
+    (N, g*f, features), so the same kernel runs on it.
     """
 
     def __init__(self, features: int, affine: bool = True, fuse_relu: bool = False,
-                 use_kernels: bool = True, device=None):
+                 use_kernels: bool = True, packed: bool = False, device=None):
         super().__init__()
-        self.fuse_relu, self.use_kernels = fuse_relu, use_kernels
+        self.features = features
+        self.fuse_relu, self.use_kernels, self.packed = fuse_relu, use_kernels, packed
         if affine:
             self.weight = nn.Parameter(torch.empty(features, device=device))
             self.bias = nn.Parameter(torch.empty(features, device=device))
@@ -166,6 +206,10 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = instance_norm_relu if self.use_kernels else instance_norm_relu_ref
+        if self.packed:
+            y = fn(x.reshape(x.shape[0], -1, self.features), self.weight, self.bias, EPS,
+                   self.fuse_relu)
+            return y.reshape(x.shape)
         return fn(x, self.weight, self.bias, EPS, self.fuse_relu)
 
 

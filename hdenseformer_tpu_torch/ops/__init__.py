@@ -1,1 +1,2 @@
-"""Tensor ops of the port: the two hand-written CUDA kernels and resizing."""
+"""Tensor ops of the port: the hand-written CUDA kernels' wrappers, the
+space-to-depth packed layout, and resizing."""

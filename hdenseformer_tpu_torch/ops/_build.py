@@ -24,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dense_attention.cu", "instance_norm_relu.cu")
+SOURCES = ("dense_attention.cu", "instance_norm_relu.cu", "shift_pack.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "hdf_instance_norm_relu": (
         _p, _p, _p, _p, _p, _p, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _p,
     ),
+    # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
+    "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),
 }
 
 

@@ -2,15 +2,18 @@
 """Where the device time of one serving call goes, on one GPU.
 
     python3 profile_torch_serving.py [--seed 0] [--depth 24]
+        [--net HDenseFormer_32|hecktor20top1] [--fine]
 
-Builds HDenseFormer_32 at full width with random weights, as chip_smoke.py
-does, serves its synthetic 200^3 two-channel volume twice to warm up (patch
-144^3, step 72^3, window_batch 8: one model call of 8 windows), then runs a
-third call under torch.profiler and prints JSON lines:
+Builds the model at full width with random weights, as chip_smoke.py does
+(HDenseFormer_32 by default; hecktor20top1 with its level 1 packed, or on
+the fine grid with --fine), serves its synthetic 200^3 two-channel volume
+twice to warm up (patch 144^3, step 72^3, window_batch 8: one model call of
+8 windows), then runs a third call under torch.profiler and prints JSON
+lines:
 
 - "call": host wall time of the profiled call, device busy time (the union
   of its kernels' intervals), and the device's idle share;
-- "groups": device time of the port's two kernels and of everything else;
+- "groups": device time of each of the port's kernels and of everything else;
 - "kernels": the 25 kernels with the most device time, with launch counts.
 
 It needs a CUDA device and exits non-zero without one, or if the profiler
@@ -27,13 +30,22 @@ from collections import defaultdict
 import torch
 from torch.autograd import DeviceType
 
-from chip_smoke import PATCH, STEP, WINDOWS, N_CLS, build_models, synthetic_volume
+from chip_smoke import (
+    N_CLS,
+    PATCH,
+    STEP,
+    WINDOWS,
+    build_hecktor,
+    build_models,
+    synthetic_volume,
+)
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import predict_volume
 
 GROUPS = {
     "dense_attention kernel": ("dense_attention_kernel",),
     "instance_norm_relu kernel": ("partial_stats_kernel", "finalize_kernel", "normalize_kernel"),
+    "shift_pack kernel": ("shift_kernel",),
 }
 
 
@@ -57,13 +69,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=24)
+    ap.add_argument("--net", choices=("HDenseFormer_32", "hecktor20top1"),
+                    default="HDenseFormer_32")
+    ap.add_argument("--fine", action="store_true",
+                    help="hecktor20top1 on the fine grid (default: level 1 packed)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    net, _ = build_models(args)
+    if args.net == "hecktor20top1":
+        net = build_hecktor(args.seed, PATCH, torch.bfloat16)["fine" if args.fine else "packed"]
+    else:
+        net, _ = build_models(args)
     image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
 
     def serve():
@@ -92,7 +111,8 @@ def main() -> int:
         count[e.name] += 1
         by_group[group_of(e.name)] += d
     print(json.dumps({"call": {
-        "device": torch.cuda.get_device_name(0), "wall_ms": wall_us / 1e3,
+        "device": torch.cuda.get_device_name(0), "net": args.net,
+        "packed": bool(getattr(net, "packed", False)), "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / wall_us,
         "kernel_launches": len(kernels)}}))
     print(json.dumps({"groups": {g: {"ms": t / 1e3, "share_of_busy": t / busy}

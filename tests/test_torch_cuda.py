@@ -21,6 +21,12 @@ from hdenseformer_tpu_torch.ops.instance_norm import (  # noqa: E402
     instance_norm_relu,
     instance_norm_relu_ref,
 )
+from hdenseformer_tpu_torch.ops.shift_pack import (  # noqa: E402
+    shift_pack,
+    shift_pack_ref,
+    shift_unpack,
+    shift_unpack_ref,
+)
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -115,3 +121,72 @@ def test_model_goes_through_the_kernels(cuda):
     assert counts == (2 * 4, 18)
     for g_, r in zip(got, ref):
         torch.testing.assert_close(g_, r, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fc", [16, 256])
+@pytest.mark.parametrize("grid", [(5, 6, 7), (3, 1, 4), (9, 6)])
+def test_shift_kernels_equal_plain_bitwise(cuda, grid, fc, dtype):
+    if len(grid) == 2 and fc == 16:
+        fc = 12  # C = 3: odd-sized blocks, 2-byte (bf16) or 4-byte (fp32) vectors
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, *grid, fc), generator=g, device=cuda).to(dtype)
+    got = shift_pack(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, *(s + 1 for s in grid), fc)
+    assert torch.equal(got, shift_pack_ref(x))
+    dy = torch.randn(got.shape, generator=g, device=cuda).to(dtype)
+    back = shift_unpack(dy)
+    torch.cuda.synchronize()
+    assert torch.equal(back, shift_unpack_ref(dy))
+
+
+def test_shift_kernel_gradient_through_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((1, 4, 5, 6, 64), generator=g, device=cuda, requires_grad=True)
+    shift_pack.launches = shift_unpack.launches = 0
+    torch.sin(shift_pack(x)).sum().backward()
+    assert (shift_pack.launches, shift_unpack.launches) == (1, 1)
+    dy = torch.cos(shift_pack_ref(x.detach()))
+    assert torch.equal(x.grad, shift_unpack_ref(dy))
+
+
+def test_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(1, 4, 4, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        shift_pack(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        shift_pack(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        shift_pack(x[..., :12].contiguous())
+    with pytest.raises(ValueError, match="spatial dims"):
+        shift_unpack(torch.randn(1, 4, 16, device=cuda))
+
+
+def test_hecktor_goes_through_the_kernels(cuda):
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    nets = {
+        (s2d, use): get_net("hecktor20top1", 2, 2, (32, 32, 32), s2d=s2d,
+                            use_kernels=use, device=cuda)
+        for s2d, use in ((True, True), (True, False), (False, True))
+    }
+    init_weights(nets[True, True], torch.Generator().manual_seed(0))
+    for net in nets.values():
+        net.load_state_dict(nets[True, True].state_dict())
+    x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    shift_pack.launches = instance_norm_relu.launches = 0
+    with torch.inference_mode():
+        got = nets[True, True](x)
+        counts = shift_pack.launches, instance_norm_relu.launches
+        plain = nets[True, False](x)
+        fine = nets[False, True](x)
+    torch.cuda.synchronize()
+    # 4 packed k3/k7 convs and 30 SE norms a forward
+    assert counts == (4, 30)
+    # fp32, TF32 off: the kernels change no value; packed against fine is
+    # fp32 reduction order amplified by the norms (JAX's bar, 2e-2 of the scale)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, fine, rtol=0, atol=2e-2 * float(fine.abs().max()))

@@ -14,9 +14,12 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.ops.dense_attention",
     "hdenseformer_tpu_torch.ops.instance_norm",
     "hdenseformer_tpu_torch.ops.resize",
+    "hdenseformer_tpu_torch.ops.s2d",
+    "hdenseformer_tpu_torch.ops.shift_pack",
     "hdenseformer_tpu_torch.models",
     "hdenseformer_tpu_torch.models.layers",
     "hdenseformer_tpu_torch.models.hdenseformer",
+    "hdenseformer_tpu_torch.models.hecktor20top1",
     "hdenseformer_tpu_torch.weights",
     "hdenseformer_tpu_torch.data",
     "hdenseformer_tpu_torch.data.transforms",
@@ -54,5 +57,6 @@ def test_get_net_defaults_to_the_gpu(monkeypatch):
     from hdenseformer_tpu_torch.models import get_net
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        get_net("HDenseFormer_32", 2, 2, (32, 32, 32), transformer_depth=4)
+    for name in ("HDenseFormer_32", "hecktor20top1"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_net(name, 2, 2, (32, 32, 32), transformer_depth=4)

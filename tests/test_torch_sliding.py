@@ -1,9 +1,9 @@
 """Port sliding-window inference against the JAX package's.
 
 The window grid helpers must be exactly JAX's; ``predict_volume`` runs a
-small HDenseFormer with the same weights in both frameworks and must give
-the same accumulated probabilities and, wherever the decision is not a
-near-tie, the same labels.
+small HDenseFormer, and a small packed Hecktor20Top1, with the same weights
+in both frameworks and must give the same accumulated probabilities and,
+wherever the decision is not a near-tie, the same labels.
 """
 import numpy as np
 import pytest
@@ -63,12 +63,12 @@ def volume():
     return np.random.RandomState(7).randn(2, 40, 40, 40).astype(np.float32)
 
 
-def _windows(vol, wb):
+def _windows(vol, wb, patch=PATCH, step=STEP):
     """predict_volume's lattice-padded volume, origins and weights."""
     spatial = vol.shape[1:]
-    tgt = js._lattice_pad_targets(spatial, PATCH, STEP)
+    tgt = js._lattice_pad_targets(spatial, patch, step)
     image = np.pad(np.moveaxis(vol, 0, -1), [(0, t - s) for t, s in zip(tgt, spatial)] + [(0, 0)])
-    origins = js._origins_array(js.cal_steps(spatial, PATCH, STEP))
+    origins = js._origins_array(js.cal_steps(spatial, patch, step))
     n_pad = -(-len(origins) // wb) * wb - len(origins)
     weights = np.concatenate([np.ones(len(origins), np.float32), np.zeros(n_pad, np.float32)])
     origins = np.concatenate([origins, np.zeros((n_pad, 3), np.int32)])
@@ -133,3 +133,36 @@ def test_inference_slidingwindow_writes_cases(models, tmp_path):
                                      PATCH, STEP, window_batch=8)
     assert [p.rsplit("/", 1)[-1] for p in out] == ["a.npy", "b.npy"]
     assert np.load(out[0]).shape == (36, 33, 32)
+
+
+H_PATCH, H_STEP = (16, 16, 16), (8, 8, 8)
+
+
+@pytest.fixture(scope="module")
+def hecktor():
+    from hdenseformer_tpu.models.hecktor20top1 import Hecktor20Top1 as JaxHecktor
+    from hdenseformer_tpu_torch.models.hecktor20top1 import Hecktor20Top1
+
+    jmodel = JaxHecktor(in_channels=2, n_cls=N_CLS, n_filters=8, s2d=True)
+    params = random_jax_params(jmodel, jnp.zeros((1,) + H_PATCH + (2,), jnp.float32),
+                               np.random.RandomState(0))
+    port = load_jax_params(
+        Hecktor20Top1(2, N_CLS, 8, H_PATCH, s2d=True, device="cpu"), params).eval()
+    return jmodel, {"params": params}, port
+
+
+def test_predict_volume_hecktor_matches_jax(hecktor):
+    """The packed Hecktor20Top1 (one logits array) served by both frameworks."""
+    jmodel, variables, port = hecktor
+    # 24^3 at patch 16 / step 8: 2 origins per dim, 8 windows in 4 calls of 2
+    vol = np.random.RandomState(9).randn(2, 24, 24, 24).astype(np.float32)
+    lab_j = js.predict_volume(jmodel, variables, vol, H_PATCH, H_STEP, N_CLS, window_batch=2)
+    lab_t = ts.predict_volume(port, vol, H_PATCH, H_STEP, N_CLS, window_batch=2)
+    assert lab_t.shape == lab_j.shape == vol.shape[1:] and lab_t.dtype == np.int32
+    image, origins, weights = _windows(vol, 2, H_PATCH, H_STEP)
+    acc = ts.accumulate_windows(port, torch.from_numpy(image), origins, weights, H_PATCH,
+                                N_CLS, None, 2).numpy()[:24, :24, :24]
+    top2 = np.sort(acc / acc.sum(-1, keepdims=True), axis=-1)
+    decided = top2[..., -1] - top2[..., -2] > 1e-4
+    assert decided.mean() > 0.95
+    np.testing.assert_array_equal(lab_t[decided], lab_j[decided])
