@@ -10,11 +10,18 @@ HDenseFormer_32 and Hecktor20Top1:
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
 1. each kernel against its plain version on the card at the serving
-   shapes, with its stated tolerance, timed beside the plain version, one
-   PyTorch call that computes the same function where there is one, and
-   its bound (the larger of bytes over 3.35 TB/s and operations over the
-   peak for the input type); then the path of the half-shift's backward
-   kernel: the gradient of sum(conv3_packed(x, w)^2) through autograd;
+   shapes, with its stated tolerance (InstanceNorm also on 1000 + N(0, 1),
+   the guard of its centred statistics; both redesigned kernels rerun
+   bitwise), timed beside the plain version, one PyTorch call that
+   computes the same function where there is one, and its bound (the
+   larger of bytes over 3.35 TB/s and operations over the peak for the
+   input type). Times are device times under torch.profiler (the kernels'
+   durations, no host time between launches). InstanceNorm is also timed
+   by pass and at each of its shapes in a HDenseFormer_32 serving forward
+   (summed as per_forward_*), attention also on the qkv-split layout that
+   serving gives it and on peaked scores, with its occupancy; then the path
+   of the half-shift's backward kernel: the gradient of
+   sum(conv3_packed(x, w)^2) through autograd;
 2. the full-width HDenseFormer_32 forward (2 modalities, 144^3, depth 24,
    bf16, 8 windows), once through the kernels and once through the plain
    versions: logit difference, argmax agreement, kernel launch counts;
@@ -50,6 +57,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
@@ -57,6 +65,7 @@ from hdenseformer_tpu_torch.models import get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
 from hdenseformer_tpu_torch.ops import _build
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
+from hdenseformer_tpu_torch.ops.dense_attention import launch_plan as attention_plan
 from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu,
     instance_norm_relu_ref,
@@ -101,6 +110,11 @@ KERNELS = {
 # one serving forward (8 windows of 144^3, n_filters 32): the k7 stem (2
 # channels), block_1_2_left (32), block_1_1_right (64), block_1_2_right (32)
 SHIFT_FC = (16, 256, 512, 256)
+# (S, C) and count of HDenseFormer_32's InstanceNorm launches in one serving
+# forward (8 windows of 144^3): the BasicConv/UpConv norms at each level
+IN_FORWARD = (((PATCH ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 5),
+              (((PATCH // 4) ** 3, 128), 5), (((PATCH // 8) ** 3, 256), 3))
+IN_PASSES = ("partial_stats_kernel", "finalize_kernel", "normalize_kernel")
 HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 4,
                   "shift_pack_backward": 0}
 
@@ -123,7 +137,8 @@ def read_counts() -> dict:
 
 
 def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
-    """Median over ``reps`` of the mean device time of ``iters`` calls."""
+    """Median over ``reps`` of the CUDA-event time of ``iters`` calls, over
+    their count: the host's time between launches included."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -137,6 +152,33 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: its kernels' durations under torch.profiler.
+
+    Host time between launches is left out, so a kernel shorter than its
+    wrapper's Python overhead is timed as the card runs it.
+    """
+    return sum(device_kernels(fn, iters).values())
+
+
+def device_kernels(fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel name that ``fn`` launches."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    if not by_name:
+        fail("torch.profiler recorded no device time")
+    return by_name
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -169,6 +211,35 @@ def phase_env(args) -> str:
     return smi
 
 
+def instance_norm_times(x, scale, bias, library: bool = True) -> dict:
+    """Device times of the kernel (by pass), its plain version and, with
+    ``library``, ``F.relu(F.instance_norm(...))``; the bound. Each pass's
+    rate counts the bytes it must move: x for the statistics, x and y for
+    the normalize."""
+    c = x.shape[-1]
+    affine = scale is not None
+    # ~7 fp32 operations per element: shifted sums 3, normalize+affine+ReLU 4
+    nbytes = 2 * x.numel() * x.element_size() + (2 * c * 4 if affine else 0)
+    rec = dict(zip(("bound_ms", "bound_by"), bound(nbytes, 7 * x.numel(), torch.float32)))
+    iters = 10 if x.numel() > 1e8 else 50
+    by_kernel = device_kernels(lambda: instance_norm_relu(x, scale, bias), iters)
+    passes = {p: sum(t for name, t in by_kernel.items() if p in name) for p in IN_PASSES}
+    if any(t == 0 for t in passes.values()):
+        fail(f"instance_norm_relu: the profiler saw {sorted(by_kernel)}, not its three passes")
+    xbytes = x.numel() * x.element_size()
+    rec["ms"] = sum(by_kernel.values())
+    rec["passes_ms"] = passes
+    rec["passes_tb_per_s"] = {"partial_stats_kernel": xbytes / passes["partial_stats_kernel"] / 1e9,
+                              "normalize_kernel": 2 * xbytes / passes["normalize_kernel"] / 1e9}
+    rec["plain_ms"] = device_ms(lambda: instance_norm_relu_ref(x, scale, bias), iters)
+    if library:
+        # the library call on the same channels-last tensor, viewed as (N, C, S)
+        rec["library_ms"] = device_ms(
+            lambda: F.relu(F.instance_norm(x.transpose(1, 2), weight=scale, bias=bias, eps=1e-5)),
+            iters)
+    return rec
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Each kernel against its plain version; returns the main-shape numbers."""
     dev = torch.device("cuda")
@@ -179,8 +250,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # against the fp32 math on the same inputs: one output rounding,
     # 1e-5 + 2^-8 |ref|. bf16 against the plain bf16 version, which also
     # rounds the probabilities to bf16 before the second product (the kernel
-    # keeps them in fp32): that rounding moves an output by up to
-    # 2^-9 * max|v| ~ 1e-2, so 2e-2 + 2^-8 |ref|.
+    # carries them as two bf16 parts, to 2^-16): that rounding moves an
+    # output by up to 2^-9 * max|v| ~ 1e-2, so 2e-2 + 2^-8 |ref|.
     for shape, dtype in (((8, 8, 729, 4), torch.bfloat16), ((8, 8, 729, 4), torch.float32),
                          ((1, 2, 130, 4), torch.float32)):
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
@@ -201,9 +272,32 @@ def phase_kernels(gen: torch.Generator) -> dict:
         b, h, n, d = shape
         nbytes, ops = 4 * q.numel() * q.element_size(), 4 * b * h * n * n * d
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
-        rec["ms"] = cuda_ms(lambda: dense_attention(q, k, v), iters=50)
-        rec["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v), iters=20)
-        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+        rec["ms"] = device_ms(lambda: dense_attention(q, k, v), iters=50)
+        rec["event_ms"] = cuda_ms(lambda: dense_attention(q, k, v), iters=50)  # with the host
+        rec["plain_ms"] = device_ms(lambda: attention_ref(q, k, v), iters=20)
+        rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+        rec["bitwise_rerun"] = bool(torch.equal(got, dense_attention(q, k, v)))
+        if not rec["bitwise_rerun"]:
+            fail(f"dense_attention {shape} {dtype}: reruns differ")
+        if shape == (8, 8, 729, 4) and dtype == torch.bfloat16:
+            # the serving layout: the head views of one qkv projection
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
+            views = [t.view(b, n, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+            rec["ms_qkv_split"] = device_ms(lambda: dense_attention(*views), iters=50)
+            # peaked scores (q and k x 8, scores ~64x wider): the bf16 sweep's
+            # running max moves up, and rescales, in most warps
+            qp, kp = (q.float() * 8).to(dtype), (k.float() * 8).to(dtype)
+            abs_e, _, over = max_err(dense_attention(qp, kp, v),
+                                     attention_ref(qp.float(), kp.float(), v.float()), 2.0 ** -8,
+                                     1e-5)
+            if not over <= 1.0:
+                fail(f"dense_attention {shape} peaked vs fp32_math: {abs_e} over tolerance")
+            rec["peaked"] = dict(max_abs_vs_fp32_math=abs_e,
+                                 ms=device_ms(lambda: dense_attention(qp, kp, v), iters=50))
+            blocks = _build.load_library().hdf_dense_attention_blocks_per_sm(1, d, n)
+            plan = attention_plan(b, h, n, d, q.element_size())
+            rec["occupancy"] = dict(blocks_per_sm=blocks, warps_per_sm=blocks * plan.threads // 32,
+                                    grid=list(plan.grid), threads=plan.threads)
         emit("kernel_check", kernel="dense_attention", **rec)
         if shape == (8, 8, 729, 4) and dtype == torch.bfloat16:
             main["dense_attention"] = dict(max_abs_err=rec["vs_plain"]["max_abs"], **{
@@ -214,46 +308,61 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # Tolerances: fp32, summation order: 1e-5 + 1e-5 |ref|. bf16: the kernel
     # and the plain version round the same fp32 value unless their statistics
     # (summed in different orders) put it across a rounding boundary, so at
-    # most one bf16 step apart: 1e-6 + 2^-7 |ref|.
-    for (n, s, c), dtype, affine in (
-        ((WINDOWS, PATCH ** 3, 32), torch.bfloat16, True),  # the largest serving call
-        ((2, 1000, 32), torch.float32, True),
-        ((2, 1000, 32), torch.float32, False),
-        ((1, 300, 16), torch.float32, True),
+    # most one bf16 step apart: 1e-6 + 2^-7 |ref|. The "far" case, 1000 +
+    # N(0, 1) in fp32, guards the centred statistics: the plain version runs
+    # on x - 1000 (exact here; the norm does not change under a shift), since
+    # on x its own fp32 mean near 1000 is only good to a 6e-5 step.
+    for (n, s, c), dtype, affine, far in (
+        ((WINDOWS, PATCH ** 3, 32), torch.bfloat16, True, False),  # the largest serving call
+        ((2, 1000, 32), torch.float32, True, False),
+        ((2, 1000, 32), torch.float32, False, False),
+        ((1, 300, 16), torch.float32, True, False),
+        ((2, 4096, 32), torch.float32, True, True),
     ):
-        x = (torch.randn((n, s, c), generator=gen, device=dev) * 3 + 1).to(dtype)
+        x = (torch.randn((n, s, c), generator=gen, device=dev) * (1 if far else 3)
+             + (1000 if far else 1)).to(dtype)
         scale = torch.rand(c, generator=gen, device=dev) if affine else None
         bias = torch.randn(c, generator=gen, device=dev) if affine else None
         got = instance_norm_relu(x, scale, bias)
         again = instance_norm_relu(x, scale, bias)
-        plain = instance_norm_relu_ref(x, scale, bias)
+        plain = instance_norm_relu_ref(x - 1000 if far else x, scale, bias)
         torch.cuda.synchronize()
         rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_STEP, 1e-6)
         abs_e, rel_e, over = max_err(got, plain, rtol, atol)
         rec = dict(shape=[n, s, c], dtype=str(dtype).replace("torch.", ""), affine=affine,
+                   mean=1000 if far else 1,
                    vs_plain=dict(max_abs=abs_e, max_rel=rel_e, rtol=rtol, atol=atol),
                    bitwise_rerun=bool(torch.equal(got, again)))
         if not over <= 1.0:
-            fail(f"instance_norm_relu {(n, s, c)} {dtype}: {abs_e} over tolerance")
+            fail(f"instance_norm_relu {(n, s, c)} {dtype} mean {rec['mean']}: {abs_e} over "
+                 "tolerance")
         if not rec["bitwise_rerun"]:
             fail(f"instance_norm_relu {(n, s, c)} {dtype}: reruns differ")
-        # ~11 fp32 operations per element: Welford 6, normalize+affine+ReLU 5
-        nbytes = 2 * x.numel() * x.element_size() + (2 * c * 4 if affine else 0)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 11 * x.numel(), torch.float32)
-        iters = 10 if x.numel() > 1e8 else 50
-        rec["ms"] = cuda_ms(lambda: instance_norm_relu(x, scale, bias), iters=iters)
-        rec["plain_ms"] = cuda_ms(lambda: instance_norm_relu_ref(x, scale, bias), iters=iters)
-        # the library call on the same channels-last tensor, viewed as (N, C, S)
-        rec["library_ms"] = cuda_ms(
-            lambda: F.relu(F.instance_norm(x.transpose(1, 2), weight=scale, bias=bias, eps=1e-5)),
-            iters=iters,
-        )
+        rec.update(instance_norm_times(x, scale, bias))
         emit("kernel_check", kernel="instance_norm_relu", **rec)
         if "instance_norm_relu" not in main:
             main["instance_norm_relu"] = dict(max_abs_err=abs_e, **{
                 key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
         del x, got, again, plain
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+
+    # the serving forward's InstanceNorm launches, timed shape by shape
+    per_forward = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for (s, c), count in IN_FORWARD:
+        x = (torch.randn((WINDOWS, s, c), generator=gen, device=dev) * 3 + 1).to(torch.bfloat16)
+        scale, bias = torch.rand(c, generator=gen, device=dev), torch.randn(c, generator=gen,
+                                                                             device=dev)
+        rec = dict(shape=[WINDOWS, s, c], dtype="bfloat16", launches_per_serving_forward=count,
+                   **instance_norm_times(x, scale, bias, library=False))
+        emit("instance_norm_serving_shape", **rec)
+        for key in per_forward:
+            per_forward[key] += rec[key] * count
+        del x
+        torch.cuda.empty_cache()
+    launches = sum(count for _, count in IN_FORWARD)
+    emit("instance_norm_per_serving_forward", launches=launches,
+         **{f"per_forward_{k}": v for k, v in per_forward.items()})
+    main["instance_norm_relu"].update({f"per_forward_{k}": v for k, v in per_forward.items()})
 
     # --- s2d half-shift, forward and backward ----------------------------
     # A pure copy: the kernel must equal the plain version bit for bit. The
@@ -272,8 +381,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
         rec = dict(shape=list(x.shape), dtype="bfloat16", bitwise_equal=True,
                    launches_per_serving_forward=SHIFT_FC.count(fc))
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 0, torch.bfloat16)
-        rec["ms"] = cuda_ms(lambda: shift_pack(x), iters=10)
-        rec["plain_ms"] = cuda_ms(lambda: shift_pack_ref(x), iters=5)
+        rec["ms"] = device_ms(lambda: shift_pack(x), iters=10)
+        rec["plain_ms"] = device_ms(lambda: shift_pack_ref(x), iters=5)
         rec["library_ms"] = None
         emit("kernel_check", kernel="shift_pack", **rec)
         for key in per_forward:
@@ -295,8 +404,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
         fail(f"shift_unpack {tuple(dy.shape)}: differs from the plain version")
     rec = dict(shape=list(dy.shape), dtype="bfloat16", bitwise_equal=True)
     rec["bound_ms"], rec["bound_by"] = bound((dy.numel() + got.numel()) * 2, 0, torch.bfloat16)
-    rec["ms"] = cuda_ms(lambda: shift_unpack(dy), iters=10)
-    rec["plain_ms"] = cuda_ms(lambda: shift_unpack_ref(dy), iters=5)
+    rec["ms"] = device_ms(lambda: shift_unpack(dy), iters=10)
+    rec["plain_ms"] = device_ms(lambda: shift_unpack_ref(dy), iters=5)
     rec["library_ms"] = None
     emit("kernel_check", kernel="shift_pack_backward", **rec)
     main["shift_pack_backward"] = dict(max_abs_err=0.0, **{
@@ -372,6 +481,9 @@ def phase_forward(args, net, plain, gen) -> None:
         counts = read_counts()
         if counts != expect:
             fail(f"forward launched {counts}, expected {expect}")
+        if counts["instance_norm_relu"] != sum(count for _, count in IN_FORWARD):
+            fail(f"forward launched {counts['instance_norm_relu']} InstanceNorms, but phase 1 "
+                 f"timed {IN_FORWARD} as one forward's")
         outs, warm_ms = timed_forward(net, x)
         ref, plain_first_ms = timed_forward(plain, x)
         ref, plain_ms = timed_forward(plain, x)

@@ -42,9 +42,12 @@ _f = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, dtype, B, H, N, D, sb, sh, sn, scale, stream
     "hdf_dense_attention": (_p, _p, _p, _p, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f, _p),
-    # x, scale, bias, y, part, stats, dtype, N, S, C, CT, chunk, K, eps, relu, stream
+    # dtype, D, N
+    "hdf_dense_attention_blocks_per_sm": (_i, _i, _i),
+    # x, scale, bias, y, part, stats, dtype, vec_bytes, N, S, C, CT, chunk, K, eps,
+    # relu, stream
     "hdf_instance_norm_relu": (
-        _p, _p, _p, _p, _p, _p, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _p,
+        _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _p,
     ),
     # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
     "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),

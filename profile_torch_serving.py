@@ -31,6 +31,7 @@ import torch
 from torch.autograd import DeviceType
 
 from chip_smoke import (
+    IN_PASSES,
     N_CLS,
     PATCH,
     STEP,
@@ -42,9 +43,10 @@ from chip_smoke import (
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import predict_volume
 
+# the port's kernels by symbol name (csrc/*.cu); InstanceNorm is three passes
 GROUPS = {
     "dense_attention kernel": ("dense_attention_kernel",),
-    "instance_norm_relu kernel": ("partial_stats_kernel", "finalize_kernel", "normalize_kernel"),
+    "instance_norm_relu kernel": IN_PASSES,
     "shift_pack kernel": ("shift_kernel",),
 }
 

@@ -88,6 +88,110 @@ def test_instance_norm_kernel_matches_plain(cuda, shape, dtype, affine, relu):
     assert torch.equal(got, instance_norm_relu(x, scale, bias, relu=relu))  # no atomics
 
 
+def _attention_inputs(cuda, n, d, dtype, layout, seed):
+    """q, k, v of (2, 2, n, d): contiguous, the head views of one qkv
+    projection, or rows d + 1 elements apart (too odd for vector loads)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if layout == "contiguous":
+        return [torch.randn((2, 2, n, d), generator=g, device=cuda).to(dtype) for _ in range(3)]
+    if layout == "odd_stride":
+        return [torch.randn((2, 2, n, d + 1), generator=g, device=cuda).to(dtype)[..., :d]
+                for _ in range(3)]
+    qkv = torch.randn((2, n, 3 * 2 * d), generator=g, device=cuda).to(dtype)
+    return [t.view(2, n, 2, d).transpose(1, 2) for t in qkv.split(2 * d, dim=-1)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv_split", "odd_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 8])
+@pytest.mark.parametrize("n", [1, 17, 130, 729])
+def test_attention_kernel_shapes_and_layouts(cuda, n, d, dtype, layout):
+    q, k, v = _attention_inputs(cuda, n, d, dtype, layout, seed=10 + n + d)
+    got = dense_attention(q, k, v)
+    again = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    ref = attention_ref(q.float(), k.float(), v.float())
+    # fp32: summation order and exp2; bf16: one rounding of the output
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-8, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref, **tol)
+    assert torch.equal(got, again)  # fixed merge order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_large_logits(cuda, dtype):
+    # scores in the hundreds, a nearly one-hot softmax: no exp2 overflows and
+    # no row sum underflows. (At scores in the thousands, an fp32 rounding of
+    # a score alone moves p by 1e-4, the fp32 tolerance.)
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q, k, v = (torch.randn((2, 2, 729, 4), generator=g, device=cuda) for _ in range(3))
+    q, k, v = (q * 8).to(dtype), (k * 8).to(dtype), v.to(dtype)
+    got = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    ref = attention_ref(q.float(), k.float(), v.float())
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-8, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+@pytest.mark.parametrize("height", [3.0, 8.0, 40.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_late_peak(cuda, dtype, height):
+    # Keys 650 and 670 (chunks 40 and 41, one in each key split) score far
+    # above every key before them. The bf16 sweep's running max starts at
+    # the first chunk's: at height 3 p reaches about 2^24 against it (kept,
+    # no rescale); at 8 about 2^80 and at 40 past fp32's range, so the max
+    # must move up and rescale the sums first.
+    g = torch.Generator(device=cuda).manual_seed(50)
+    q, k, v = (torch.randn((2, 2, 729, 4), generator=g, device=cuda) for _ in range(3))
+    q = q + 4
+    k[:, :, 650] = height
+    k[:, :, 670] = height * 0.9
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    got = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    ref = attention_ref(q.float(), k.float(), v.float())
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-8, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 16, 32, 256])
+def test_instance_norm_kernel_ragged_rows(cuda, c, dtype, affine, relu):
+    # S = 4099 rows: no chunk size divides it, so the last chunk is ragged
+    g = torch.Generator(device=cuda).manual_seed(20 + c)
+    x = (torch.randn((3, 4099, c), generator=g, device=cuda) * 3 + 1).to(dtype)
+    scale = torch.rand(c, generator=g, device=cuda) if affine else None
+    bias = torch.randn(c, generator=g, device=cuda) if affine else None
+    got = instance_norm_relu(x, scale, bias, relu=relu)
+    ref = instance_norm_relu_ref(x, scale, bias, relu=relu)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    # fp32: summation order; bf16: at most one output rounding step apart
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-6)
+    torch.testing.assert_close(got, ref, **tol)
+    assert torch.equal(got, instance_norm_relu(x, scale, bias, relu=relu))  # no atomics
+
+
+def test_instance_norm_kernel_mean_far_from_zero(cuda):
+    # The precision guard of the shifted sums: 1000 + N(0, 1) in fp32, where
+    # the one-pass E[x^2] - mean^2 loses the variance. The norm does not
+    # change under a shift, so the plain version runs on x - 1000 (exact in
+    # fp32 here): on x itself it would round its own mean near 1000 to a
+    # 6e-5 step, more than this tolerance allows.
+    g = torch.Generator(device=cuda).manual_seed(30)
+    x = 1000 + torch.randn((2, 4096, 32), generator=g, device=cuda)
+    scale = torch.rand(32, generator=g, device=cuda)
+    bias = torch.randn(32, generator=g, device=cuda)
+    got = instance_norm_relu(x, scale, bias)
+    ref = instance_norm_relu_ref(x - 1000, scale, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 64, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
