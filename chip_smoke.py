@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
-HDenseFormer_32 and Hecktor20Top1:
+HDenseFormer_32 and Hecktor20Top1 and the train step of HDenseFormer_32:
 
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
@@ -22,6 +22,13 @@ HDenseFormer_32 and Hecktor20Top1:
    serving gives it and on peaked scores, with its occupancy; then the path
    of the half-shift's backward kernel: the gradient of
    sum(conv3_packed(x, w)^2) through autograd;
+1b. the InstanceNorm backward kernel against its plain version (the port
+   of fused_norm's VJP) given the same statistics, at the train step's
+   largest shape (1, 144^3, 32) in bf16 and fp32, at ragged S with C in
+   {2, 32, 256}, affine and plain, ReLU on and off, and on 1000 + N(0, 1);
+   timed by pass against its byte bound, beside the plain version and
+   torch.autograd.grad through F.relu(F.instance_norm(...)); and summed
+   over a train step's 18 InstanceNorm shapes (forward and backward);
 2. the full-width HDenseFormer_32 forward (2 modalities, 144^3, depth 24,
    bf16, 8 windows), once through the kernels and once through the plain
    versions: logit difference, argmax agreement, kernel launch counts;
@@ -33,8 +40,17 @@ HDenseFormer_32 and Hecktor20Top1:
    144^3, step 72^3, window_batch 8, one model call of 8 windows): first
    call, p50 of 3 warm calls, peak device memory, launch counts, and the
    labels against the plain path's; 3b. the same for Hecktor20Top1;
-4. a {"kernels": [...]} line with each kernel's numbers;
-5. the result line {"ok": true, "device": {...}}.
+4. training: one train step of HDenseFormer_32 at 64^3, depth 4, through
+   the kernels and through the plain versions from the same weights and
+   dropout seed, in fp32 and in bf16, beside the plain path on an input
+   moved by one rounding step (the network's own sensitivity, which sets
+   the bars); then the full-width train step of bench.py (2 modalities,
+   144^3, batch 1, depth 24, bf16, FocalLoss deep supervision, Adam with
+   coupled L2 1e-4, lr 1e-3, dropout 0.5, no rematerialisation) on a
+   synthetic CT+PET case: one warm step, the best of 4 chained windows of 8
+   steps, the loss after every window, peak memory, launches per step;
+5. a {"kernels": [...]} line with each kernel's numbers;
+6. the result line {"ok": true, "device": {...}}.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -61,13 +77,18 @@ from torch.autograd import DeviceType
 
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
+from hdenseformer_tpu_torch.losses import get_loss
 from hdenseformer_tpu_torch.models import get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
 from hdenseformer_tpu_torch.ops import _build
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
 from hdenseformer_tpu_torch.ops.dense_attention import launch_plan as attention_plan
 from hdenseformer_tpu_torch.ops.instance_norm import (
+    absolute_stats,
     instance_norm_relu,
+    instance_norm_relu_bwd,
+    instance_norm_relu_bwd_ref,
+    instance_norm_relu_fwd,
     instance_norm_relu_ref,
 )
 from hdenseformer_tpu_torch.ops.s2d import conv3_packed
@@ -77,6 +98,8 @@ from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_unpack,
     shift_unpack_ref,
 )
+from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+from hdenseformer_tpu_torch.train.state import get_optimizer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -105,6 +128,12 @@ KERNELS = {
         source="hdenseformer_tpu_torch/csrc/shift_pack.cu",
         replaces="hdenseformer_tpu/ops/shift_pack.py:133",
     ),
+    # the counterpart of fused_norm's VJP, plain XLA in JAX (not Pallas)
+    "instance_norm_relu_backward": dict(
+        wrapper=instance_norm_relu_bwd,
+        source="hdenseformer_tpu_torch/csrc/instance_norm_relu.cu",
+        replaces="hdenseformer_tpu/ops/fused_norm.py:271",
+    ),
 }
 # packed-plain grid and channel counts of Hecktor20Top1's four half-shifts in
 # one serving forward (8 windows of 144^3, n_filters 32): the k7 stem (2
@@ -115,8 +144,16 @@ SHIFT_FC = (16, 256, 512, 256)
 IN_FORWARD = (((PATCH ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 5),
               (((PATCH // 4) ** 3, 128), 5), (((PATCH // 8) ** 3, 256), 3))
 IN_PASSES = ("partial_stats_kernel", "finalize_kernel", "normalize_kernel")
+IN_BWD_PASSES = ("bwd_reduce_kernel", "bwd_finalize_kernel", "bwd_dx_kernel")
 HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 4,
-                  "shift_pack_backward": 0}
+                  "shift_pack_backward": 0, "instance_norm_relu_backward": 0}
+# the train step of bench.py: batch 1, Adam with coupled L2, 4 chained
+# windows of 8 steps; a 144^3 patch counts (144 / 128)^3 128^3 patches
+LR, WEIGHT_DECAY, TRAIN_WINDOWS, TRAIN_STEPS = 1e-3, 1e-4, 4, 8
+PATCH_EQUIV = (PATCH / 128) ** 3
+# the conv biases under an InstanceNorm without affine: their true gradient
+# is zero, and what any implementation returns for them is rounding noise
+ZERO_GRADIENT = ("deep_conv.conv.bias", "up1.conv.bias", "up2.conv.bias", "up3.conv.bias")
 
 
 def fail(msg: str) -> None:
@@ -415,6 +452,154 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return main
 
 
+def norm_bwd_inputs(gen, shape, dtype, affine, mean=1.0, spread=3.0):
+    """x, dy, scale and bias of one InstanceNorm backward case: scale of both
+    signs with one zero (every branch of the ReLU mask)."""
+    dev = torch.device("cuda")
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * spread + mean).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    scale = bias = None
+    if affine:
+        scale = torch.randn(c, generator=gen, device=dev)
+        scale[0] = 0.0
+        bias = torch.randn(c, generator=gen, device=dev)
+    return x, dy, scale, bias
+
+
+def norm_bwd_check(got, ref, dtype) -> dict:
+    """The backward's bars: dx per (n, c) within 1e-4 of max|dx_ref| (fp32),
+    or two bf16 steps of |dx_ref| plus 1e-3 of max|dx_ref| (bf16: summation
+    order, then one rounding on each side); dscale and dbias within 1e-4 of
+    the tensor's max|ref|. "over" is the largest error over its bar."""
+    dx, dscale, dbias = got
+    dx_ref, dscale_ref, dbias_ref = ref
+    n, c = dx.shape[0], dx.shape[-1]
+    d = (dx.float() - dx_ref.float()).reshape(n, -1, c).abs()
+    r = dx_ref.float().reshape(n, -1, c).abs()
+    peak = r.amax(1, keepdim=True)
+    bar = 1e-4 * peak if dtype == torch.float32 else 2 * BF16_STEP * r + 1e-3 * peak
+    rec = dict(dx_max_abs=float(d.max()), dx_scale=float(peak.max()),
+               over=float((d / bar.clamp_min(1e-30)).max()))
+    for name, a, b in (("dscale", dscale, dscale_ref), ("dbias", dbias, dbias_ref)):
+        if (a is None) != (b is None):
+            fail(f"instance_norm_relu_bwd: {name} is {a} against {b}")
+        if a is not None:
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            rec[f"{name}_max_rel"] = rel
+            rec["over"] = max(rec["over"], rel / 1e-4)
+    return rec
+
+
+def norm_backward_times(x, dy, scale, bias, relu, library: bool = True) -> dict:
+    """Device times of the backward kernel (by pass, and the wrapper's whole
+    call, the dscale/dbias sums included), its plain version and, with
+    ``library``, torch.autograd.grad through F.relu(F.instance_norm(...)).
+    The bound moves each byte once: read x and dy, write dx; the passes'
+    bounds count what each must move: x and dy (reduce), x, dy and dx (dx)."""
+    _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
+    n, es = x.numel(), x.element_size()
+    # ~14 fp32 operations an element: mask, select and 2 sums in the reduce,
+    # mask, select, centring and 2 fmas in the dx pass
+    rec = dict(zip(("bound_ms", "bound_by"), bound(3 * n * es, 14 * n, torch.float32)))
+    iters = 10 if n > 2e8 else 50
+    by_kernel = device_kernels(lambda: instance_norm_relu_bwd(dy, x, stats, scale, bias, relu),
+                               iters)
+    passes = {p: sum(t for name, t in by_kernel.items() if p in name) for p in IN_BWD_PASSES}
+    if any(t == 0 for t in passes.values()):
+        fail(f"instance_norm_relu_bwd: the profiler saw {sorted(by_kernel)}, not its passes")
+    rec["ms"] = sum(by_kernel.values())
+    rec["passes_ms"] = passes
+    xb = n * es
+    moved = {"bwd_reduce_kernel": 2 * xb, "bwd_dx_kernel": 3 * xb}
+    rec["passes_tb_per_s"] = {p: b / passes[p] / 1e9 for p, b in moved.items()}
+    rec["passes_bound_ms"] = {p: b / HBM_BYTES_PER_S * 1e3 for p, b in moved.items()}
+    mean, inv = absolute_stats(x, stats)
+    rec["plain_ms"] = device_ms(
+        lambda: instance_norm_relu_bwd_ref(dy, x, mean, inv, scale, bias, relu), iters)
+    if library:
+        # the library's backward on the same channels-last tensor, viewed as (N, C, S)
+        leaves = [x.detach().transpose(1, 2).requires_grad_()]
+        if scale is not None:
+            leaves += [scale.clone().requires_grad_(), bias.clone().requires_grad_()]
+        weight, b = (None, None) if scale is None else leaves[1:]
+        y = F.instance_norm(leaves[0], weight=weight, bias=b, eps=1e-5)
+        y = F.relu(y) if relu else y
+        g = dy.transpose(1, 2)
+        rec["library_ms"] = device_ms(
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), iters)
+    return rec
+
+
+def phase_norm_backward(gen) -> dict:
+    """The InstanceNorm backward kernel against its plain version, given the
+    forward kernel's statistics (so both draw the same ReLU mask), timed;
+    then summed over a train step's 18 InstanceNorm shapes at batch 1."""
+    main = None
+    for shape, dtype, affine, relu, mean in (
+        ((1, PATCH ** 3, 32), torch.bfloat16, True, True, 1.0),  # the train step's largest
+        ((1, PATCH ** 3, 32), torch.float32, True, True, 1.0),
+        ((3, 4099, 2), torch.bfloat16, False, True, 1.0),  # ragged S: no chunk divides it
+        ((3, 4099, 32), torch.float32, True, False, 1.0),
+        ((3, 4099, 256), torch.bfloat16, True, True, 1.0),
+        ((3, 4099, 32), torch.bfloat16, False, False, 1.0),
+        ((2, 4096, 32), torch.float32, True, True, 1000.0),  # the precision guard
+    ):
+        x, dy, scale, bias = norm_bwd_inputs(gen, shape, dtype, affine, mean,
+                                             1.0 if mean > 1 else 3.0)
+        _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
+        got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+        again = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+        ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
+        torch.cuda.synchronize()
+        rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""), affine=affine,
+                   relu=relu, mean=mean, vs_plain=norm_bwd_check(got, ref, dtype),
+                   bitwise_rerun=bool(torch.equal(got[0], again[0])))
+        if not rec["vs_plain"]["over"] <= 1.0:
+            fail(f"instance_norm_relu_bwd {shape} {dtype} affine {affine} relu {relu} "
+                 f"mean {mean}: {rec['vs_plain']}")
+        if not rec["bitwise_rerun"]:
+            fail(f"instance_norm_relu_bwd {shape} {dtype}: reruns differ")
+        if shape[1] == PATCH ** 3:
+            rec.update(norm_backward_times(x, dy, scale, bias, relu))
+        emit("kernel_check", kernel="instance_norm_relu_backward", **rec)
+        if main is None:
+            main = dict(max_abs_err=rec["vs_plain"]["dx_max_abs"], **{
+                key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        del x, dy, got, again, ref
+        torch.cuda.empty_cache()
+
+    # a train step's InstanceNorms (batch 1, bf16), forward and backward, each
+    # shape's backward held against its plain version (the launch plan moves with C)
+    per_step = dict(fwd_ms=0.0, fwd_bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
+    for (s, c), count in IN_FORWARD:
+        x, dy, scale, bias = norm_bwd_inputs(gen, (1, s, c), torch.bfloat16, True)
+        _, stats = instance_norm_relu_fwd(x, scale, bias, relu=True)
+        vs_plain = norm_bwd_check(
+            instance_norm_relu_bwd(dy, x, stats, scale, bias, True),
+            instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True),
+            torch.bfloat16)
+        if not vs_plain["over"] <= 1.0:
+            fail(f"instance_norm_relu_bwd (1, {s}, {c}) bfloat16: {vs_plain}")
+        fwd = instance_norm_times(x, scale, bias, library=False)
+        bwd = norm_backward_times(x, dy, scale, bias, True, library=False)
+        emit("instance_norm_train_shape", shape=[1, s, c], dtype="bfloat16",
+             launches_per_train_step=count, vs_plain=vs_plain, fwd_ms=fwd["ms"],
+             fwd_bound_ms=fwd["bound_ms"], bwd_ms=bwd["ms"], bwd_passes_ms=bwd["passes_ms"],
+             bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"])
+        for key, val in (("fwd_ms", fwd["ms"]), ("fwd_bound_ms", fwd["bound_ms"]),
+                         ("bwd_ms", bwd["ms"]), ("bwd_plain_ms", bwd["plain_ms"]),
+                         ("bwd_bound_ms", bwd["bound_ms"])):
+            per_step[key] += val * count
+        del x, dy
+        torch.cuda.empty_cache()
+    emit("instance_norm_per_train_step", launches=sum(count for _, count in IN_FORWARD),
+         **per_step)
+    main.update({f"per_train_step_{k.removeprefix('bwd_')}": v for k, v in per_step.items()
+                 if k.startswith("bwd_")})
+    return main
+
+
 def phase_shift_grad(gen) -> dict:
     """The backward kernel's path: d/dx sum(conv3_packed(x, w)^2) via autograd.
 
@@ -435,7 +620,7 @@ def phase_shift_grad(gen) -> dict:
         grads[use] = (xr.grad, read_counts())
     (got, counts), (ref, plain_counts) = grads[True], grads[False]
     expect = {"dense_attention": 0, "instance_norm_relu": 0, "shift_pack": 1,
-              "shift_pack_backward": 1}
+              "shift_pack_backward": 1, "instance_norm_relu_backward": 0}
     if counts != expect or any(plain_counts.values()):
         fail(f"autograd path launched {counts} (plain path {plain_counts}), expected {expect}")
     scale = float(ref.abs().max())
@@ -458,9 +643,10 @@ def build_models(args):
     return nets
 
 
-def hdf_expect(args) -> dict:
+def hdf_expect(args, train: bool = False) -> dict:
+    """Launches of one HDenseFormer_32 forward (or train step) at full width."""
     return {"dense_attention": 2 * args.depth, "instance_norm_relu": 18, "shift_pack": 0,
-            "shift_pack_backward": 0}
+            "shift_pack_backward": 0, "instance_norm_relu_backward": 18 if train else 0}
 
 
 def timed_forward(net, x):
@@ -512,14 +698,19 @@ def phase_forward(args, net, plain, gen) -> None:
         fail(f"argmax agreement {agree} (all), {agree_decided} (margin > 0.1)")
 
 
-def synthetic_volume(seed: int) -> np.ndarray:
-    """A (2, V, V, V) CT+PET volume, V = VOLUME: noise around a bright sphere."""
+def sphere(size: int) -> np.ndarray:
+    """The (size,)^3 mask of a centred sphere of radius 0.15 size: the tumour."""
+    grid = np.indices((size,) * 3, dtype=np.float32) - size / 2
+    return (np.sqrt((grid ** 2).sum(0)) < size * 0.15).astype(np.float32)
+
+
+def synthetic_volume(seed: int, size: int = VOLUME) -> np.ndarray:
+    """A (2, size, size, size) CT+PET volume: noise around a bright sphere."""
     rng = np.random.default_rng(seed)
-    shape = (VOLUME,) * 3
-    grid = np.indices(shape, dtype=np.float32) - VOLUME / 2
-    sphere = (np.sqrt((grid ** 2).sum(0)) < VOLUME * 0.15).astype(np.float32)
-    ct = rng.normal(0.0, 200.0, shape).astype(np.float32) + 300.0 * sphere
-    pet = rng.gamma(2.0, 1.0, shape).astype(np.float32) + 8.0 * sphere
+    shape = (size,) * 3
+    ball = sphere(size)
+    ct = rng.normal(0.0, 200.0, shape).astype(np.float32) + 300.0 * ball
+    pet = rng.gamma(2.0, 1.0, shape).astype(np.float32) + 8.0 * ball
     return np.stack([ct, pet])
 
 
@@ -648,6 +839,182 @@ def phase_hecktor_forward(args, nets, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def synthetic_case(seed: int, size: int) -> dict:
+    """A training batch of one synthetic CT+PET case on the card: the
+    normalised (1, size^3, 2) image and the one-hot label of its sphere."""
+    image = PETandCTNormalize()({"image": synthetic_volume(seed, size)})["image"]
+    label = np.eye(N_CLS, dtype=np.float32)[sphere(size).astype(np.int64)]
+    return {"image": torch.from_numpy(np.moveaxis(image, 0, -1)[None].copy()).cuda(),
+            "label": torch.from_numpy(label[None]).cuda()}
+
+
+def train_one_step(net, batch, seed: int) -> dict:
+    """One train step of ``net`` on ``batch`` (bench.py's optimizer and loss,
+    dropout drawn from ``seed``): loss, counts, and the model's gradients
+    and parameters after the step."""
+    opt = get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY, params=net.parameters())
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+    reset_counts()
+    _, out = step(TrainState(net, opt), batch, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return dict(loss=float(out["loss"]), counts=read_counts(),
+                grads={n: p.grad for n, p in net.named_parameters()},
+                params={n: p.detach() for n, p in net.named_parameters()})
+
+
+def grad_errors(run, ref) -> dict:
+    """Per tensor max|d grad| / max|g_ref|; and max|d param| after the step."""
+    return {n: (float((g - ref["grads"][n]).abs().max()) / max(
+        float(ref["grads"][n].abs().max()), 1e-30),
+        float((run["params"][n] - ref["params"][n]).abs().max())) for n, g in run["grads"].items()}
+
+
+def phase_train_compare(args) -> dict:
+    """One train step at 64^3, depth 4, through the kernels and through the
+    plain versions, same weights and dropout seed; fp32 (TF32 off) and bf16.
+
+    Bars. The gradients of a ReLU network differ between two correct
+    implementations wherever rounding moves an activation across zero, and
+    a flipped mask weighs much on the small deep grids. So the plain path
+    also runs on the input moved by one rounding step (1e-6 relative in
+    fp32; 2^-8, one bf16 step, in bf16), and each bar holds the kernel path
+    to 3x that run's own difference from the plain path:
+    - per tensor max|d|/max|g_plain|, the worst and the median over the
+      tensors that have a gradient (all but ZERO_GRADIENT);
+    - Adam's first update is lr against the sign of the gradient, so a
+      parameter moves 2 lr away from the plain path's where the sign
+      flipped: the count of flipped updates (and none beyond 2 lr).
+    The ZERO_GRADIENT biases' max|g| (rounding noise) within 10x the larger
+    of the plain and moved runs'. Every gradient exists and is finite
+    (kernel outputs without a grad_fn would leave none upstream of a norm
+    or an attention). The loss within 1e-5 (fp32) or 1e-3 (bf16), relative.
+    """
+    size, depth = 64, 4
+    batch = synthetic_case(args.seed, size)
+    out = {}
+    for dtype, moved in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -8)):
+        nets = [
+            get_net("HDenseFormer_32", 2, N_CLS, (size,) * 3, transformer_depth=depth,
+                    dtype=None if dtype == torch.float32 else dtype, use_kernels=use,
+                    device="cuda")
+            for use in (True, False, False)
+        ]
+        init_weights(nets[0], torch.Generator().manual_seed(args.seed))
+        for net in nets[1:]:
+            net.load_state_dict(nets[0].state_dict())
+        g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+        nudged = dict(batch, image=batch["image"] * (
+            1 + moved * torch.randn(batch["image"].shape, generator=g, device="cuda")))
+        kern, plain, noise = (train_one_step(net, b, args.seed)
+                              for net, b in zip(nets, (batch, batch, nudged)))
+        expect = dict(hdf_expect(argparse.Namespace(depth=depth), train=True))
+        if kern["counts"] != expect or any(plain["counts"].values()):
+            fail(f"train step launched {kern['counts']} (plain {plain['counts']}), "
+                 f"expected {expect}")
+        missing = [n for n, gr in kern["grads"].items()
+                   if gr is None or not bool(torch.isfinite(gr).all())]
+        if missing:
+            fail(f"kernel path: no or non-finite gradient for {missing[:5]}")
+        if not set(ZERO_GRADIENT) <= set(kern["grads"]):
+            fail(f"train step: no tensor named {set(ZERO_GRADIENT) - set(kern['grads'])}")
+        errs, noise_errs = grad_errors(kern, plain), grad_errors(noise, plain)
+        live = [n for n in errs if n not in ZERO_GRADIENT]
+        worst = max(live, key=lambda n: errs[n][0])
+        ratios = sorted(errs[n][0] for n in live)
+        noise_ratios = sorted(noise_errs[n][0] for n in live)
+        top = max(float(gr.abs().max()) for gr in plain["grads"].values())
+        zero_grad = {key: max(float(run["grads"][n].abs().max()) for n in ZERO_GRADIENT) / top
+                     for key, run in (("kernels", kern), ("plain", plain), ("moved", noise))}
+        flipped = sum(int(((kern["params"][n] - plain["params"][n]).abs() > LR).sum())
+                      for n in errs)
+        noise_flipped = sum(int(((noise["params"][n] - plain["params"][n]).abs() > LR).sum())
+                            for n in errs)
+        n_params = sum(p.numel() for p in kern["params"].values())
+        rec = dict(
+            size=size, depth=depth, dtype=str(dtype).replace("torch.", ""),
+            launches=kern["counts"], loss=kern["loss"], plain_loss=plain["loss"],
+            moved_loss=noise["loss"], loss_rel=abs(kern["loss"] - plain["loss"]) / plain["loss"],
+            worst_tensor=worst, worst_grad_ratio=errs[worst][0],
+            its_moved_grad_ratio=noise_errs[worst][0],
+            moved_worst_grad_ratio=noise_ratios[-1],
+            median_grad_ratio=ratios[len(ratios) // 2],
+            moved_median_grad_ratio=noise_ratios[len(noise_ratios) // 2],
+            zero_gradient_max_rel=zero_grad,
+            max_param_diff=max(e[1] for e in errs.values()), flipped_updates=flipped,
+            moved_flipped_updates=noise_flipped, params=n_params,
+            bars=dict(loss_rel=1e-5 if dtype == torch.float32 else 1e-3, vs_moved=3.0,
+                      zero_gradient_vs_plain=10.0, max_param_diff=2 * LR))
+        emit("train_kernels_vs_plain", **rec)
+        if not (rec["loss_rel"] <= rec["bars"]["loss_rel"]
+                and rec["worst_grad_ratio"] <= 3 * rec["moved_worst_grad_ratio"]
+                and rec["median_grad_ratio"] <= 3 * rec["moved_median_grad_ratio"]
+                and flipped <= 3 * noise_flipped
+                and zero_grad["kernels"] <= 10 * max(zero_grad["plain"], zero_grad["moved"])
+                and rec["max_param_diff"] <= 2 * LR * (1 + 1e-3)):
+            fail(f"train step, kernels vs plain path, {dtype}: {rec}")
+        out[rec["dtype"]] = rec
+        del nets, kern, plain, noise
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_train(args):
+    """bench.py's train step at full width, random weights from ``args.seed``:
+    (state, step, batch, dropout generator)."""
+    net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
+                  dtype=torch.bfloat16, device="cuda")
+    init_weights(net, torch.Generator().manual_seed(args.seed))
+    state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
+                                          params=net.parameters()))
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+    return (state, step, synthetic_case(args.seed, PATCH),
+            torch.Generator(device="cuda").manual_seed(args.seed))
+
+
+def phase_train(args) -> dict:
+    """The full-width train step of bench.py on a synthetic case."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, batch, gen = build_train(args)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = step(state, batch, gen)
+    first_loss = float(out["loss"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    per_step = read_counts()
+    expect = hdf_expect(args, train=True)
+    if per_step != expect:
+        fail(f"train step launched {per_step}, expected {expect}")
+    reset_counts()
+    windows, losses = [], []
+    for _ in range(TRAIN_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, out = step(state, batch, gen)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / TRAIN_STEPS)
+        losses.append(float(out["loss"]))
+    counts = read_counts()
+    steps = TRAIN_WINDOWS * TRAIN_STEPS
+    best = min(windows)
+    rec = dict(patch=PATCH, batch=1, depth=args.depth, dtype="bfloat16", dropout=0.5,
+               first_step_ms=first_ms, first_loss=first_loss, window_ms_per_step=windows,
+               window_losses=losses, ms_per_step=best,
+               patches_128_per_s=PATCH_EQUIV / (best / 1e3),
+               window_spread=max(windows) / best,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches_per_step=per_step, launches_in_windows=counts, steps=state.step,
+               dice=float(out["dice"]), cm=out["cm"].tolist())
+    emit("train", **rec)
+    if any(counts[k] != v * steps for k, v in per_step.items()):
+        fail(f"the {steps} timed steps launched {counts}, not {steps} x {per_step}")
+    if not all(np.isfinite([first_loss] + losses)) or not losses[-1] < first_loss:
+        fail(f"train losses {first_loss} -> {losses}: not finite and falling")
+    return per_step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -663,6 +1030,7 @@ def main() -> int:
 
     smi = phase_env(args)
     main_shapes = phase_kernels(gen)
+    main_shapes["instance_norm_relu_backward"] = phase_norm_backward(gen)
     by_path = {"shift_grad": phase_shift_grad(gen)}
     net, plain = build_models(args)
     phase_forward(args, net, plain, gen)
@@ -673,6 +1041,9 @@ def main() -> int:
     phase_hecktor_forward(args, nets, gen)
     by_path["serve-200-hecktor"] = phase_serving(
         args, nets["packed"], nets["packed_plain"], "serving_hecktor", HECKTOR_EXPECT)
+    del nets
+    phase_train_compare(args)
+    by_path["train"] = phase_train(args)
 
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [

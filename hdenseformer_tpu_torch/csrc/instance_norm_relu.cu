@@ -1,5 +1,5 @@
 // InstanceNorm (+ affine) + ReLU over channels-last volumes, hand-written for
-// Hopper (sm_90a). Forward only.
+// Hopper (sm_90a). Forward, and below it the backward.
 //
 // Replaces: hdenseformer_tpu/ops/instance_norm.py::fused_instance_norm_relu
 // (Pallas body: its inner `kernel`), which walks the spatial blocks of one
@@ -325,6 +325,294 @@ int launch_vec(int vec_bytes, const void* x, const float* scale, const float* bi
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward.
+//
+// Replaces: hdenseformer_tpu/ops/fused_norm.py::_bwd_rule (plain XLA in JAX,
+// not Pallas), for the unshifted, per-sample case. With the forward's
+// statistics (mean, inv = rsqrt(var + eps)) per (n, c) and m = S rows:
+//   dy_eff = relu ? dy * mask : dy, mask rebuilt from x against the per-(n, c)
+//            threshold mean - b / (g * inv) (x < it where g < 0, all or none
+//            by the sign of b where g == 0; x > mean without affine), so no
+//            full-size mask or pre-activation is kept;
+//   t1 = sum dy_eff, t2 = sum dy_eff * (x - mean);
+//   dx = coef * dy_eff + A + (x - mean) * B, coef = g * inv,
+//        B = -coef * inv * (inv * t2) / m, A = -coef * t1 / m
+// (fused_norm's fma form dx = coef * dy_eff + A + x * B, written relative
+// to the mean: the forward's shift x0 carries it, as there). The caller
+// sums dscale = sum_n inv * t2 and dbias = sum_n t1 from the (N, C) t1, t2.
+//
+// What bounds it: HBM bytes. At (1, 144^3, 32) bf16 the least is x and dy
+// read once and dx written once, 6 bytes an element (0.17 ms at 3.35 TB/s);
+// this design reads x and dy twice, 10 bytes an element. Three launches in
+// the geometry of the forward (Geom, the same grid):
+//   a. reduce: each thread sums (t1, t2) over its rows of a chunk, four
+//      vector loads of x and of dy in flight, then a fixed-shape tree over
+//      the row groups in shared memory writes one partial per (n, c, chunk),
+//      walked from the last chunk to the first as the forward's statistics;
+//   b. finalize: one block per (c, n) sums the chunks' partials in a fixed
+//      order and writes (t1, t2);
+//   c. dx: the geometry of (a) walked first chunk first, so that the part of
+//      x and dy that (a) read last (still in L2) is read first; dx is stored
+//      evict-first.
+// No atomics: reruns agree bit for bit.
+
+// Per-channel constants of the backward, from the forward's statistics.
+// The mask passes x where lo < x < hi, which spells every branch of
+// fused_norm.py::_relu_mask: (thr, inf), (-inf, thr), everything, nothing.
+struct BwdChan {
+  float x0, mean, inv, coef, lo, hi;
+};
+
+__device__ __forceinline__ BwdChan bwd_chan(float x0, const float* stats, const float* scale,
+                                            const float* bias, long long nc, int c,
+                                            int relu) {
+  BwdChan k;
+  k.x0 = x0;
+  k.mean = stats[nc * 2];  // relative to x0
+  k.inv = stats[nc * 2 + 1];
+  const float g = scale ? scale[c] : 1.f;
+  k.coef = __fmul_rn(g, k.inv);
+  const float inf = __int_as_float(0x7f800000);
+  k.lo = -inf;
+  k.hi = inf;
+  if (relu) {
+    // in the absolute frame and in fused_norm's order of operations, so that
+    // the plain version given the same statistics draws the same mask
+    const float mean_abs = __fadd_rn(x0, k.mean);
+    if (!scale) {
+      k.lo = mean_abs;
+    } else {
+      const float b = bias[c];
+      const float thr = __fsub_rn(mean_abs, __fdiv_rn(b, __fmul_rn(g == 0.f ? 1.f : g, k.inv)));
+      if (g > 0.f) k.lo = thr;
+      else if (g < 0.f) k.hi = thr;
+      else if (!(b > 0.f)) k.lo = inf;  // g == 0: the output is relu(b)
+    }
+  }
+  return k;
+}
+
+template <typename T, typename R>
+__global__ void __launch_bounds__(kThreads)
+bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ stats, const float* __restrict__ scale,
+                  const float* __restrict__ bias, float* __restrict__ part_t1,
+                  float* __restrict__ part_t2, Geom gm, int relu) {
+  using V = Vec<T, R>;
+  constexpr int CV = kCV<T, R>;
+  const int k = gridDim.x - 1 - blockIdx.x, n = gridDim.y - 1 - blockIdx.y;
+  const int rpb = kThreads / gm.tv;
+  const int lane = threadIdx.x % gm.tv, g = threadIdx.x / gm.tv;
+  const int vi = (gridDim.z - 1 - blockIdx.z) * gm.tv + lane;
+  const long long r0 = (long long)k * rpb * gm.m;
+  const int rows = (int)min((long long)rpb * gm.m, gm.S - r0);
+  const int mine = vi < gm.vpr && g < rows ? min(gm.m, (rows - g + rpb - 1) / rpb) : 0;
+
+  float t1[CV], t2[CV];
+#pragma unroll
+  for (int j = 0; j < CV; ++j) t1[j] = t2[j] = 0.f;
+  if (mine > 0) {
+    BwdChan ch[CV];
+    V first;
+    first.raw = reinterpret_cast<const R*>(x + (long long)n * gm.S * gm.C)[vi];
+#pragma unroll
+    for (int j = 0; j < CV; ++j)
+      ch[j] = bwd_chan(Elem<T>::load(first.e[j]), stats, scale, bias,
+                       (long long)n * gm.C + vi * CV + j, vi * CV + j, relu);
+    const long long off = ((long long)n * gm.S + r0 + g) * gm.C;
+    const R* px = reinterpret_cast<const R*>(x + off) + vi;
+    const R* pd = reinterpret_cast<const R*>(dy + off) + vi;
+    const long long step = (long long)rpb * gm.vpr;
+    for (int i = 0; i < mine; i += kUnroll) {
+      V vx[kUnroll], vd[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i + u < mine) {
+          vx[u].raw = px[(i + u) * step];
+          vd[u].raw = pd[(i + u) * step];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i + u < mine) {
+#pragma unroll
+          for (int j = 0; j < CV; ++j) {
+            const float xf = Elem<T>::load(vx[u].e[j]);
+            const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd[u].e[j]) : 0.f;
+            t1[j] += e;
+            t2[j] = fmaf(e, (xf - ch[j].x0) - ch[j].mean, t2[j]);
+          }
+        }
+      }
+    }
+  }
+  // a fixed-shape tree over the row groups
+  __shared__ float s_t1[kThreads * CV], s_t2[kThreads * CV];
+  for (int h = rpb / 2; h > 0; h >>= 1) {
+    if (g >= h && g < 2 * h) {  // the upper half of the live groups publishes
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        s_t1[threadIdx.x * CV + j] = t1[j];
+        s_t2[threadIdx.x * CV + j] = t2[j];
+      }
+    }
+    __syncthreads();
+    if (g < h) {
+      const int o = threadIdx.x + h * gm.tv;
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        t1[j] += s_t1[o * CV + j];
+        t2[j] += s_t2[o * CV + j];
+      }
+    }
+    __syncthreads();
+  }
+  if (g == 0 && vi < gm.vpr) {
+#pragma unroll
+    for (int j = 0; j < CV; ++j) {
+      const long long off = ((long long)n * gm.C + vi * CV + j) * gm.K + k;
+      part_t1[off] = t1[j];
+      part_t2[off] = t2[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bwd_finalize_kernel(const float* __restrict__ part_t1, const float* __restrict__ part_t2,
+                    float* __restrict__ tsum, int C, int K) {
+  const int c = blockIdx.x, n = blockIdx.y;
+  const long long base = ((long long)n * C + c) * K;
+  float a = 0.f, b = 0.f;
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    a += part_t1[base + k];
+    b += part_t2[base + k];
+  }
+  __shared__ float s_a[kThreads], s_b[kThreads];
+  s_a[threadIdx.x] = a;
+  s_b[threadIdx.x] = b;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half /= 2) {
+    if (threadIdx.x < half) {
+      s_a[threadIdx.x] = a = a + s_a[threadIdx.x + half];
+      s_b[threadIdx.x] = b = b + s_b[threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    tsum[((long long)n * C + c) * 2] = a;
+    tsum[((long long)n * C + c) * 2 + 1] = b;
+  }
+}
+
+template <typename T, typename R>
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+              const float* __restrict__ stats, const float* __restrict__ scale,
+              const float* __restrict__ bias, const float* __restrict__ tsum,
+              T* __restrict__ dx, Geom gm, int relu) {
+  using V = Vec<T, R>;
+  constexpr int CV = kCV<T, R>;
+  const int k = blockIdx.x, n = blockIdx.y;
+  const int rpb = kThreads / gm.tv;
+  const int lane = threadIdx.x % gm.tv, g = threadIdx.x / gm.tv;
+  const int vi = blockIdx.z * gm.tv + lane;
+  const long long r0 = (long long)k * rpb * gm.m;
+  const int rows = (int)min((long long)rpb * gm.m, gm.S - r0);
+  if (vi >= gm.vpr || g >= rows) return;
+  const int mine = min(gm.m, (rows - g + rpb - 1) / rpb);
+  V first;
+  first.raw = reinterpret_cast<const R*>(x + (long long)n * gm.S * gm.C)[vi];
+  const float m = (float)gm.S;
+  BwdChan ch[CV];
+  float a[CV], b[CV];
+#pragma unroll
+  for (int j = 0; j < CV; ++j) {
+    const long long nc = (long long)n * gm.C + vi * CV + j;
+    ch[j] = bwd_chan(Elem<T>::load(first.e[j]), stats, scale, bias, nc, vi * CV + j, relu);
+    const float s1 = tsum[nc * 2], s2 = ch[j].inv * tsum[nc * 2 + 1];
+    b[j] = -(ch[j].coef * ch[j].inv) * (s2 / m);
+    a[j] = -(ch[j].coef * (s1 / m));
+  }
+  const long long off = ((long long)n * gm.S + r0 + g) * gm.C;
+  const R* px = reinterpret_cast<const R*>(x + off) + vi;
+  const R* pd = reinterpret_cast<const R*>(dy + off) + vi;
+  R* q = reinterpret_cast<R*>(dx + off) + vi;
+  const long long step = (long long)rpb * gm.vpr;
+  for (int i = 0; i < mine; i += kUnroll) {
+    V vx[kUnroll], vd[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i + u < mine) {
+        vx[u].raw = px[(i + u) * step];
+        vd[u].raw = pd[(i + u) * step];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i + u < mine) {
+        V o;
+#pragma unroll
+        for (int j = 0; j < CV; ++j) {
+          const float xf = Elem<T>::load(vx[u].e[j]);
+          const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd[u].e[j]) : 0.f;
+          o.e[j] = Elem<T>::store(
+              fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j])));
+        }
+        __stcs(q + (i + u) * step, o.raw);
+      }
+    }
+  }
+}
+
+template <typename T, typename R>
+int launch_bwd(const void* x, const void* dy, const float* stats, const float* scale,
+               const float* bias, void* dx, float* part, float* tsum, int N, long long S,
+               int C, int CT, long long chunk, int K, int relu, cudaStream_t stream) {
+  constexpr int CV = kCV<T, R>;
+  Geom gm;
+  gm.S = S;
+  gm.C = C;
+  gm.vpr = C / CV;
+  gm.tv = CT / CV;
+  gm.K = K;
+  const int rpb = gm.tv > 0 ? kThreads / gm.tv : 0;
+  if (C % CV || CT % CV || gm.tv < 1 || gm.tv > 32 || (gm.tv & (gm.tv - 1)) ||
+      chunk % rpb || (long long)K * chunk < S || N > 65535 ||
+      (gm.vpr + gm.tv - 1) / gm.tv > 65535)
+    return (int)cudaErrorInvalidValue;
+  gm.m = (int)(chunk / rpb);
+  float* part_t1 = part;
+  float* part_t2 = part + (long long)N * C * K;
+  const dim3 grid(K, N, (gm.vpr + gm.tv - 1) / gm.tv);
+  bwd_reduce_kernel<T, R><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale, bias, part_t1,
+      part_t2, gm, relu);
+  bwd_finalize_kernel<<<dim3(C, N), kThreads, 0, stream>>>(part_t1, part_t2, tsum, C, K);
+  bwd_dx_kernel<T, R><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale, bias, tsum,
+      static_cast<T*>(dx), gm, relu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_vec(int vec_bytes, const void* x, const void* dy, const float* stats,
+                   const float* scale, const float* bias, void* dx, float* part, float* tsum,
+                   int N, long long S, int C, int CT, long long chunk, int K, int relu,
+                   cudaStream_t s) {
+  switch (vec_bytes) {
+    case 16: return launch_bwd<T, uint4>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+    case 8: return launch_bwd<T, uint2>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+    case 4: return launch_bwd<T, unsigned>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+    case 2:
+      if constexpr (sizeof(T) == 2)
+        return launch_bwd<T, unsigned short>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+      else
+        return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x and y are contiguous (N, S, C); scale
@@ -348,5 +636,27 @@ extern "C" int hdf_instance_norm_relu(const void* x, const float* scale,
   if (dtype == 1)
     return launch_vec<__nv_bfloat16>(vec_bytes, x, scale, bias, y, part, stats, N, S, C,
                                      CT, chunk, K, eps, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of hdf_instance_norm_relu. x, dy and dx are contiguous (N, S,
+// C) of one dtype; stats is what the forward wrote for this x (per (n, c):
+// the mean relative to row 0, then rsqrt(var + eps)); scale and bias as in
+// the forward. The plan is the forward's (launch_plan), with vec_bytes
+// dividing all three addresses. part is float32 scratch of 2 * N * C * K;
+// tsum (N * C * 2) receives (t1, t2) per (n, c), from which the caller sums
+// dscale and dbias. Returns as hdf_instance_norm_relu does.
+extern "C" int hdf_instance_norm_relu_bwd(const void* x, const void* dy, const float* stats,
+                                          const float* scale, const float* bias, void* dx,
+                                          float* part, float* tsum, int dtype, int vec_bytes,
+                                          int N, long long S, int C, int CT, int chunk, int K,
+                                          int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd_vec<float>(vec_bytes, x, dy, stats, scale, bias, dx, part, tsum, N, S,
+                                 C, CT, chunk, K, relu, s);
+  if (dtype == 1)
+    return launch_bwd_vec<__nv_bfloat16>(vec_bytes, x, dy, stats, scale, bias, dx, part, tsum,
+                                         N, S, C, CT, chunk, K, relu, s);
   return (int)cudaErrorInvalidValue;
 }

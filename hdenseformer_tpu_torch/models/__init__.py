@@ -39,7 +39,11 @@ def get_net(
     s2d half-shift through the kernel wrappers, which launch the CUDA kernels
     on a CUDA device and take the plain versions on the CPU; False forces the
     plain versions everywhere. ``remat`` is accepted for the JAX signature
-    and ignored: the port serves in eval, with nothing to rematerialise.
+    and ignored: the port's train step stores every activation, as
+    bench.py's ``REMAT = False`` does (rematerialisation through
+    ``torch.utils.checkpoint`` is ROADMAP.md queue 1 item 1). The model is
+    returned in eval mode; ``train/loop.py``'s step puts it in training,
+    where HDenseFormer's dropout (0.5) draws from the generator it is given.
 
     ``s2d`` is honoured for Hecktor20Top1 as in JAX: None packs level 1 when
     ``input_shape`` is 3-D with even dims, True forces it (a ``ValueError``

@@ -1,4 +1,4 @@
-"""H-DenseFormer 3-D, fine grid, forward (eval) only.
+"""H-DenseFormer 3-D, fine grid.
 
 Counterpart of ``hdenseformer_tpu/models/hdenseformer.py``: each input
 modality runs through its own densely connected transformer over 16^3-patch
@@ -14,8 +14,12 @@ Differences from the JAX module, none of which changes the function:
   parameters; ``weights.from_jax_params`` splits the stacked axis.
 - Every UNet level runs on the fine grid. JAX packs level 0 by default
   (space-to-depth, ``s2d=None``), and its tests show packed equals fine.
-- Eval only: no dropout and no rematerialisation (training is a later
-  slice of the port).
+- Dropout (flax semantics, ``layers.dropout``) draws from an explicit
+  ``torch.Generator`` passed to ``forward``; in training with p > 0 a
+  missing generator raises. JAX splits its dropout key per modality path;
+  here the paths draw one after the other from the one generator.
+- No rematerialisation: the train step stores every activation, as
+  bench.py's ``REMAT = False`` does.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from hdenseformer_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     UpConv,
+    dropout,
     gelu_exact,
 )
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
@@ -43,33 +48,36 @@ INNER_DEPTH = 4  # attention layers per dense block; transformer_depth counts th
 
 
 class DenseForward(nn.Module):
-    """Linear -> GELU -> Linear (dropout is off in eval)."""
+    """Linear -> GELU -> Dropout -> Linear -> Dropout."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
+        self.p = dropout
         self.fc1 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = dropout(gelu_exact(self.fc1(x)), self.p, self.training, generator)
+        return dropout(self.fc2(x), self.p, self.training, generator)
 
 
 class DenseAttention(nn.Module):
     """Multi-head self-attention at tiny width: ``dim`` = HEADS heads of dim / HEADS.
 
     ``use_kernels`` selects ``ops.dense_attention`` (the CUDA kernel for a
-    CUDA tensor) or its plain version ``attention_ref``.
+    CUDA tensor) or its plain version ``attention_ref``. Dropout follows
+    ``to_out``.
     """
 
-    def __init__(self, dim: int, use_kernels: bool = True,
+    def __init__(self, dim: int, use_kernels: bool = True, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        self.use_kernels = use_kernels
+        self.use_kernels, self.p = use_kernels, dropout
         self.to_qkv = Dense(dim, dim * 3, use_bias=False, dtype=dtype, device=device)
         self.to_out = Dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         b, n, dim = x.shape
         q, k, v = (
             t.view(b, n, HEADS, dim // HEADS).transpose(1, 2)
@@ -77,7 +85,7 @@ class DenseAttention(nn.Module):
         )
         attend = dense_attention if self.use_kernels else attention_ref
         out = attend(q, k, v).to(q.dtype).transpose(1, 2).reshape(b, n, dim)
-        return self.to_out(out)
+        return dropout(self.to_out(out), self.p, self.training, generator)
 
 
 class DensePreConvAttentionBlock(nn.Module):
@@ -89,7 +97,7 @@ class DensePreConvAttentionBlock(nn.Module):
     updated stream (the reference does this, HDenseFormer.py:98).
     """
 
-    def __init__(self, channels: int, use_kernels: bool = True,
+    def __init__(self, channels: int, use_kernels: bool = True, dropout: float = 0.5,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         g = GROWTH
@@ -97,30 +105,31 @@ class DensePreConvAttentionBlock(nn.Module):
         for i in range(INNER_DEPTH):
             self.add_module(f"squeeze_{i}", Dense(channels + i * g, g, **kw))
             self.add_module(f"attn_norm_{i}", LayerNorm(g, device=device))
-            self.add_module(f"attn_{i}", DenseAttention(g, use_kernels=use_kernels, **kw))
+            self.add_module(f"attn_{i}", DenseAttention(g, use_kernels=use_kernels,
+                                                        dropout=dropout, **kw))
             self.add_module(f"ff_norm_{i}", LayerNorm(g, device=device))
-            self.add_module(f"ff_{i}", DenseForward(g, 2 * g, g, **kw))
-        self.out_layer = DenseForward(channels + INNER_DEPTH * g, 2 * g, channels, **kw)
+            self.add_module(f"ff_{i}", DenseForward(g, 2 * g, g, dropout, **kw))
+        self.out_layer = DenseForward(channels + INNER_DEPTH * g, 2 * g, channels, dropout, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         features = [x]
         for i in range(INNER_DEPTH):
             ff, ff_norm = getattr(self, f"ff_{i}"), getattr(self, f"ff_norm_{i}")
             y = getattr(self, f"squeeze_{i}")(torch.cat(features, dim=-1))
-            y = getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(y)) + y
-            y = ff(ff_norm(y)) + y
-            features.append(ff(ff_norm(y)))
-        return self.out_layer(torch.cat(features, dim=-1))
+            y = getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(y), generator) + y
+            y = ff(ff_norm(y), generator) + y
+            features.append(ff(ff_norm(y), generator))
+        return self.out_layer(torch.cat(features, dim=-1), generator)
 
 
 class DenseTransformerBlock(nn.Module):
     """PATCH^3 patch embed + ``depth`` dense blocks + re-gridding of the tokens."""
 
     def __init__(self, out_channels: int, image_size: Sequence[int], depth: int,
-                 use_kernels: bool = True, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 use_kernels: bool = True, dropout: float = 0.5,
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        self.out_channels = out_channels
+        self.out_channels, self.p = out_channels, dropout
         self.grid = tuple(s // PATCH for s in image_size)
         num_patches = 1
         for g in self.grid:
@@ -130,18 +139,19 @@ class DenseTransformerBlock(nn.Module):
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block_{i}", DensePreConvAttentionBlock(
-                out_channels, use_kernels=use_kernels, dtype=dtype, device=device))
+                out_channels, use_kernels=use_kernels, dropout=dropout, dtype=dtype,
+                device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.pos_embed)  # the JAX initialiser
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.patch_embed(x)
         b, actual_grid = x.shape[0], tuple(x.shape[1:-1])
         x = x.reshape(b, -1, self.out_channels)
-        x = x + self.pos_embed.to(x.dtype)[None]
+        x = dropout(x + self.pos_embed.to(x.dtype)[None], self.p, self.training, generator)
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, generator)
         x = x.reshape(b, *actual_grid, self.out_channels)
         if actual_grid != self.grid:
             x = resize_nearest(x, self.grid)
@@ -152,13 +162,16 @@ class HDenseFormer(nn.Module):
     """Hybrid densely connected transformer + UNet, 3-D.
 
     Input ``(N, D, H, W, in_channels)``; output ``[(N, D, H, W, n_cls), /2,
-    /4, /8]`` logits in fp32.
+    /4, /8]`` logits in fp32. ``dropout`` is the transformer paths' rate
+    (JAX's default, 0.5); in training, ``forward`` draws it from its
+    ``generator``. The model is built in eval mode, as flax applies it with
+    ``train=False`` unless asked: ``.train()`` turns dropout on.
     """
 
     def __init__(self, in_channels: int, n_cls: int, n_filters: int,
                  image_size: Sequence[int] = (144, 144, 144),
                  transformer_depth: int = 12, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dropout: float = 0.5, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         nf = n_filters
         image_size = tuple(image_size)
@@ -168,7 +181,7 @@ class HDenseFormer(nn.Module):
         blk = dict(use_kernels=use_kernels, **kw)
         self.attns = nn.ModuleList(
             DenseTransformerBlock(4 * nf, image_size, transformer_depth // INNER_DEPTH,
-                                  use_kernels=use_kernels, **kw)
+                                  use_kernels=use_kernels, dropout=dropout, **kw)
             for _ in range(in_channels)
         )
         self.deep_conv = UpConv(in_channels * 4 * nf, 8 * nf, **blk)
@@ -189,11 +202,13 @@ class HDenseFormer(nn.Module):
             self.add_module(f"block_{lvl}_1_right", BasicConv(2 * ch, ch, **blk))
             self.add_module(f"block_{lvl}_2_right", BasicConv(ch, ch, **blk))
             self.add_module(head, Conv(ch, n_cls, 1, out_f32=True, **kw))
+        self.eval()
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> list[torch.Tensor]:
         # modality-major channels, as JAX's moveaxis + reshape of the vmap output
         attnall = torch.cat(
-            [attn(x[..., m:m + 1]) for m, attn in enumerate(self.attns)], dim=-1
+            [attn(x[..., m:m + 1], generator) for m, attn in enumerate(self.attns)], dim=-1
         )
         attnout = self.deep_conv(attnall)  # 1/8
         at1 = self.up1(attnout)  # 1/4

@@ -1,4 +1,4 @@
-"""Building blocks of the port, fine grid, forward only.
+"""Building blocks of the port, fine grid.
 
 Counterpart of ``hdenseformer_tpu/models/layers.py``. As there, every module
 takes and returns channels-last ``(N, *spatial, C)`` tensors, keeps fp32
@@ -263,6 +263,24 @@ class UpConv(nn.Module):
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """torch.nn.GELU default: the exact erf form."""
     return F.gelu(x)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and scale
+    it by 1 / (1 - p); zero the rest.
+
+    The identity in eval and at p = 0. The keep mask is drawn from
+    ``generator``, which lives on x's device: there is no hidden global RNG,
+    so training with p > 0 and no generator raises. (``F.dropout`` takes no
+    generator.)
+    """
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

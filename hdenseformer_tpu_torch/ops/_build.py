@@ -49,6 +49,11 @@ _SIGNATURES = {
     "hdf_instance_norm_relu": (
         _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _p,
     ),
+    # x, dy, stats, scale, bias, dx, part, tsum, dtype, vec_bytes, N, S, C, CT, chunk,
+    # K, relu, stream
+    "hdf_instance_norm_relu_bwd": (
+        _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p,
+    ),
     # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
     "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),
 }

@@ -7,9 +7,12 @@ transformer layer of both modality paths.
 - ``attention_ref`` is the plain version, a line-for-line port of
   ``xla_attention``: fp32 scores and softmax, probabilities rounded to
   ``v.dtype`` before the second product.
-- ``dense_attention`` is the kernel wrapper. A CUDA tensor launches the
+- ``dense_attention`` is the autograd function. A CUDA tensor launches the
   hand-written kernel in ``csrc/dense_attention.cu``; a CPU tensor takes
-  ``attention_ref``; any other device raises. The kernel does not round the
+  ``attention_ref``; any other device raises. The gradient recomputes
+  ``attention_ref`` from the saved q, k, v and takes its vector-Jacobian
+  product, as JAX's ``fused_dense_attention_trainable`` does through
+  ``xla_attention`` (``_fused_bwd``). The kernel does not round the
   probabilities to bf16 (in bf16 it carries each as the sum of two bf16
   parts, to 2^-16 of itself), so in bf16 it differs from ``attention_ref``
   by that rounding (see ``chip_smoke.py`` for the stated tolerance).
@@ -95,16 +98,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return torch.einsum("bhij,bhjd->bhid", probs.to(v.dtype), v)
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v for (B, H, N, D) inputs.
-
-    On CUDA, q, k and v must share dtype (float32 or bfloat16), shape and
-    strides, with D in (4, 8) and contiguous; the (B, H, N) strides are
-    free, so the three head views of one qkv projection go in uncopied. The
-    output is a new contiguous tensor in the input dtype.
-    """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"dense_attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):
@@ -143,6 +137,45 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     check(err, "dense_attention")
     dense_attention.launches += 1
     return out
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v)
+    return _launch(q, k, v)
+
+
+class _DenseAttention(torch.autograd.Function):
+    """Saves q, k, v (views, uncopied); the backward recomputes the plain math."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = attention_ref(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v for (B, H, N, D) inputs.
+
+    On CUDA, q, k and v must share dtype (float32 or bfloat16), shape and
+    strides, with D in (4, 8) and contiguous; the (B, H, N) strides are
+    free, so the three head views of one qkv projection go in uncopied. The
+    output is a new contiguous tensor in the input dtype. Differentiable;
+    where there is nothing to differentiate (serving under
+    ``torch.inference_mode``) the forward runs without the autograd
+    function and its host cost.
+    """
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        return _forward(q, k, v)
+    return _DenseAttention.apply(q, k, v)
 
 
 # kernel launches since the last reset; chip_smoke.py reads it

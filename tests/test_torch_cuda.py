@@ -18,7 +18,11 @@ from hdenseformer_tpu_torch.ops.dense_attention import (  # noqa: E402
     dense_attention,
 )
 from hdenseformer_tpu_torch.ops.instance_norm import (  # noqa: E402
+    absolute_stats,
     instance_norm_relu,
+    instance_norm_relu_bwd,
+    instance_norm_relu_bwd_ref,
+    instance_norm_relu_fwd,
     instance_norm_relu_ref,
 )
 from hdenseformer_tpu_torch.ops.shift_pack import (  # noqa: E402
@@ -29,6 +33,9 @@ from hdenseformer_tpu_torch.ops.shift_pack import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.needs_cuda
+
+# the conv biases under an InstanceNorm without affine: true gradient zero
+ZERO_GRADIENT = ("deep_conv.conv.bias", "up1.conv.bias", "up2.conv.bias", "up3.conv.bias")
 
 
 @pytest.fixture
@@ -294,3 +301,208 @@ def test_hecktor_goes_through_the_kernels(cuda):
     # fp32 reduction order amplified by the norms (JAX's bar, 2e-2 of the scale)
     torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, fine, rtol=0, atol=2e-2 * float(fine.abs().max()))
+
+
+def _norm_backward_case(cuda, shape, dtype, affine, relu, seed, mean=1.0, spread=3.0):
+    """x, dy, scale, bias and the forward kernel's stats for one case."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda) * spread + mean).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    scale = bias = None
+    if affine:
+        # signs of both kinds, and one zero scale (the g == 0 branch of the mask)
+        scale = torch.randn(c, generator=g, device=cuda)
+        scale[0] = 0.0
+        bias = torch.randn(c, generator=g, device=cuda)
+    _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
+    return x, dy, scale, bias, stats
+
+
+def assert_norm_grads_close(got, ref, dtype):
+    """The InstanceNorm backward's bars. dx per (n, c): fp32 1e-4 of
+    max|dx_ref|; bf16 two bf16 steps of |dx_ref| plus 1e-3 of max|dx_ref|
+    (summation order, then one rounding each side). dscale and dbias: 1e-4
+    of the tensor's max|ref|."""
+    dx, dscale, dbias = got
+    dx_ref, dscale_ref, dbias_ref = ref
+    n, c = dx.shape[0], dx.shape[-1]
+    d = (dx.float() - dx_ref.float()).reshape(n, -1, c).abs()
+    r = dx_ref.float().reshape(n, -1, c).abs()
+    peak = r.amax(1, keepdim=True)
+    if dtype == torch.float32:
+        bar = 1e-4 * peak
+    else:
+        bar = 2 * 2.0**-7 * r + 1e-3 * peak
+    assert bool((d <= bar).all()), float((d / bar.clamp_min(1e-30)).max())
+    for a, b in ((dscale, dscale_ref), (dbias, dbias_ref)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 32, 64, 128, 256])
+def test_instance_norm_backward_kernel_matches_plain(cuda, c, dtype, affine, relu):
+    # S = 4099 rows: the last chunk is ragged
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, (3, 4099, c), dtype, affine, relu,
+                                                    seed=60 + c)
+    instance_norm_relu_bwd.launches = 0
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+    again = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert instance_norm_relu_bwd.launches == 2
+    assert got[0].dtype == dtype and got[0].shape == x.shape
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
+    assert_norm_grads_close(got, ref, dtype)
+    assert torch.equal(got[0], again[0])  # no atomics
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 9, 9, 256), (1, 72, 72, 72, 32), (1, 72, 72, 72, 64),
+                                   (1, 36, 36, 36, 128), (1, 18, 18, 18, 256), (2, 5, 6, 7, 6)])
+def test_instance_norm_backward_kernel_shapes(cuda, shape):
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, shape, torch.bfloat16, True, True,
+                                                    seed=70)
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
+    torch.cuda.synchronize()
+    assert_norm_grads_close(got, ref, torch.bfloat16)
+
+
+def test_instance_norm_backward_kernel_mean_far_from_zero(cuda):
+    # 1000 + N(0, 1) in fp32: the kernel works relative to the forward's
+    # shift, the plain version in the absolute frame given the same statistics
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, (2, 4096, 32), torch.float32, True,
+                                                    True, seed=80, mean=1000.0, spread=1.0)
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
+    torch.cuda.synchronize()
+    assert_norm_grads_close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_instance_norm_gradient_through_autograd(cuda, affine):
+    # the autograd function against autograd of the plain forward, fp32
+    g = torch.Generator(device=cuda).manual_seed(90)
+    x = torch.randn((2, 6, 7, 8, 32), generator=g, device=cuda) * 2 + 1
+    w = torch.randn(x.shape, generator=g, device=cuda)
+    scale = (torch.rand(32, generator=g, device=cuda) + 0.5) if affine else None
+    bias = torch.randn(32, generator=g, device=cuda) if affine else None
+    grads = {}
+    for fn in (instance_norm_relu, instance_norm_relu_ref):
+        xr, sr, br = (None if t is None else t.clone().requires_grad_() for t in (x, scale, bias))
+        instance_norm_relu.launches = instance_norm_relu_bwd.launches = 0
+        (fn(xr, sr, br) * w).sum().backward()
+        grads[fn] = ([t.grad for t in (xr, sr, br) if t is not None],
+                     (instance_norm_relu.launches, instance_norm_relu_bwd.launches))
+    (got, counts), (ref, plain_counts) = grads[instance_norm_relu], grads[instance_norm_relu_ref]
+    assert counts == (1, 1) and plain_counts == (0, 0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_attention_gradient_through_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(91)
+    qkv = torch.randn(2, 729, 96, generator=g, device=cuda, requires_grad=True)
+    w = torch.randn(2, 8, 729, 4, generator=g, device=cuda)
+    grads = []
+    for fn in (dense_attention, attention_ref):
+        q, k, v = (t.view(2, 729, 8, 4).transpose(1, 2) for t in qkv.split(32, dim=-1))
+        dense_attention.launches = 0
+        (gq,) = torch.autograd.grad((fn(q, k, v) * w).sum(), qkv)
+        grads.append((gq, dense_attention.launches))
+    assert grads[0][1] == 1 and grads[1][1] == 0
+    # the backward is the plain math's on both paths: equal up to summation order
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-5)
+
+
+def test_model_gradients_through_the_kernels(cuda):
+    """The fault this guards: the kernels' outputs had no grad_fn, so a
+    backward through the kernel path dropped every gradient upstream of a
+    norm or an attention. fp32, TF32 off, dropout on from one seed.
+
+    Two correct ReLU networks' gradients differ wherever rounding moves an
+    activation across zero, so the bar is the plain path's own difference
+    when its input moves by 1e-6: per-tensor max|d| / max|g_plain|, worst
+    and median over the tensors that have a gradient, within 3x that run's.
+    The conv biases under a norm without affine (ZERO_GRADIENT) get only
+    rounding noise: their max|g| within 10x the plain and moved runs'."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    nets = [
+        get_net("HDenseFormer_16", 2, 2, (32, 32, 32), transformer_depth=4,
+                use_kernels=use, device=cuda).train()
+        for use in (True, False, False)
+    ]
+    init_weights(nets[0], torch.Generator().manual_seed(0))
+    for net in nets[1:]:
+        net.load_state_dict(nets[0].state_dict())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 32, 32, 32, 2, generator=g, device=cuda)
+    moved = x * (1 + 1e-6 * torch.randn(x.shape, generator=g, device=cuda))
+    label = torch.zeros(2, 32, 32, 32, 2, device=cuda)
+    label[..., 0] = 1
+    label[:, 8:20, 10:22, 6:18] = torch.tensor([0.0, 1.0], device=cuda)
+    criterion = get_loss("FocalLoss", use_ds=True)
+    losses, counts = [], []
+    for net, inp in zip(nets, (x, x, moved)):
+        dense_attention.launches = instance_norm_relu.launches = 0
+        instance_norm_relu_bwd.launches = 0
+        loss = criterion(net(inp, generator=torch.Generator(device=cuda).manual_seed(4)), label)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        counts.append((dense_attention.launches, instance_norm_relu.launches,
+                       instance_norm_relu_bwd.launches))
+    torch.cuda.synchronize()
+    assert counts == [(8, 18, 18), (0, 0, 0), (0, 0, 0)]
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    grads = [dict(net.named_parameters()) for net in nets]
+    assert set(ZERO_GRADIENT) <= set(grads[0])
+    ratios = {"kernels": [], "moved": []}
+    for name, p in grads[0].items():
+        ref = grads[1][name].grad
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        if name in ZERO_GRADIENT:
+            continue
+        for key, other in (("kernels", p.grad), ("moved", grads[2][name].grad)):
+            ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
+    got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
+    assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]
+    zero = [max(float(g[n].grad.abs().max()) for n in ZERO_GRADIENT) for g in grads]
+    assert zero[0] <= 10 * max(zero[1:]), zero
+
+
+def test_train_step_does_not_wait_for_the_card(cuda):
+    """make_train_step keeps the loss, dice and confusion matrix on the card
+    and never waits for it: a step runs under sync debug mode "error"."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    net = get_net("HDenseFormer_16", 2, 2, (32, 32, 32), transformer_depth=4, device=cuda,
+                  dtype=torch.bfloat16)
+    init_weights(net, torch.Generator().manual_seed(0))
+    state = TrainState(net, get_optimizer("Adam", 1e-3, weight_decay=1e-4,
+                                          params=net.parameters()))
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), 2)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    label = torch.zeros(2, 32, 32, 32, 2, device=cuda)
+    label[..., 0] = 1
+    label[:, 8:20, 10:22, 6:18] = torch.tensor([0.0, 1.0], device=cuda)
+    batch = {"image": torch.randn(2, 32, 32, 32, 2, generator=g, device=cuda), "label": label,
+             "weight": torch.tensor([1.0, 0.0], device=cuda)}
+    step(state, batch, g)  # the first step builds the kernels and cuDNN's plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = step(state, batch, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 2 and bool(torch.isfinite(out["loss"]))
+    assert int(out["cm"].sum()) == 32 ** 3

@@ -26,6 +26,14 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.data.io",
     "hdenseformer_tpu_torch.infer",
     "hdenseformer_tpu_torch.infer.sliding",
+    "hdenseformer_tpu_torch.losses",
+    "hdenseformer_tpu_torch.losses.losses",
+    "hdenseformer_tpu_torch.metrics",
+    "hdenseformer_tpu_torch.metrics.batch",
+    "hdenseformer_tpu_torch.metrics.running",
+    "hdenseformer_tpu_torch.train",
+    "hdenseformer_tpu_torch.train.state",
+    "hdenseformer_tpu_torch.train.loop",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
