@@ -5,7 +5,8 @@
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
-HDenseFormer_32 and Hecktor20Top1 and the train step of HDenseFormer_32:
+HDenseFormer_32 and Hecktor20Top1, the train step of HDenseFormer_32 and
+the trainer of both (in ``_smoke_work/``, removed at the end):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
@@ -49,8 +50,22 @@ HDenseFormer_32 and Hecktor20Top1 and the train step of HDenseFormer_32:
    coupled L2 1e-4, lr 1e-3, dropout 0.5, no rematerialisation) on a
    synthetic CT+PET case: one warm step, the best of 4 chained windows of 8
    steps, the loss after every window, peak memory, launches per step;
-5. a {"kernels": [...]} line with each kernel's numbers;
-6. the result line {"ok": true, "device": {...}}.
+   then one 64^3 fp32 step with remat on and off (cuDNN deterministic, one
+   dropout seed: equal loss, gradients within 1e-5 of their max, the
+   generator in one state), and the peak memory and time of one full-width
+   step at batch 2 with remat on and off;
+5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
+   where h5py imports and driven through the CLI (``cli.main``), else as
+   .npy case directories driven through ``SemanticSeg`` with a .npy reader
+   (the CLI's own calls; the line says which). Fold 1 of 3 trains 2 epochs
+   at the Hecktor21 preset (HDenseFormer_32, 144^3, depth 24, batch 2, bf16,
+   remat, DS FocalLoss, Adam with coupled L2 1e-4, poly LR), resumes one
+   epoch from its best checkpoint, infers two 200^3 volumes (window batch
+   8) and is evaluated (dice, HD95); then one epoch of Hecktor20Top1. Per
+   epoch: losses, dice, seconds, step time and the share spent waiting on
+   the loader; launches per train step, checked against the model's;
+6. a {"kernels": [...]} line with each kernel's numbers;
+7. the result line {"ok": true, "device": {...}}.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -64,7 +79,10 @@ runs in TF32 on the card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -75,9 +93,14 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
+from hdenseformer_tpu_torch import cli
+from hdenseformer_tpu_torch.configs import get_config
+from hdenseformer_tpu_torch.data.io import save_as_hdf5
+from hdenseformer_tpu_torch.data.pipeline import get_cross_validation_by_sample
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
 from hdenseformer_tpu_torch.losses import get_loss
+from hdenseformer_tpu_torch.metrics.eval3d import multi_dice, multi_hd
 from hdenseformer_tpu_torch.models import get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
 from hdenseformer_tpu_torch.ops import _build
@@ -98,7 +121,8 @@ from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_unpack,
     shift_unpack_ref,
 )
-from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+from hdenseformer_tpu_torch.train.checkpoint import get_weight_path
+from hdenseformer_tpu_torch.train.loop import SemanticSeg, TrainState, make_train_step
 from hdenseformer_tpu_torch.train.state import get_optimizer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -151,6 +175,10 @@ HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 
 # windows of 8 steps; a 144^3 patch counts (144 / 128)^3 128^3 patches
 LR, WEIGHT_DECAY, TRAIN_WINDOWS, TRAIN_STEPS = 1e-3, 1e-4, 4, 8
 PATCH_EQUIV = (PATCH / 128) ** 3
+# the trainer phase: 6 synthetic cases of CASE^3 (3 patients x 2; RandomCrop3D
+# draws a 144^3 patch), fold 1 of 3, 2 epochs, then one resumed
+CASE, TRAIN_EPOCHS = 152, 2
+WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_work")
 # the conv biases under an InstanceNorm without affine: their true gradient
 # is zero, and what any implementation returns for them is rounding noise
 ZERO_GRADIENT = ("deep_conv.conv.bias", "up1.conv.bias", "up2.conv.bias", "up3.conv.bias")
@@ -200,22 +228,27 @@ def device_ms(fn, iters: int = 10) -> float:
     return sum(device_kernels(fn, iters).values())
 
 
-def device_kernels(fn, iters: int = 10) -> dict:
-    """Device ms per call of each kernel name that ``fn`` launches."""
+def device_kernels(fn, iters: int = 10, tries: int = 3) -> dict:
+    """Device ms per call of each kernel name that ``fn`` launches.
+
+    A profile that holds no device event is taken again, up to ``tries``
+    times: on the card machine CUPTI now and then delivers none."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
-    if not by_name:
-        fail("torch.profiler recorded no device time")
-    return by_name
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / iters / 1e3)
+        if by_name:
+            return by_name
+    fail(f"torch.profiler recorded no device time in {tries} profiles")
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -896,7 +929,7 @@ def phase_train_compare(args) -> dict:
         nets = [
             get_net("HDenseFormer_32", 2, N_CLS, (size,) * 3, transformer_depth=depth,
                     dtype=None if dtype == torch.float32 else dtype, use_kernels=use,
-                    device="cuda")
+                    remat=False, device="cuda")
             for use in (True, False, False)
         ]
         init_weights(nets[0], torch.Generator().manual_seed(args.seed))
@@ -962,7 +995,7 @@ def build_train(args):
     """bench.py's train step at full width, random weights from ``args.seed``:
     (state, step, batch, dropout generator)."""
     net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
-                  dtype=torch.bfloat16, device="cuda")
+                  dtype=torch.bfloat16, remat=False, device="cuda")
     init_weights(net, torch.Generator().manual_seed(args.seed))
     state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
                                           params=net.parameters()))
@@ -1015,11 +1048,338 @@ def phase_train(args) -> dict:
     return per_step
 
 
+def phase_remat_compare(args) -> None:
+    """One step with remat on and off: HDenseFormer_32 at 64^3, depth 4, fp32
+    through the kernels, cuDNN deterministic, one dropout seed. The loss must
+    be equal, every gradient within 1e-5 of its tensor's max (the trilinear
+    upsampling's backward adds with atomics; the ZERO_GRADIENT biases, whose
+    gradient is noise, within 1e-5 of the model's largest) and the generator
+    end in the same state (the recompute drew the forward's masks)."""
+    size, depth = 64, 4
+    batch = synthetic_case(args.seed, size)
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for remat in (False, True):
+            net = get_net("HDenseFormer_32", 2, N_CLS, (size,) * 3, transformer_depth=depth,
+                          remat=remat, device="cuda").train()
+            init_weights(net, torch.Generator().manual_seed(args.seed))
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+            reset_counts()
+            loss = get_loss("FocalLoss", use_ds=True)(net(batch["image"], generator=gen),
+                                                      batch["label"])
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[remat] = dict(loss=float(loss.detach()), counts=read_counts(),
+                               state=gen.get_state(),
+                               grads={n: p.grad for n, p in net.named_parameters()})
+            del net, loss
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    off, on = runs[False], runs[True]
+    # the ZERO_GRADIENT biases' gradients are rounding noise: held by size,
+    # against the largest gradient of the model
+    top = max(float(g.abs().max()) for g in off["grads"].values())
+    ratios = {n: float((on["grads"][n] - g).abs().max()) / (
+        top if n in ZERO_GRADIENT else max(float(g.abs().max()), 1e-30))
+        for n, g in off["grads"].items()}
+    worst = max(ratios, key=ratios.get)
+    rec = dict(size=size, depth=depth, dtype="float32", loss_remat=on["loss"],
+               loss_plain=off["loss"], generator_state_equal=bool(torch.equal(on["state"],
+                                                                              off["state"])),
+               worst_tensor=worst, worst_grad_ratio=ratios[worst], bar=1e-5,
+               zero_gradient_max_vs_top=max(ratios[n] for n in ZERO_GRADIENT),
+               launches_remat=on["counts"], launches_plain=off["counts"])
+    emit("remat_vs_plain", **rec)
+    expect_on = dict(hdf_expect(argparse.Namespace(depth=depth), train=True),
+                     dense_attention=4 * depth, instance_norm_relu=36)
+    if on["counts"] != expect_on or off["counts"] != hdf_expect(
+            argparse.Namespace(depth=depth), train=True):
+        fail(f"remat step launched {on['counts']}, plain {off['counts']}")
+    if not (on["loss"] == off["loss"] and rec["generator_state_equal"]
+            and ratios[worst] <= 1e-5):
+        fail(f"remat vs plain step: {rec}")
+    del runs, off, on
+    torch.cuda.empty_cache()
+
+
+def npy_reader(path: str, key: str) -> np.ndarray:
+    """One volume of a case directory holding ``<key>.npy`` per key: this
+    phase's case format on a machine without h5py."""
+    f = os.path.join(path, key + ".npy")
+    if not os.path.exists(f):
+        raise KeyError(key)
+    return np.load(f).astype(np.float32)
+
+
+class NpySemanticSeg(SemanticSeg):
+    reader = staticmethod(npy_reader)
+
+
+def write_cases(root: str, names, size: int, seed: int, case_format: str) -> list:
+    """Synthetic CT+PET cases (noise around a bright sphere, the sphere as
+    label) as ``.hdf5`` files or ``.npy`` directories; their paths."""
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i, name in enumerate(names):
+        image, label = synthetic_volume(seed + i, size), sphere(size).astype(np.uint8)
+        if case_format == "hdf5":
+            path = os.path.join(root, name + ".hdf5")
+            save_as_hdf5(image, path, "ct")
+            save_as_hdf5(label, path, "seg")
+        else:
+            path = os.path.join(root, name)
+            os.makedirs(path)
+            np.save(os.path.join(path, "ct.npy"), image)
+            np.save(os.path.join(path, "seg.npy"), label)
+        paths.append(path)
+    return paths
+
+
+class TrainerRun:
+    """The user's journey of the trainer phase in a work directory: through
+    the CLI where cases are ``.hdf5``, else through ``SemanticSeg`` with the
+    ``.npy`` reader (the same calls the CLI makes)."""
+
+    def __init__(self, args, case_format: str, device: str = "cuda"):
+        self.args, self.case_format, self.device = args, case_format, device
+        self.seg_cls = SemanticSeg if case_format == "hdf5" else NpySemanticSeg
+
+    def config(self, net: str, epochs: int):
+        return get_config("Hecktor21", net_name=net, data_path="cases", test_path="test",
+                          n_epoch=epochs, fold_num=3, current_fold=1, seed=self.args.seed,
+                          transformer_depth=self.args.depth, version="smoke-" + net,
+                          input_shape=(self.args.patch,) * 3, patch_size=(self.args.patch,) * 3,
+                          step_size=(self.args.patch // 2,) * 3)
+
+    def cli_args(self, cfg) -> list:
+        return ["--net", cfg.net_name, "--folds", "3", "--seed", str(cfg.seed),
+                "--transformer-depth", str(cfg.transformer_depth), "--version", cfg.version,
+                "--input-shape", *map(str, cfg.input_shape), "--step-size",
+                *map(str, cfg.step_size), "--device", self.device]
+
+    def split(self, cfg, paths):
+        return get_cross_validation_by_sample(paths, cfg.fold_num, cfg.current_fold,
+                                              shuffle_seed=cfg.seed)
+
+    def train(self, cfg, paths) -> None:
+        if self.case_format == "hdf5":
+            cli.main(["-m", "train", "--data-path", cfg.data_path, "--fold", "1", "--epochs",
+                      str(cfg.n_epoch)] + self.cli_args(cfg))
+            return
+        seg = self.seg_cls(**cfg.init_trainer_kwargs(), device=self.device)
+        cli._report_params_flops(seg, cfg)
+        train, val = self.split(cfg, paths)
+        seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+
+    def resume(self, cfg, paths, ckpt: str, epochs: int):
+        seg = self.seg_cls(**dict(cfg.init_trainer_kwargs(), n_epoch=epochs, pre_trained=True,
+                                  ckpt_point=True, weight_path=ckpt), device=self.device)
+        train, val = self.split(cfg, paths)
+        seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+        return seg
+
+    def infer(self, cfg, tests, ckpt: str, save: str) -> None:
+        if self.case_format == "hdf5":
+            cli.main(["-m", "inf-sw", "--test-path", cfg.test_path, "--save-path", save,
+                      "--window-batch", str(WINDOWS)] + self.cli_args(cfg))
+            return
+        seg = self.seg_cls(**dict(cfg.init_trainer_kwargs(), weight_path=ckpt,
+                                  pre_trained=True), device=self.device)
+        seg.inference_slidingwindow(tests, save, window_batch=WINDOWS)
+
+    def evaluate(self, cfg, tests, save: str) -> list:
+        if self.case_format == "hdf5":
+            return cli.main(["-m", "eval", "--test-path", cfg.test_path, "--save-path", save])
+        rows = []
+        for case in tests:
+            gt = npy_reader(case, "seg")
+            pred = np.load(os.path.join(save, os.path.basename(case) + ".npy"))
+            rows.append(dict(case=os.path.basename(case), dice=multi_dice(gt, pred, 1)[1],
+                             hd95=multi_hd(gt, pred, 1)[1]))
+        return rows
+
+
+def epoch_records(cfg) -> list:
+    """Per-epoch scalars of the run's metrics.jsonl, in the order written (a
+    resumed run appends its epochs)."""
+    records = []
+    with open(os.path.join(cfg.log_dir, f"fold{cfg.current_fold}", "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if not records or r["tag"] in records[-1][1]:
+                records.append((r["step"], {}))
+            records[-1][1][r["tag"]] = r["value"]
+    out = []
+    for epoch, v in records:
+        tr_s, steps = v["time/train/seconds"], v["time/train/steps"]
+        out.append(dict(epoch=epoch, train_loss=v["data/loss/train"],
+                        val_loss=v["data/loss/val"], train_dice=v["data/dice/train"],
+                        val_dice=v["data/dice/val"], lr=v["data/lr"],
+                        wall_s=tr_s + v["time/val/seconds"], train_steps=int(steps),
+                        step_s=tr_s / steps, loader_wait_share=v["time/train/loader_wait_seconds"]
+                        / tr_s))
+    return out
+
+
+def per_train_step(counts: dict, n_train: int, n_forward: int, forward: dict) -> dict:
+    """Launches of one train step: a run's counts less its ``n_forward``
+    eval forwards, over its ``n_train`` steps; fails unless whole."""
+    out = {}
+    for name, total in counts.items():
+        rest = total - n_forward * forward[name]
+        if rest % n_train:
+            fail(f"{name}: {total} launches are not {n_train} train steps and {n_forward} "
+                 f"forwards of {forward[name]}")
+        out[name] = rest // n_train
+    return out
+
+
+def phase_trainer(args, work: str, case_format: str, device: str = "cuda") -> dict:
+    """The trainer journey at full width: train 2 epochs of fold 1 of 3, resume
+    one more from the best checkpoint, sliding-window inference of two
+    volumes, eval; then an epoch of Hecktor20Top1. Returns launches by path."""
+    run = TrainerRun(args, case_format, device)
+    names = [f"p{i}_{s}" for i in range(3) for s in "ab"]  # 3 patients x 2 cases
+    paths = write_cases(os.path.join(work, "cases"), names, args.case, args.seed, case_format)
+    tests = write_cases(os.path.join(work, "test"), ["t0_a", "t1_a"], args.volume,
+                        args.seed + 100, case_format)
+    cwd = os.getcwd()
+    os.chdir(work)  # ./ckpt and ./log, as the CLI lays them out
+    try:
+        return drive_trainer(args, run, paths, tests)
+    finally:
+        os.chdir(cwd)
+
+
+def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
+    on_card = run.device == "cuda"
+    forward = hdf_expect(args)
+    train_expect = dict(hdf_expect(args, train=True), dense_attention=4 * args.depth,
+                        instance_norm_relu=36)  # remat: the forward kernels run twice
+    cfg = run.config("HDenseFormer_32", TRAIN_EPOCHS)
+    train, val = run.split(cfg, paths)
+    n_train, n_val = -(-len(train) // cfg.batch_size), -(-len(val) // cfg.batch_size)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run.train(cfg, paths)
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    # the startup report's forward, then an eval forward an epoch
+    step = per_train_step(counts, TRAIN_EPOCHS * n_train, TRAIN_EPOCHS * n_val + 1,
+                          forward) if on_card else None
+    ckpt_dir = os.path.join(cfg.output_dir, "fold1")
+    best = get_weight_path(ckpt_dir)
+    best_epoch = int(os.path.basename(best).split("-")[0].split("=")[1])
+
+    reset_counts()
+    seg = run.resume(cfg, paths, best, best_epoch + 2)  # one epoch after the best
+    resume_counts = read_counts()
+    resume_step = per_train_step(resume_counts, n_train, n_val, forward) if on_card else None
+    kept = sorted(os.listdir(ckpt_dir))
+    epochs = epoch_records(cfg)
+    for rec in epochs:
+        emit("trainer_epoch", net=cfg.net_name, **rec)
+    steady = [r["step_s"] for r in epochs[1:]]
+    emit("trainer", net=cfg.net_name, case_format=run.case_format, cases=len(paths),
+         case_size=args.case, patch=args.patch, batch=cfg.batch_size, depth=args.depth,
+         remat=cfg.remat, dtype="bfloat16" if cfg.use_fp16 else "float32",
+         lr_scheduler=cfg.lr_scheduler, loss=cfg.loss_fun, train_wall_s=train_s,
+         steady_step_s=statistics.mean(steady) if steady else None,
+         loader_wait_share=[r["loader_wait_share"] for r in epochs],
+         peak_memory_bytes=peak, launches=counts, launches_per_train_step=step,
+         resume_launches_per_train_step=resume_step, best_checkpoint_epoch=best_epoch,
+         start_epoch_after_resume=seg.start_epoch, checkpoints_kept=len(kept))
+    if on_card and (step != train_expect or resume_step != train_expect):
+        fail(f"trainer step launched {step} (resumed {resume_step}), expected {train_expect}")
+    if len(kept) > 3 or seg.start_epoch != best_epoch + 1 or len(epochs) != TRAIN_EPOCHS + 1:
+        fail(f"checkpoints {kept}, start_epoch {seg.start_epoch}, epochs {epochs}")
+    if not all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in epochs):
+        fail(f"trainer losses are not finite: {epochs}")
+
+    save = os.path.join("seg", cfg.version)
+    newest = get_weight_path(ckpt_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    run.infer(cfg, tests, newest, save)
+    infer_s = time.perf_counter() - t0
+    infer_counts = read_counts()
+    labels = [np.load(os.path.join(save, os.path.basename(t).split(".")[0] + ".npy"))
+              for t in tests]
+    rows = run.evaluate(cfg, tests, save)
+    emit("trainer_inference", volumes=len(tests), volume=args.volume, window_batch=WINDOWS,
+         seconds=infer_s, seconds_per_case=infer_s / len(tests), launches=infer_counts,
+         eval_rows=rows, mean_dice=float(np.nanmean([r["dice"] for r in rows])),
+         mean_hd95=float(np.nanmean([r["hd95"] for r in rows])))
+    if any(lab.shape != (args.volume,) * 3 or lab.min() < 0 or lab.max() >= N_CLS
+           for lab in labels) or len(rows) != len(tests):
+        fail(f"inference labels {[lab.shape for lab in labels]}, eval rows {rows}")
+    if on_card and infer_counts != {k: v * len(tests) for k, v in forward.items()}:
+        fail(f"inference launched {infer_counts}, expected {len(tests)} x {forward}")
+
+    # Hecktor20Top1, one epoch: no remat (JAX has none), level 1 packed
+    hcfg = run.config("hecktor20top1", 1)
+    reset_counts()
+    run.train(hcfg, paths)
+    hcounts = read_counts()
+    hstep = per_train_step(hcounts, n_train, n_val + 1, HECKTOR_EXPECT) if on_card else None
+    hepoch = epoch_records(hcfg)
+    for rec in hepoch:
+        emit("trainer_epoch", net=hcfg.net_name, **rec)
+    emit("trainer_hecktor", launches=hcounts, launches_per_train_step=hstep,
+         loss=hcfg.loss_fun, deep_supervision=hcfg.use_ds)
+    if on_card and not all(hstep[k] > 0 for k in ("instance_norm_relu", "shift_pack",
+                                                   "shift_pack_backward",
+                                                   "instance_norm_relu_backward")):
+        fail(f"Hecktor20Top1's train step launched {hstep}")
+    return {"trainer": {k: counts[k] + resume_counts[k] + infer_counts[k] for k in counts},
+            "trainer-hecktor20top1": hcounts}
+
+
+def remat_memory(args) -> dict:
+    """Peak memory of one full-width train step at batch 2 (bf16) with remat
+    on and off, one synthetic batch."""
+    case = synthetic_case(args.seed, args.patch)
+    batch = {"image": case["image"].repeat(2, 1, 1, 1, 1),
+             "label": case["label"].repeat(2, 1, 1, 1, 1)}
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        net = get_net("HDenseFormer_32", 2, N_CLS, (args.patch,) * 3,
+                      transformer_depth=args.depth, dtype=torch.bfloat16, remat=remat,
+                      device="cuda")
+        init_weights(net, torch.Generator().manual_seed(args.seed))
+        state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
+                                              params=net.parameters()))
+        step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        step(state, batch, gen)  # the first step builds cuDNN's plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        peaks[remat] = dict(peak_bytes=torch.cuda.max_memory_allocated(),
+                            step_ms=(time.perf_counter() - t0) * 1e3)
+        del net, state
+    emit("remat_memory", batch=2, patch=args.patch, depth=args.depth, dtype="bfloat16",
+         remat_on=peaks[True], remat_off=peaks[False])
+    del case, batch
+    torch.cuda.empty_cache()
+    return peaks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=24, help="transformer_depth (24 = full)")
     args = ap.parse_args()
+    args.patch, args.case, args.volume = PATCH, CASE, VOLUME
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1044,6 +1404,18 @@ def main() -> int:
     del nets
     phase_train_compare(args)
     by_path["train"] = phase_train(args)
+    phase_remat_compare(args)
+    remat_memory(args)
+    case_format = "hdf5" if importlib.util.find_spec("h5py") else "npy"
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        by_path.update(phase_trainer(args, WORK, case_format))
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    missing = [name for name in KERNELS
+               if not by_path["trainer"][name] + by_path["trainer-hecktor20top1"][name]]
+    if missing:
+        fail(f"the trainer paths launched no {missing}")
 
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [

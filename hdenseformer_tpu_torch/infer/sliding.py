@@ -16,18 +16,18 @@ Counterpart of ``hdenseformer_tpu/infer/sliding.py``:
 
 Where JAX scans the windows inside one executable, the port runs them as a
 Python loop of eager calls. Sharding the window origins over several
-devices (``mesh``) is not ported yet.
+devices (``mesh``) is not ported yet (ROADMAP.md queue 1 item 6).
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from hdenseformer_tpu_torch.data.io import hdf5_reader
+from hdenseformer_tpu_torch.data.io import hdf5_reader, write_nifti
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 
 
@@ -180,32 +180,56 @@ def predict_volume(
 
 def inference_slidingwindow(
     model: torch.nn.Module,
-    test_path: str,
+    test_path,
     save_path: str,
     num_classes: int,
     patch_size: Sequence[int],
     step_size: Sequence[int],
     img_key: str = "ct",
+    lab_key: str = "label",
     use_gaussian: bool = False,
+    mesh=None,
     window_batch: int = 8,
+    save_nii: bool = False,
+    reader: Callable[[str, str], np.ndarray] = hdf5_reader,
 ) -> list:
-    """Sliding-window inference over every ``*.hdf5`` case of ``test_path``.
+    """Sliding-window inference over every ``*.hdf5`` case of the directory
+    ``test_path`` (or over a list of case paths).
 
-    Each case's ``img_key`` volume is normalized by ``PETandCTNormalize`` and
-    its labels saved as ``<case>.npy`` under ``save_path``, as the JAX
-    function does. Its ``lab_key``, ``mesh`` and ``save_nii`` options are not
-    ported: the label volume is unused at inference, and sharding and NIfTI
-    output wait for later slices.
+    As the JAX function: each case's ``img_key`` volume is normalized by
+    ``PETandCTNormalize`` (with its ``lab_key`` volume, or zeros where the
+    case has none, as the label beside it) and its labels saved as
+    ``<case>.npy`` under ``save_path``; ``save_nii`` also writes
+    ``<case>.nii.gz`` (int16). Returns the paths written. ``reader(path,
+    key)`` reads a volume of a case (``SegDataset``'s convention). ``mesh``
+    (sharding the windows over several cards) is not ported and raises
+    (ROADMAP.md queue 1 item 6).
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding the windows over a mesh is not ported yet: ROADMAP.md queue 1 item 6")
     os.makedirs(save_path, exist_ok=True)
     norm = PETandCTNormalize()
     outputs = []
-    for path in sorted(glob.glob(os.path.join(test_path, "*.hdf5"))):
-        image = norm({"image": hdf5_reader(path, img_key)})["image"]
+    if isinstance(test_path, str):
+        cases = sorted(glob.glob(os.path.join(test_path, "*.hdf5")))
+    else:
+        cases = sorted(test_path)
+    for path in cases:
+        image = reader(path, img_key)
+        try:
+            label = reader(path, lab_key)
+        except KeyError:
+            label = np.zeros(image.shape[1:], np.float32)
+        image = norm({"image": image, "label": label})["image"]
         pred = predict_volume(model, image, patch_size, step_size, num_classes,
                               use_gaussian=use_gaussian, window_batch=window_batch)
         case = os.path.basename(path).split(".")[0]
         out = os.path.join(save_path, case + ".npy")
         np.save(out, pred)
         outputs.append(out)
+        if save_nii:
+            nii_path = os.path.join(save_path, case + ".nii.gz")
+            write_nifti(nii_path, pred.astype(np.int16))
+            outputs.append(nii_path)
     return outputs

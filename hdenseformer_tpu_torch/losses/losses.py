@@ -6,12 +6,14 @@ the loss math runs in fp32 whatever the model's compute dtype; every loss
 takes ``sample_weight``, a (N,) vector of 1 (real sample) or 0 (padding),
 and the weighted result equals the loss of the real samples alone.
 
-Ported so far: ``focal_loss`` (the bench criterion, with JAX's clip of the
-probabilities to [1e-7, 1 - 1e-7] and log clamp at -100),
-``cross_entropy_loss`` (the trainer's default) and
-``deep_supervision_loss`` (a nearest-resized one-hot target per head,
-weights 1/2^i). ``get_loss`` keeps JAX's names; the other four raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 1).
+Every loss of JAX's registry: ``focal_loss`` (JAX's clip of the
+probabilities to [1e-7, 1 - 1e-7] and log clamp at -100), ``fl_loss`` (the
+eps-clipped variant), ``cross_entropy_loss``, ``topk_loss`` (the mean CE of
+the hardest k % of voxels; under ``sample_weight`` the masked top-k of the
+real voxels), ``binary_dice_loss`` and ``dice_loss`` (softmax dice per
+class), ``ce_plus_dice``, ``fl_plus_dice``, and ``deep_supervision_loss``
+(a nearest-resized one-hot target per head, weights 1/2^i). ``get_loss``
+takes every name of JAX's ``LOSS_REGISTRY``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,166 @@ def _elementwise_reduce(loss: torch.Tensor, reduction: str,
     if reduction == "sum":
         return (loss * sw).sum()
     return loss * sw
+
+
+def _masked_topk_mean(flat: torch.Tensor, flat_w: torch.Tensor, k: int) -> torch.Tensor:
+    """Mean of the top-k % real entries of ``flat`` under the 1/0 mask ``flat_w``.
+
+    As JAX's: masked entries sort last (-1e30), the top list is over the
+    padded length, and a data-dependent prefix ``floor(n_real * k / 100)``
+    (at least 1) selects the real top set, counted in integers. No host sync.
+    """
+    kk_pad = max(int(flat.shape[0] * k / 100), 1)
+    top = torch.topk(torch.where(flat_w > 0, flat, -1e30), kk_pad).values
+    n_real = (flat_w > 0).sum()
+    kk_real = torch.clamp(n_real * k // 100, 1, kk_pad)
+    sel = torch.arange(kk_pad, device=flat.device) < kk_real
+    return torch.where(sel, top, 0.0).sum() / kk_real.float()
+
+
+def _per_sample_reduce(loss_vec: torch.Tensor, reduction: str, k: int,
+                       sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """Reduce a per-sample loss vector under an optional sample mask."""
+    if reduction not in ("mean", "sum", "topk", "none"):
+        raise ValueError(f"Unexpected reduction {reduction}")
+    if sample_weight is None:
+        if reduction == "mean":
+            return loss_vec.mean()
+        if reduction == "sum":
+            return loss_vec.sum()
+        if reduction == "topk":
+            kk = max(int(loss_vec.shape[0] * k / 100), 1)
+            return torch.topk(loss_vec, kk).values.mean()
+        return loss_vec
+    w = sample_weight.float()
+    if reduction == "mean":
+        return (loss_vec * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    if reduction == "sum":
+        return (loss_vec * w).sum()
+    if reduction == "topk":
+        return _masked_topk_mean(loss_vec, w, k)
+    return loss_vec * w
+
+
+def binary_dice_loss(
+    predict: torch.Tensor,
+    target: torch.Tensor,
+    smooth: float = 1e-5,
+    p: int = 1,
+    reduction: str = "mean",
+    k: int = 50,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Soft dice loss on probabilities, per sample over the flattened rest.
+    ``p`` is the denominator's power; ``reduction`` in {'mean', 'sum',
+    'topk', 'none'}."""
+    predict = predict.float().reshape(predict.shape[0], -1)
+    target = target.float().reshape(target.shape[0], -1)
+    inter = (predict * target).sum(1)
+    union = (predict ** p + target ** p).sum(1)
+    loss = 1.0 - (2.0 * inter + smooth) / (union + smooth)
+    return _per_sample_reduce(loss, reduction, k, sample_weight)
+
+
+def dice_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[Sequence[float]] = None,
+    ignore_index: Optional[int] = None,
+    smooth: float = 1e-5,
+    p: int = 1,
+    reduction: str = "mean",
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-class softmax dice: per (sample, class) soft dice over the
+    spatial axes, reduced over samples per class, class-weighted, summed
+    over the classes kept and divided by C - 1 with ``ignore_index`` (else C)."""
+    num_classes = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    tg = target.float()
+    axes = tuple(range(1, logits.dim() - 1))
+    inter = (probs * tg).sum(axes)  # (N, C)
+    union = (probs ** p + tg ** p).sum(axes)
+    loss_nc = 1.0 - (2.0 * inter + smooth) / (union + smooth)
+    per_class = torch.stack([_per_sample_reduce(loss_nc[:, c], reduction, 50, sample_weight)
+                             for c in range(num_classes)])
+    class_mask = torch.ones(num_classes, dtype=torch.float32, device=logits.device)
+    if ignore_index is not None:
+        class_mask[ignore_index] = 0.0
+    if weight is not None:
+        per_class = per_class * torch.as_tensor(weight, dtype=torch.float32,
+                                                device=logits.device)
+    denom = num_classes - 1 if ignore_index is not None else num_classes
+    return (per_class * class_mask).sum() / denom
+
+
+def topk_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[Sequence[float]] = None,
+    k: int = 10,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean CE over the hardest k % of voxels (JAX's semantics: the mean, not
+    the reference's unreduced vector)."""
+    labels = target.argmax(-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    if weight is not None:
+        nll = nll * torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[labels]
+    flat = nll.reshape(-1)
+    if sample_weight is not None:
+        flat_w = _per_sample(sample_weight, nll.dim()).expand_as(nll).reshape(-1)
+        return _masked_topk_mean(flat, flat_w, k)
+    kk = max(int(flat.shape[0] * k / 100), 1)
+    return torch.topk(flat, kk).values.mean()
+
+
+def fl_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    alpha: float = 1.0,
+    gamma: float = 2.0,
+    reduction: str = "sum",
+    eps: float = 1e-5,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The focal variant with probabilities clipped to [eps, 1 - eps] and
+    plain logs."""
+    probs = torch.softmax(logits.float(), dim=-1).clamp(eps, 1.0 - eps)
+    target = target.float()
+    ce = -target * torch.log(probs) - (1.0 - target) * torch.log(1.0 - probs)
+    p_t = probs * target + (1.0 - probs) * (1.0 - target)
+    loss = ce * (1.0 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * target + (1.0 - alpha) * (1.0 - target)) * loss
+    return _elementwise_reduce(loss, reduction, sample_weight)
+
+
+def ce_plus_dice(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[Sequence[float]] = None,
+    ignore_index: Optional[int] = None,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """CE + softmax dice."""
+    return cross_entropy_loss(logits, target, weight=weight, sample_weight=sample_weight) + \
+        dice_loss(logits, target, weight=weight, ignore_index=ignore_index,
+                  sample_weight=sample_weight)
+
+
+def fl_plus_dice(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[Sequence[float]] = None,
+    ignore_index: Optional[int] = None,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """FocalLoss (mean) + softmax dice."""
+    return focal_loss(logits, target, reduction="mean", sample_weight=sample_weight) + \
+        dice_loss(logits, target, weight=weight, ignore_index=ignore_index,
+                  sample_weight=sample_weight)
 
 
 def focal_loss(
@@ -117,13 +279,20 @@ LOSS_REGISTRY = {
     "Cross_Entropy": lambda class_weight=None, **kw: partial(
         cross_entropy_loss, weight=class_weight
     ),
+    "TopKLoss": lambda class_weight=None, topk=10, **kw: partial(
+        topk_loss, weight=class_weight, k=topk
+    ),
     "FocalLoss": lambda class_weight=None, **kw: partial(focal_loss, reduction="sum"),
+    "DiceLoss": lambda class_weight=None, **kw: partial(
+        dice_loss, weight=class_weight, ignore_index=0, p=1
+    ),
+    "CEPlusDice": lambda class_weight=None, **kw: partial(
+        ce_plus_dice, weight=class_weight, ignore_index=0
+    ),
+    "FLPlusDice": lambda class_weight=None, **kw: partial(
+        fl_plus_dice, weight=class_weight, ignore_index=0
+    ),
 }
-# the rest of JAX's registry, and where ROADMAP.md ports it
-_NOT_YET = dict.fromkeys(
-    ("TopKLoss", "DiceLoss", "CEPlusDice", "FLPlusDice"),
-    "queue 1 item 1 (the training slice: the other losses)",
-)
 
 
 def get_loss(
@@ -134,11 +303,8 @@ def get_loss(
 ) -> Callable:
     """``loss(outputs, target, sample_weight=None)`` for JAX's ``loss_fun``
     names; with ``use_ds`` the outputs are the deep-supervision heads."""
-    if loss_fun in _NOT_YET:
-        raise NotImplementedError(f"{loss_fun} is not ported yet: ROADMAP.md {_NOT_YET[loss_fun]}")
     if loss_fun not in LOSS_REGISTRY:
-        options = sorted((*LOSS_REGISTRY, *_NOT_YET))
-        raise ValueError(f"unknown loss {loss_fun!r}; options: {options}")
+        raise ValueError(f"unknown loss {loss_fun!r}; options: {sorted(LOSS_REGISTRY)}")
     base = LOSS_REGISTRY[loss_fun](class_weight=class_weight, topk=topk)
     if not use_ds:
         def loss(outputs, target, sample_weight=None):

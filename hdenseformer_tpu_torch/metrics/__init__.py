@@ -1,2 +1,2 @@
 """Metrics of the port: in-step dice and confusion matrix on the device,
-running dice and averages on the host."""
+running dice, mIoU and averages on the host, offline eval3d metrics."""

@@ -1,8 +1,9 @@
-"""Confusion matrix on the device, running dice and averages on the host.
+"""Confusion matrix on the device; running dice, mIoU and averages on the host.
 
 Counterpart of ``hdenseformer_tpu/metrics/running.py``. The train step
 returns one small C x C integer matrix a batch (``confusion_matrix_device``,
-no host sync); ``RunningDice`` adds those up on the host over an epoch.
+no host sync); ``RunningDice`` and ``RunningConfusionMatrix`` add those up
+on the host over an epoch.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def confusion_matrix_device(ground_truth: torch.Tensor, prediction: torch.Tensor
     return counts[:cells].reshape(num_classes, num_classes)
 
 
-class RunningDice:
-    """Cumulative dice from a running confusion matrix."""
+class _RunningBase:
+    """A running confusion matrix, accumulated on the host."""
 
     def __init__(self, labels: Sequence[int], ignore_label: int = 0):
         self.labels = list(labels)
@@ -63,6 +64,10 @@ class RunningDice:
     def init_op(self) -> None:
         self.overall_confusion_matrix = None
 
+
+class RunningDice(_RunningBase):
+    """Cumulative dice from a running confusion matrix."""
+
     def compute_dice(self, smooth: float = 1e-5):
         if self.overall_confusion_matrix is None:
             return 0.0, []
@@ -71,6 +76,19 @@ class RunningDice:
         union = cm.sum(axis=1) + cm.sum(axis=0)
         dice = (2 * inter + smooth) / (union.astype(np.float32) + smooth)
         return float(np.mean(dice[1:])), [round(float(c), 4) for c in dice]
+
+
+class RunningConfusionMatrix(_RunningBase):
+    """Cumulative mIoU from a running confusion matrix."""
+
+    def compute_mIoU(self, smooth: float = 1e-5):
+        if self.overall_confusion_matrix is None:
+            return 0.0, []
+        cm = self.overall_confusion_matrix
+        inter = np.diag(cm)
+        union = cm.sum(axis=1) + cm.sum(axis=0) - inter
+        iou = (inter + smooth) / (union.astype(np.float32) + smooth)
+        return float(np.mean(iou)), [round(float(c), 4) for c in iou]
 
 
 class AverageMeter:

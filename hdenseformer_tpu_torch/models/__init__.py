@@ -38,10 +38,10 @@ def get_net(
     ``use_kernels`` (None: True) routes attention, InstanceNorm+ReLU and the
     s2d half-shift through the kernel wrappers, which launch the CUDA kernels
     on a CUDA device and take the plain versions on the CPU; False forces the
-    plain versions everywhere. ``remat`` is accepted for the JAX signature
-    and ignored: the port's train step stores every activation, as
-    bench.py's ``REMAT = False`` does (rematerialisation through
-    ``torch.utils.checkpoint`` is ROADMAP.md queue 1 item 1). The model is
+    plain versions everywhere. ``remat`` in {True, "encoder", "levels",
+    False} checkpoints HDenseFormer's blocks as JAX's does
+    (``models.hdenseformer.REMAT_BLOCKS``, through ``torch.utils.checkpoint``);
+    Hecktor20Top1 has no remat in JAX and gets none. The model is
     returned in eval mode; ``train/loop.py``'s step puts it in training,
     where HDenseFormer's dropout (0.5) draws from the generator it is given.
 
@@ -57,7 +57,7 @@ def get_net(
     The parameters are uninitialised: fill them with
     ``models.layers.init_weights`` or ``weights.load_jax_params``.
     """
-    del encoder_name, remat
+    del encoder_name
     input_shape = tuple(input_shape)
     if device is None:
         if not torch.cuda.is_available():
@@ -86,4 +86,5 @@ def get_net(
     from hdenseformer_tpu_torch.models.hdenseformer import HDenseFormer_16, HDenseFormer_32
 
     build = HDenseFormer_32 if net_name == "HDenseFormer_32" else HDenseFormer_16
-    return build(channels, num_classes, input_shape, transformer_depth, **kw).eval()
+    return build(channels, num_classes, input_shape, transformer_depth, remat=remat,
+                 **kw).eval()

@@ -18,8 +18,12 @@ Differences from the JAX module, none of which changes the function:
   ``torch.Generator`` passed to ``forward``; in training with p > 0 a
   missing generator raises. JAX splits its dropout key per modality path;
   here the paths draw one after the other from the one generator.
-- No rematerialisation: the train step stores every activation, as
-  bench.py's ``REMAT = False`` does.
+- Rematerialisation (``remat``, JAX's ``nn.remat`` choice of blocks) is
+  ``torch.utils.checkpoint``, non-reentrant, per block. ``checkpoint``
+  replays only the global RNG states, never an explicit generator, so
+  ``remat_call`` saves the generator's state before a block's forward,
+  sets it back for the recompute (the same dropout masks) and afterwards
+  restores where the forward had left it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from hdenseformer_tpu_torch.models.layers import (
     BasicConv,
@@ -45,6 +50,52 @@ PATCH = 16  # tokens are PATCH^3 patches
 GROWTH = 32  # width of the transformer's features
 HEADS = 8  # attention heads, of width GROWTH / HEADS = 4
 INNER_DEPTH = 4  # attention layers per dense block; transformer_depth counts them
+
+_ENCODER = {f"block_{lvl}_{i}_left" for lvl in (1, 2, 3, 4) for i in (1, 2)}
+_DECODER = {f"block_{lvl}_{i}_right" for lvl in (1, 2, 3) for i in (1, 2)}
+_UP = {"deep_conv", "up1", "up2", "up3"}
+_TRANSPOSED = {f"upconv_{lvl}" for lvl in (1, 2, 3)}
+# JAX's remat values and the blocks each checkpoints (hdenseformer.py's
+# nn.remat choices): "attns" is each modality's transformer path; "levels"
+# takes the full- and half-resolution UNet levels, encoder and decoder
+REMAT_BLOCKS = {
+    True: frozenset(_ENCODER | _DECODER | _UP | _TRANSPOSED | {"attns"}),
+    "encoder": frozenset(_ENCODER | _UP | {"attns"}),
+    "levels": frozenset({f"block_{lvl}_{i}_{side}" for lvl in (1, 2) for i in (1, 2)
+                         for side in ("left", "right")} | {"upconv_1", "upconv_2"}),
+    False: frozenset(),
+}
+
+
+def remat_call(fn, *args, generator: Optional[torch.Generator] = None):
+    """``fn(*args[, generator])`` under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward instead of stored.
+
+    With a ``generator`` the recompute draws the forward's dropout masks:
+    the generator is set back to its state at the forward's start for the
+    recompute, and afterwards to where the forward had left it, so a remat
+    and a plain step leave it in the same state. (Getting and setting a
+    generator's state waits for nothing on the card.) The global RNG states
+    are not saved (``preserve_rng_state=False``): the model draws from none.
+    """
+    if not torch.is_grad_enabled():
+        return fn(*args) if generator is None else fn(*args, generator)
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    start, ran = generator.get_state(), []
+
+    def run(*inputs):
+        if not ran:  # the forward
+            ran.append(True)
+            return fn(*inputs, generator)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*inputs, generator)
+        finally:  # also when checkpoint stops the recompute early
+            generator.set_state(resume)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class DenseForward(nn.Module):
@@ -165,18 +216,25 @@ class HDenseFormer(nn.Module):
     /4, /8]`` logits in fp32. ``dropout`` is the transformer paths' rate
     (JAX's default, 0.5); in training, ``forward`` draws it from its
     ``generator``. The model is built in eval mode, as flax applies it with
-    ``train=False`` unless asked: ``.train()`` turns dropout on.
+    ``train=False`` unless asked: ``.train()`` turns dropout on. ``remat``
+    in {True, "encoder", "levels", False} checkpoints JAX's blocks
+    (``REMAT_BLOCKS``) whenever gradients are recorded.
     """
 
     def __init__(self, in_channels: int, n_cls: int, n_filters: int,
                  image_size: Sequence[int] = (144, 144, 144),
                  transformer_depth: int = 12, use_kernels: bool = True,
-                 dropout: float = 0.5, dtype: Optional[torch.dtype] = None, device=None):
+                 dropout: float = 0.5, remat=False, dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         nf = n_filters
         image_size = tuple(image_size)
         if len(image_size) != 3:
             raise ValueError(f"the port's HDenseFormer is 3-D, got image_size {image_size}")
+        self.remat = remat if isinstance(remat, str) else bool(remat)
+        if self.remat not in REMAT_BLOCKS:
+            raise ValueError(f"remat must be one of {list(REMAT_BLOCKS)}, got {remat!r}")
+        self.remat_blocks = REMAT_BLOCKS[self.remat]
         kw = dict(dtype=dtype, device=device)
         blk = dict(use_kernels=use_kernels, **kw)
         self.attns = nn.ModuleList(
@@ -204,31 +262,39 @@ class HDenseFormer(nn.Module):
             self.add_module(head, Conv(ch, n_cls, 1, out_f32=True, **kw))
         self.eval()
 
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The block ``name`` on ``x``, checkpointed where ``remat`` says."""
+        block = getattr(self, name)
+        return remat_call(block, x) if name in self.remat_blocks else block(x)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> list[torch.Tensor]:
         # modality-major channels, as JAX's moveaxis + reshape of the vmap output
-        attnall = torch.cat(
-            [attn(x[..., m:m + 1], generator) for m, attn in enumerate(self.attns)], dim=-1
-        )
-        attnout = self.deep_conv(attnall)  # 1/8
-        at1 = self.up1(attnout)  # 1/4
-        at2 = self.up2(at1)  # 1/2
-        at3 = self.up3(at2)  # 1/1
+        paths = [x[..., m:m + 1] for m in range(len(self.attns))]
+        if "attns" in self.remat_blocks:
+            attnall = [remat_call(attn, xm, generator=generator)
+                       for xm, attn in zip(paths, self.attns)]
+        else:
+            attnall = [attn(xm, generator) for xm, attn in zip(paths, self.attns)]
+        attnout = self._block("deep_conv", torch.cat(attnall, dim=-1))  # 1/8
+        at1 = self._block("up1", attnout)  # 1/4
+        at2 = self._block("up2", at1)  # 1/2
+        at3 = self._block("up3", at2)  # 1/1
 
         skips = []
         h = x
         for lvl, ats in ((1, at3), (2, at2), (3, at1)):
-            d = getattr(self, f"block_{lvl}_1_left")(h)
-            d = getattr(self, f"block_{lvl}_2_left")(d) + ats
+            d = self._block(f"block_{lvl}_1_left", h)
+            d = self._block(f"block_{lvl}_2_left", d) + ats
             skips.append(d)
             h = max_pool(d)
-        y = self.block_4_2_left(self.block_4_1_left(h)) + attnout
+        y = self._block("block_4_2_left", self._block("block_4_1_left", h)) + attnout
         outs = [self.head_d3(y)]
         for lvl, head in ((3, "head_d2"), (2, "head_d1"), (1, "head")):
-            up = getattr(self, f"upconv_{lvl}")(y)
+            up = self._block(f"upconv_{lvl}", y)
             y = torch.cat([up, skips[lvl - 1]], dim=-1)
-            y = getattr(self, f"block_{lvl}_1_right")(y)
-            y = getattr(self, f"block_{lvl}_2_right")(y)
+            y = self._block(f"block_{lvl}_1_right", y)
+            y = self._block(f"block_{lvl}_2_right", y)
             outs.append(getattr(self, head)(y))
         return outs[::-1]
 

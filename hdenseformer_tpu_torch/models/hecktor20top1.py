@@ -208,7 +208,12 @@ class Hecktor20Top1(nn.Module):
         self.block_1_2_right = sen(nf, nf, packed=pk)
         self.conv1x1 = Conv(nf, n_cls, 1, packed=pk, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` is unused (the model has no dropout); it is taken so
+        that every model of the zoo is called alike, as JAX applies each with
+        ``rngs=``."""
+        del generator
         if self.packed and any(s % 2 for s in x.shape[1:-1]):
             raise ValueError(
                 f"this Hecktor20Top1 packs level 1 and takes even spatial dims, got "

@@ -111,7 +111,10 @@ def _gather_index(transpose: bool, k: int, nsp: int, device: torch.device) -> to
     weight. Each (u, p, q) row of a tap factor holds at most one tap, so an
     expanded entry is one fine tap or zero: a gather, exact in any precision.
     Kept on ``device``: a copy from host memory on every call would wait for
-    the device to drain the work queued before it.
+    the device to drain the work queued before it. Built outside inference
+    mode, whatever the first caller's mode: the cached index of a serving
+    call would otherwise be an inference tensor, which a later train step's
+    backward may not save.
     """
     A = _tap_factor_transpose() if transpose else _tap_factor_k(k)[0]
     tab = np.where(A.any(-1), A.argmax(-1), -1).transpose(2, 1, 0)  # (fout, fin, K)
@@ -124,7 +127,8 @@ def _gather_index(transpose: bool, k: int, nsp: int, device: torch.device) -> to
         td = tab.reshape(shape)
         idx = idx * k + np.maximum(td, 0)
         valid &= td >= 0
-    return torch.from_numpy(np.where(valid, idx, k ** nsp)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.where(valid, idx, k ** nsp)).to(device)
 
 
 def _expand(w: torch.Tensor, transpose: bool) -> torch.Tensor:

@@ -435,7 +435,7 @@ def test_model_gradients_through_the_kernels(cuda):
 
     nets = [
         get_net("HDenseFormer_16", 2, 2, (32, 32, 32), transformer_depth=4,
-                use_kernels=use, device=cuda).train()
+                use_kernels=use, remat=False, device=cuda).train()
         for use in (True, False, False)
     ]
     init_weights(nets[0], torch.Generator().manual_seed(0))
@@ -506,3 +506,50 @@ def test_train_step_does_not_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert state.step == 2 and bool(torch.isfinite(out["loss"]))
     assert int(out["cm"].sum()) == 32 ** 3
+
+
+def test_remat_step_equals_the_plain_step_on_the_card(cuda):
+    """remat=True against remat=False: HDenseFormer_32 at 64^3, depth 4, fp32
+    through the kernels, cuDNN deterministic, one dropout seed. The loss is
+    equal, every gradient within 1e-5 of its tensor's max (the trilinear
+    upsampling's backward adds with atomics; the ZERO_GRADIENT biases within
+    1e-5 of the largest gradient), and the generator ends in the
+    same state: the recompute drew the forward's masks. Under remat every
+    forward kernel runs twice (the recompute), the backward once."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn(1, 64, 64, 64, 2, generator=g, device=cuda)
+        label = torch.zeros(1, 64, 64, 64, 2, device=cuda)
+        label[..., 0] = 1
+        label[:, 20:40, 24:44, 16:36] = torch.tensor([0.0, 1.0], device=cuda)
+        runs = {}
+        for remat in (False, True):
+            net = get_net("HDenseFormer_32", 2, 2, (64, 64, 64), transformer_depth=4,
+                          remat=remat, device=cuda).train()
+            init_weights(net, torch.Generator().manual_seed(0))
+            gen = torch.Generator(device=cuda).manual_seed(9)
+            dense_attention.launches = instance_norm_relu.launches = 0
+            instance_norm_relu_bwd.launches = 0
+            loss = get_loss("FocalLoss", use_ds=True)(net(x, generator=gen), label)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[remat] = (float(loss.detach()), {n: p.grad for n, p in net.named_parameters()},
+                           gen.get_state(), (dense_attention.launches,
+                                             instance_norm_relu.launches,
+                                             instance_norm_relu_bwd.launches))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    (loss0, grads0, state0, counts0), (loss1, grads1, state1, counts1) = runs[False], runs[True]
+    assert counts0 == (8, 18, 18) and counts1 == (16, 36, 18)
+    assert loss1 == loss0 and torch.equal(state1, state0)
+    top = max(float(g.abs().max()) for g in grads0.values())
+    for name, ref in grads0.items():
+        # the ZERO_GRADIENT biases get rounding noise: held against the largest
+        scale = top if name in ZERO_GRADIENT else float(ref.abs().max())
+        assert float((grads1[name] - ref).abs().max()) <= 1e-5 * scale, name

@@ -24,6 +24,9 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.data",
     "hdenseformer_tpu_torch.data.transforms",
     "hdenseformer_tpu_torch.data.io",
+    "hdenseformer_tpu_torch.data.augment3d",
+    "hdenseformer_tpu_torch.data.pipeline",
+    "hdenseformer_tpu_torch.data.convert",
     "hdenseformer_tpu_torch.infer",
     "hdenseformer_tpu_torch.infer.sliding",
     "hdenseformer_tpu_torch.losses",
@@ -31,9 +34,16 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.metrics",
     "hdenseformer_tpu_torch.metrics.batch",
     "hdenseformer_tpu_torch.metrics.running",
+    "hdenseformer_tpu_torch.metrics.eval3d",
     "hdenseformer_tpu_torch.train",
     "hdenseformer_tpu_torch.train.state",
     "hdenseformer_tpu_torch.train.loop",
+    "hdenseformer_tpu_torch.train.checkpoint",
+    "hdenseformer_tpu_torch.train.logging",
+    "hdenseformer_tpu_torch.configs",
+    "hdenseformer_tpu_torch.configs.config",
+    "hdenseformer_tpu_torch.utils",
+    "hdenseformer_tpu_torch.cli",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +54,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'hdenseformer_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'hdenseformer_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
