@@ -23,13 +23,15 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    serving gives it and on peaked scores, with its occupancy; then the path
    of the half-shift's backward kernel: the gradient of
    sum(conv3_packed(x, w)^2) through autograd;
-1b. the InstanceNorm backward kernel against its plain version (the port
-   of fused_norm's VJP) given the same statistics, at the train step's
-   largest shape (1, 144^3, 32) in bf16 and fp32, at ragged S with C in
-   {2, 32, 256}, affine and plain, ReLU on and off, and on 1000 + N(0, 1);
-   timed by pass against its byte bound, beside the plain version and
-   torch.autograd.grad through F.relu(F.instance_norm(...)); and summed
-   over a train step's 18 InstanceNorm shapes (forward and backward);
+1b. the InstanceNorm backward kernel (one cooperative launch) against its
+   plain version (the port of fused_norm's VJP) given the same statistics,
+   rerun bitwise, at the train step's largest shape (1, 144^3, 32) in bf16
+   and fp32, at ragged S with C in {2, 32, 256}, affine and plain, ReLU on
+   and off, and on 1000 + N(0, 1); timed against its byte bound (its launch
+   plan printed beside), beside the plain version and torch.autograd.grad through
+   F.relu(F.instance_norm(...)); summed over a bench.py train step's 18
+   InstanceNorm shapes (forward and backward) and over the 30 backward
+   shapes of a Hecktor20Top1 trainer step (batch 2);
 2. the full-width HDenseFormer_32 forward (2 modalities, 144^3, depth 24,
    bf16, 8 windows), once through the kernels and once through the plain
    versions: logit difference, argmax agreement, kernel launch counts;
@@ -53,7 +55,8 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    then one 64^3 fp32 step with remat on and off (cuDNN deterministic, one
    dropout seed: equal loss, gradients within 1e-5 of their max, the
    generator in one state), and the peak memory and time of one full-width
-   step at batch 2 with remat on and off;
+   step at batch 2 with remat on and off, of HDenseFormer_32 and of
+   Hecktor20Top1;
 5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
    where h5py imports and driven through the CLI (``cli.main``), else as
    .npy case directories driven through ``SemanticSeg`` with a .npy reader
@@ -61,9 +64,10 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    at the Hecktor21 preset (HDenseFormer_32, 144^3, depth 24, batch 2, bf16,
    remat, DS FocalLoss, Adam with coupled L2 1e-4, poly LR), resumes one
    epoch from its best checkpoint, infers two 200^3 volumes (window batch
-   8) and is evaluated (dice, HD95); then one epoch of Hecktor20Top1. Per
-   epoch: losses, dice, seconds, step time and the share spent waiting on
-   the loader; launches per train step, checked against the model's;
+   8) and is evaluated (dice, HD95); then one epoch of Hecktor20Top1 (with
+   the preset's remat, as JAX). Per epoch: losses, dice, seconds, step time
+   and the share spent waiting on the loader; launches per train step,
+   checked against the counts the models' code gives;
 6. a {"kernels": [...]} line with each kernel's numbers;
 7. the result line {"ok": true, "device": {...}}.
 
@@ -114,6 +118,7 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu_fwd,
     instance_norm_relu_ref,
 )
+from hdenseformer_tpu_torch.ops.instance_norm import bwd_plan as norm_bwd_plan
 from hdenseformer_tpu_torch.ops.s2d import conv3_packed
 from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_pack,
@@ -168,9 +173,25 @@ SHIFT_FC = (16, 256, 512, 256)
 IN_FORWARD = (((PATCH ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 5),
               (((PATCH // 4) ** 3, 128), 5), (((PATCH // 8) ** 3, 256), 3))
 IN_PASSES = ("partial_stats_kernel", "finalize_kernel", "normalize_kernel")
-IN_BWD_PASSES = ("bwd_reduce_kernel", "bwd_finalize_kernel", "bwd_dx_kernel")
+IN_BWD_PASSES = ("bwd_persistent_kernel",)
 HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 4,
                   "shift_pack_backward": 0, "instance_norm_relu_backward": 0}
+# (S, C) and count of Hecktor20Top1's InstanceNorms (no affine, no ReLU) in
+# one step at 144^3, n_filters 32, level 1 packed: the (8 * 72^3, 32) view of
+# block_1_1_left (conv1 and res_conv), block_1_2_left and block_1_{1,2}_right;
+# levels 2-4: the first left block's two, two more left and two right; level
+# 5's four left; the vision heads' 1x1 norms on the 72^3, 36^3 and 18^3 grids
+IN_HECKTOR_TRAIN = (((8 * (PATCH // 2) ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 6),
+                    (((PATCH // 4) ** 3, 128), 6), (((PATCH // 8) ** 3, 256), 6),
+                    (((PATCH // 16) ** 3, 512), 4), (((PATCH // 2) ** 3, 32), 1),
+                    (((PATCH // 4) ** 3, 32), 1), (((PATCH // 8) ** 3, 32), 1))
+# one Hecktor20Top1 train step with remat (checkpointed: every block but the
+# three vision heads): the forward's 30 norms and 4 half-shifts, the
+# recompute's 27 and 4 (all four half-shifts sit in checkpointed level-1
+# blocks), a backward per norm, and 3 backward half-shifts (the stem's
+# input needs no gradient)
+HECKTOR_TRAIN_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30 + 27, "shift_pack": 4 + 4,
+                        "shift_pack_backward": 3, "instance_norm_relu_backward": 30}
 # the train step of bench.py: batch 1, Adam with coupled L2, 4 chained
 # windows of 8 steps; a 144^3 patch counts (144 / 128)^3 128^3 patches
 LR, WEIGHT_DECAY, TRAIN_WINDOWS, TRAIN_STEPS = 1e-3, 1e-4, 4, 8
@@ -525,28 +546,27 @@ def norm_bwd_check(got, ref, dtype) -> dict:
 
 
 def norm_backward_times(x, dy, scale, bias, relu, library: bool = True) -> dict:
-    """Device times of the backward kernel (by pass, and the wrapper's whole
-    call, the dscale/dbias sums included), its plain version and, with
+    """Device times of the backward kernel (the wrapper's whole call, one
+    launch, dscale and dbias included), its plain version and, with
     ``library``, torch.autograd.grad through F.relu(F.instance_norm(...)).
-    The bound moves each byte once: read x and dy, write dx; the passes'
-    bounds count what each must move: x and dy (reduce), x, dy and dx (dx)."""
+    The bound moves each byte once: read x and dy, write dx."""
     _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
     n, es = x.numel(), x.element_size()
     # ~14 fp32 operations an element: mask, select and 2 sums in the reduce,
-    # mask, select, centring and 2 fmas in the dx pass
+    # mask, select, centring and 2 fmas for dx
     rec = dict(zip(("bound_ms", "bound_by"), bound(3 * n * es, 14 * n, torch.float32)))
+    plan = norm_bwd_plan(x, dy)
+    rec["plan"] = dict(grid=plan.grid, vec_bytes=plan.vec_bytes, channel_tile=plan.channel_tile,
+                       tiles=plan.tiles, parts=plan.parts)
     iters = 10 if n > 2e8 else 50
     by_kernel = device_kernels(lambda: instance_norm_relu_bwd(dy, x, stats, scale, bias, relu),
                                iters)
     passes = {p: sum(t for name, t in by_kernel.items() if p in name) for p in IN_BWD_PASSES}
     if any(t == 0 for t in passes.values()):
-        fail(f"instance_norm_relu_bwd: the profiler saw {sorted(by_kernel)}, not its passes")
+        fail(f"instance_norm_relu_bwd: the profiler saw {sorted(by_kernel)}, not its kernel")
     rec["ms"] = sum(by_kernel.values())
-    rec["passes_ms"] = passes
-    xb = n * es
-    moved = {"bwd_reduce_kernel": 2 * xb, "bwd_dx_kernel": 3 * xb}
-    rec["passes_tb_per_s"] = {p: b / passes[p] / 1e9 for p, b in moved.items()}
-    rec["passes_bound_ms"] = {p: b / HBM_BYTES_PER_S * 1e3 for p, b in moved.items()}
+    rec["kernel_ms"] = passes
+    rec["tb_per_s"] = 3 * n * es / passes[IN_BWD_PASSES[0]] / 1e9  # the function's bytes
     mean, inv = absolute_stats(x, stats)
     rec["plain_ms"] = device_ms(
         lambda: instance_norm_relu_bwd_ref(dy, x, mean, inv, scale, bias, relu), iters)
@@ -564,10 +584,27 @@ def norm_backward_times(x, dy, scale, bias, relu, library: bool = True) -> dict:
     return rec
 
 
+def norm_bwd_compare(x, dy, scale, bias, relu, what: str) -> dict:
+    """The backward kernel against its plain version given the forward
+    kernel's statistics (so both draw the same ReLU mask), and a rerun that
+    must be bitwise equal; fails over the bars."""
+    _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+    again = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
+    torch.cuda.synchronize()
+    vs_plain = norm_bwd_check(got, ref, x.dtype)
+    if not vs_plain["over"] <= 1.0:
+        fail(f"instance_norm_relu_bwd {what}: {vs_plain}")
+    if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"instance_norm_relu_bwd {what}: reruns differ")
+    return vs_plain
+
+
 def phase_norm_backward(gen) -> dict:
-    """The InstanceNorm backward kernel against its plain version, given the
-    forward kernel's statistics (so both draw the same ReLU mask), timed;
-    then summed over a train step's 18 InstanceNorm shapes at batch 1."""
+    """The InstanceNorm backward kernel against its plain version, timed;
+    then summed over a bench.py train step's 18 InstanceNorm shapes at batch
+    1, and over a Hecktor20Top1 trainer step's 30 at batch 2."""
     main = None
     for shape, dtype, affine, relu, mean in (
         ((1, PATCH ** 3, 32), torch.bfloat16, True, True, 1.0),  # the train step's largest
@@ -580,26 +617,17 @@ def phase_norm_backward(gen) -> dict:
     ):
         x, dy, scale, bias = norm_bwd_inputs(gen, shape, dtype, affine, mean,
                                              1.0 if mean > 1 else 3.0)
-        _, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu)
-        got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
-        again = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu)
-        ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
-        torch.cuda.synchronize()
+        what = f"{shape} {dtype} affine {affine} relu {relu} mean {mean}"
         rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""), affine=affine,
-                   relu=relu, mean=mean, vs_plain=norm_bwd_check(got, ref, dtype),
-                   bitwise_rerun=bool(torch.equal(got[0], again[0])))
-        if not rec["vs_plain"]["over"] <= 1.0:
-            fail(f"instance_norm_relu_bwd {shape} {dtype} affine {affine} relu {relu} "
-                 f"mean {mean}: {rec['vs_plain']}")
-        if not rec["bitwise_rerun"]:
-            fail(f"instance_norm_relu_bwd {shape} {dtype}: reruns differ")
+                   relu=relu, mean=mean, bitwise_rerun=True,
+                   vs_plain=norm_bwd_compare(x, dy, scale, bias, relu, what))
         if shape[1] == PATCH ** 3:
             rec.update(norm_backward_times(x, dy, scale, bias, relu))
         emit("kernel_check", kernel="instance_norm_relu_backward", **rec)
         if main is None:
             main = dict(max_abs_err=rec["vs_plain"]["dx_max_abs"], **{
                 key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-        del x, dy, got, again, ref
+        del x, dy
         torch.cuda.empty_cache()
 
     # a train step's InstanceNorms (batch 1, bf16), forward and backward, each
@@ -607,19 +635,13 @@ def phase_norm_backward(gen) -> dict:
     per_step = dict(fwd_ms=0.0, fwd_bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
     for (s, c), count in IN_FORWARD:
         x, dy, scale, bias = norm_bwd_inputs(gen, (1, s, c), torch.bfloat16, True)
-        _, stats = instance_norm_relu_fwd(x, scale, bias, relu=True)
-        vs_plain = norm_bwd_check(
-            instance_norm_relu_bwd(dy, x, stats, scale, bias, True),
-            instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True),
-            torch.bfloat16)
-        if not vs_plain["over"] <= 1.0:
-            fail(f"instance_norm_relu_bwd (1, {s}, {c}) bfloat16: {vs_plain}")
+        vs_plain = norm_bwd_compare(x, dy, scale, bias, True, f"(1, {s}, {c}) bfloat16")
         fwd = instance_norm_times(x, scale, bias, library=False)
         bwd = norm_backward_times(x, dy, scale, bias, True, library=False)
         emit("instance_norm_train_shape", shape=[1, s, c], dtype="bfloat16",
-             launches_per_train_step=count, vs_plain=vs_plain, fwd_ms=fwd["ms"],
-             fwd_bound_ms=fwd["bound_ms"], bwd_ms=bwd["ms"], bwd_passes_ms=bwd["passes_ms"],
-             bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"])
+             launches_per_train_step=count, vs_plain=vs_plain, bitwise_rerun=True,
+             fwd_ms=fwd["ms"], fwd_bound_ms=fwd["bound_ms"], bwd_ms=bwd["ms"],
+             bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"], plan=bwd["plan"])
         for key, val in (("fwd_ms", fwd["ms"]), ("fwd_bound_ms", fwd["bound_ms"]),
                          ("bwd_ms", bwd["ms"]), ("bwd_plain_ms", bwd["plain_ms"]),
                          ("bwd_bound_ms", bwd["bound_ms"])):
@@ -628,8 +650,23 @@ def phase_norm_backward(gen) -> dict:
         torch.cuda.empty_cache()
     emit("instance_norm_per_train_step", launches=sum(count for _, count in IN_FORWARD),
          **per_step)
-    main.update({f"per_train_step_{k.removeprefix('bwd_')}": v for k, v in per_step.items()
-                 if k.startswith("bwd_")})
+
+    # a Hecktor20Top1 trainer step's backward InstanceNorms (batch 2, bf16, no
+    # affine, no ReLU: FastSmoothSENorm's norm)
+    per_step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for (s, c), count in IN_HECKTOR_TRAIN:
+        x, dy, scale, bias = norm_bwd_inputs(gen, (2, s, c), torch.bfloat16, False)
+        vs_plain = norm_bwd_compare(x, dy, None, None, False, f"(2, {s}, {c}) bfloat16")
+        bwd = norm_backward_times(x, dy, None, None, False, library=False)
+        emit("instance_norm_hecktor_train_shape", shape=[2, s, c], dtype="bfloat16",
+             launches_per_train_step=count, vs_plain=vs_plain, bitwise_rerun=True,
+             **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "plan")})
+        for key in per_step:
+            per_step[key] += bwd[key] * count
+        del x, dy
+        torch.cuda.empty_cache()
+    emit("instance_norm_per_hecktor_train_step",
+         launches=sum(count for _, count in IN_HECKTOR_TRAIN), **per_step)
     return main
 
 
@@ -1322,7 +1359,7 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     if on_card and infer_counts != {k: v * len(tests) for k, v in forward.items()}:
         fail(f"inference launched {infer_counts}, expected {len(tests)} x {forward}")
 
-    # Hecktor20Top1, one epoch: no remat (JAX has none), level 1 packed
+    # Hecktor20Top1, one epoch: the preset's remat (on), level 1 packed
     hcfg = run.config("hecktor20top1", 1)
     reset_counts()
     run.train(hcfg, paths)
@@ -1332,43 +1369,59 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     for rec in hepoch:
         emit("trainer_epoch", net=hcfg.net_name, **rec)
     emit("trainer_hecktor", launches=hcounts, launches_per_train_step=hstep,
-         loss=hcfg.loss_fun, deep_supervision=hcfg.use_ds)
-    if on_card and not all(hstep[k] > 0 for k in ("instance_norm_relu", "shift_pack",
-                                                   "shift_pack_backward",
-                                                   "instance_norm_relu_backward")):
-        fail(f"Hecktor20Top1's train step launched {hstep}")
+         loss=hcfg.loss_fun, deep_supervision=hcfg.use_ds, remat=hcfg.remat)
+    if on_card and hstep != HECKTOR_TRAIN_EXPECT:
+        fail(f"Hecktor20Top1's train step launched {hstep}, expected {HECKTOR_TRAIN_EXPECT}")
     return {"trainer": {k: counts[k] + resume_counts[k] + infer_counts[k] for k in counts},
             "trainer-hecktor20top1": hcounts}
 
 
-def remat_memory(args) -> dict:
-    """Peak memory of one full-width train step at batch 2 (bf16) with remat
-    on and off, one synthetic batch."""
+def remat_memory(args, net_name: str = "HDenseFormer_32") -> dict:
+    """Peak memory and time of one full-width train step at batch 2 (bf16)
+    with remat on and off, one synthetic batch: HDenseFormer_32 with DS
+    FocalLoss, Hecktor20Top1 (level 1 packed, n_filters 32) with FocalLoss,
+    as the Hecktor21 preset trains each. Each step's launches are checked
+    against the model's count."""
     case = synthetic_case(args.seed, args.patch)
     batch = {"image": case["image"].repeat(2, 1, 1, 1, 1),
              "label": case["label"].repeat(2, 1, 1, 1, 1)}
+    hecktor = net_name == "hecktor20top1"
     peaks = {}
     for remat in (True, False):
         torch.cuda.empty_cache()
-        net = get_net("HDenseFormer_32", 2, N_CLS, (args.patch,) * 3,
-                      transformer_depth=args.depth, dtype=torch.bfloat16, remat=remat,
-                      device="cuda")
+        net = get_net(net_name, 2, N_CLS, (args.patch,) * 3, transformer_depth=args.depth,
+                      dtype=torch.bfloat16, remat=remat, device="cuda")
         init_weights(net, torch.Generator().manual_seed(args.seed))
         state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
                                               params=net.parameters()))
-        step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+        step = make_train_step(get_loss("FocalLoss", use_ds=not hecktor), N_CLS)
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         step(state, batch, gen)  # the first step builds cuDNN's plans
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         t0 = time.perf_counter()
-        step(state, batch, gen)
+        _, out = step(state, batch, gen)
         torch.cuda.synchronize()
         peaks[remat] = dict(peak_bytes=torch.cuda.max_memory_allocated(),
-                            step_ms=(time.perf_counter() - t0) * 1e3)
+                            step_ms=(time.perf_counter() - t0) * 1e3, launches=read_counts(),
+                            loss=float(out["loss"]))
         del net, state
-    emit("remat_memory", batch=2, patch=args.patch, depth=args.depth, dtype="bfloat16",
-         remat_on=peaks[True], remat_off=peaks[False])
+    if hecktor:
+        expect = {True: HECKTOR_TRAIN_EXPECT,
+                  False: dict(HECKTOR_TRAIN_EXPECT, instance_norm_relu=30, shift_pack=4)}
+    else:
+        expect = {False: hdf_expect(args, train=True),
+                  True: dict(hdf_expect(args, train=True), dense_attention=4 * args.depth,
+                             instance_norm_relu=36)}
+    emit("remat_memory", net=net_name, batch=2, patch=args.patch, depth=args.depth,
+         dtype="bfloat16", remat_on=peaks[True], remat_off=peaks[False])
+    for remat in (True, False):
+        if peaks[remat]["launches"] != expect[remat]:
+            fail(f"{net_name} step (remat {remat}) launched {peaks[remat]['launches']}, "
+                 f"expected {expect[remat]}")
+    if not all(np.isfinite(p["loss"]) for p in peaks.values()):
+        fail(f"{net_name} remat on and off: losses {peaks[True]['loss']}, {peaks[False]['loss']}")
     del case, batch
     torch.cuda.empty_cache()
     return peaks
@@ -1406,6 +1459,7 @@ def main() -> int:
     by_path["train"] = phase_train(args)
     phase_remat_compare(args)
     remat_memory(args)
+    remat_memory(args, "hecktor20top1")
     case_format = "hdf5" if importlib.util.find_spec("h5py") else "npy"
     shutil.rmtree(WORK, ignore_errors=True)
     try:

@@ -1,5 +1,5 @@
 // InstanceNorm (+ affine) + ReLU over channels-last volumes, hand-written for
-// Hopper (sm_90a). Forward, and below it the backward.
+// Hopper (sm_90a). Forward, and below it the backward (one cooperative launch).
 //
 // Replaces: hdenseformer_tpu/ops/instance_norm.py::fused_instance_norm_relu
 // (Pallas body: its inner `kernel`), which walks the spatial blocks of one
@@ -45,6 +45,7 @@
 // for bit.
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -340,22 +341,80 @@ int launch_vec(int vec_bytes, const void* x, const float* scale, const float* bi
 //        B = -coef * inv * (inv * t2) / m, A = -coef * t1 / m
 // (fused_norm's fma form dx = coef * dy_eff + A + x * B, written relative
 // to the mean: the forward's shift x0 carries it, as there). The caller
-// sums dscale = sum_n inv * t2 and dbias = sum_n t1 from the (N, C) t1, t2.
+// gets dscale = sum_n inv * t2 and dbias = sum_n t1 (summed by the kernel).
 //
 // What bounds it: HBM bytes. At (1, 144^3, 32) bf16 the least is x and dy
-// read once and dx written once, 6 bytes an element (0.17 ms at 3.35 TB/s);
-// this design reads x and dy twice, 10 bytes an element. Three launches in
-// the geometry of the forward (Geom, the same grid):
-//   a. reduce: each thread sums (t1, t2) over its rows of a chunk, four
-//      vector loads of x and of dy in flight, then a fixed-shape tree over
-//      the row groups in shared memory writes one partial per (n, c, chunk),
-//      walked from the last chunk to the first as the forward's statistics;
-//   b. finalize: one block per (c, n) sums the chunks' partials in a fixed
-//      order and writes (t1, t2);
-//   c. dx: the geometry of (a) walked first chunk first, so that the part of
-//      x and dy that (a) read last (still in L2) is read first; dx is stored
-//      evict-first.
-// No atomics: reruns agree bit for bit.
+// read once and dx written once, 6 bytes an element (0.17 ms at 3.35 TB/s).
+// dx needs (t1, t2) of the whole (n, c), so a design that reduces first and
+// then computes dx reads x and dy twice (10 bytes an element) from HBM,
+// less what L2 (50 MB) still holds of them when dx starts.
+//
+// Design: one cooperative launch of a persistent grid, every block resident
+// at once (the grid is sized from the kernel's occupancy, and
+// cudaLaunchCooperativeKernel refuses a grid that cannot co-reside, so the
+// grid barriers cannot hang):
+//   * the work is (n, channel tile, part) items: a channel tile is 64 or 128
+//     bytes of a row (tv threads of one vector each, tv a power of two, at
+//     most 32 threads and 64 channels), part j of P takes the units j, j + P,
+//     j + 2P, ... of rpb = 256 / tv rows (so that the grid walks one narrow
+//     window of memory at a time, as a sequential pass does), and block b
+//     owns items [b * items / grid, (b + 1) * items / grid): one item each
+//     unless N * tiles exceeds the grid;
+//   * every load of x and dy is a cp.async into a ring of kRing unit slots
+//     in shared memory (32 KB in flight a block), which each thread uses for
+//     its own vectors only (no block barrier around it). cp.async holds no
+//     register for data in flight, and its 16-byte copies bypass L1;
+//   a. reduce: each thread sums (t1, t2) of its vector over row g of every
+//      unit, the mask rebuilt as above; the rows of each warp are merged by
+//      shuffles, the warps in a fixed order, and the block writes one
+//      partial (t1, t2) per (n, c, part);
+//   b. grid barrier; then one warp per channel sums the P partials of each
+//      sample (lane-strided, then a fixed butterfly), writes tsum, and with
+//      affine sums dscale = sum_n inv * t2 and dbias = sum_n t1 over the
+//      samples in order; grid barrier. Every sum is taken once, in one
+//      order: no atomics, reruns agree bit for bit, and no block reads more
+//      than its tile's tsum;
+//   c. dx: the units again, in the reverse of (a)'s order, so that those (a)
+//      read last, still in L2, come first; dx stored evict-first.
+// Keeping a block's first units in shared memory from (a) to (c) was
+// measured and dropped (PERF.md): it was no faster at any train-step shape,
+// since L2 already serves most of the second read up to ~100 MB and shared
+// memory holds 5 % of x and dy at (1, 144^3, 32). One launch saves the three
+// passes' and the dscale and dbias sums' launches.
+
+constexpr int kBwdMinBlocks = 2;  // blocks a multiprocessor holds: <= 128 registers a thread
+constexpr int kMaxTile = 64;      // channels of a tile, at most (128 bytes of bf16)
+constexpr int kRingBytes = 32768;  // x and dy of the units in flight through the ring
+
+// Ring slots for vector type R: 32 KB of x and dy units of 256 vectors.
+template <typename R>
+constexpr int kRing = kRingBytes / (kThreads * (int)sizeof(R) * 2);
+
+// Copy one vector from global to shared memory: cp.async where the width
+// allows it (16 bytes bypass L1), a plain load and store for 2 bytes. The
+// "memory" clobbers keep the compiler from moving shared-memory reads of a
+// slot across the copies and waits that refill it.
+template <typename R>
+__device__ __forceinline__ void copy_async(R* dst, const R* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(R) == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if constexpr (sizeof(R) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else if constexpr (sizeof(R) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    *dst = *src;
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Per-channel constants of the backward, from the forward's statistics.
 // The mask passes x where lo < x < hi, which spells every branch of
@@ -393,220 +452,315 @@ __device__ __forceinline__ BwdChan bwd_chan(float x0, const float* stats, const 
   return k;
 }
 
+// Launch geometry of the backward (ops/instance_norm.py::bwd_launch_plan).
+struct BwdGeom {
+  long long S;      // rows per sample
+  long long U;      // units of rpb rows per (n, tile): ceil(S / rpb)
+  long long items;  // N * tiles * P
+  int N;            // samples
+  int C;            // channels
+  int vpr;          // vectors per row: C / CV
+  int tv;           // threads per row in a channel tile (power of two)
+  int tiles;        // channel tiles: ceil(vpr / tv)
+  int P;            // parts per (n, tile)
+};
+
+// Item `it` of the plan: sample, channel tile, part, and the count of its
+// units j, j + P, ..., below U.
+struct BwdItem {
+  int n, z, j;
+  long long count;
+};
+
+__device__ __forceinline__ BwdItem bwd_item(const BwdGeom& gm, long long it) {
+  BwdItem w;
+  const long long seg = it / gm.P;
+  w.j = (int)(it % gm.P);
+  w.n = (int)(seg / gm.tiles);
+  w.z = (int)(seg % gm.tiles);
+  w.count = (gm.U - w.j + gm.P - 1) / gm.P;
+  return w;
+}
+
+// Walk `count` units, unit(i) for i = 0, 1, ..., through the D ring slots:
+// `issue(i, slot)` starts unit i's copies, `use(i, slot)` consumes it once
+// landed. One commit group a step, empty ones too, so that unit i's group is
+// always the D-th newest when it is waited for.
+template <int D, typename Issue, typename Use>
+__device__ __forceinline__ void ring_walk(long long count, Issue issue, Use use) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i < count) issue((long long)i, i);
+    async_commit();
+  }
+  for (long long i = 0; i < count; ++i) {
+    async_wait<D - 1>();
+    const int slot = (int)(i % D);
+    use(i, slot);  // consumes the slot's values before it is refilled
+    if (i + D < count) issue(i + D, slot);
+    async_commit();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 template <typename T, typename R>
-__global__ void __launch_bounds__(kThreads)
-bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                  const float* __restrict__ stats, const float* __restrict__ scale,
-                  const float* __restrict__ bias, float* __restrict__ part_t1,
-                  float* __restrict__ part_t2, Geom gm, int relu) {
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const float* __restrict__ stats, const float* __restrict__ scale,
+                      const float* __restrict__ bias, T* __restrict__ dx, float2* part,
+                      float2* tsum, float* __restrict__ dsb, BwdGeom gm, int relu) {
   using V = Vec<T, R>;
   constexpr int CV = kCV<T, R>;
-  const int k = gridDim.x - 1 - blockIdx.x, n = gridDim.y - 1 - blockIdx.y;
-  const int rpb = kThreads / gm.tv;
-  const int lane = threadIdx.x % gm.tv, g = threadIdx.x / gm.tv;
-  const int vi = (gridDim.z - 1 - blockIdx.z) * gm.tv + lane;
-  const long long r0 = (long long)k * rpb * gm.m;
-  const int rows = (int)min((long long)rpb * gm.m, gm.S - r0);
-  const int mine = vi < gm.vpr && g < rows ? min(gm.m, (rows - g + rpb - 1) / rpb) : 0;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int D = kRing<R>;
+  // slot k holds a unit of x (ring[2k]) and of dy (ring[2k + 1]); each thread its own vectors
+  __shared__ R ring[2 * D][kThreads];
+  __shared__ float s_red[2][kWarps][kMaxTile];  // (t1, t2) per warp and tile channel
 
-  float t1[CV], t2[CV];
-#pragma unroll
-  for (int j = 0; j < CV; ++j) t1[j] = t2[j] = 0.f;
-  if (mine > 0) {
+  const int tid = threadIdx.x;
+  const int lane = tid % gm.tv, g = tid / gm.tv, rpb = kThreads / gm.tv;
+  const int tch = gm.tv * CV;  // channels of a tile, a power of two <= kMaxTile
+  const long long first = (long long)blockIdx.x * gm.items / gridDim.x;
+  const long long last = (long long)(blockIdx.x + 1) * gm.items / gridDim.x;
+  const R* xv = reinterpret_cast<const R*>(x);
+  const R* dv = reinterpret_cast<const R*>(dy);
+
+  // item `it`'s thread geometry: its vector within a row, the offset of row
+  // 0 (row r: base + r * vpr), and the row this thread reads of unit k, or -1
+  struct Walk {
+    BwdItem w;
+    int vi;
+    bool on;
+    long long base;
+  };
+  auto walk = [&](long long it) {
+    Walk k;
+    k.w = bwd_item(gm, it);
+    k.vi = k.w.z * gm.tv + lane;
+    k.on = k.vi < gm.vpr;
+    k.base = (long long)k.w.n * gm.S * gm.vpr + k.vi;
+    return k;
+  };
+  auto row = [&](const Walk& k, long long u) -> long long {
+    const long long r = (k.w.j + u * gm.P) * rpb + g;
+    return k.on && r < gm.S ? r : -1;
+  };
+  auto issue = [&](const Walk& k, long long u, int slot) {
+    const long long r = row(k, u);
+    if (r >= 0) {
+      copy_async(&ring[2 * slot][tid], xv + k.base + r * gm.vpr);
+      copy_async(&ring[2 * slot + 1][tid], dv + k.base + r * gm.vpr);
+    }
+  };
+
+  // a. reduce
+  for (long long it = first; it < last; ++it) {
+    const Walk k = walk(it);
+    float t1[CV], t2[CV];
     BwdChan ch[CV];
-    V first;
-    first.raw = reinterpret_cast<const R*>(x + (long long)n * gm.S * gm.C)[vi];
 #pragma unroll
-    for (int j = 0; j < CV; ++j)
-      ch[j] = bwd_chan(Elem<T>::load(first.e[j]), stats, scale, bias,
-                       (long long)n * gm.C + vi * CV + j, vi * CV + j, relu);
-    const long long off = ((long long)n * gm.S + r0 + g) * gm.C;
-    const R* px = reinterpret_cast<const R*>(x + off) + vi;
-    const R* pd = reinterpret_cast<const R*>(dy + off) + vi;
-    const long long step = (long long)rpb * gm.vpr;
-    for (int i = 0; i < mine; i += kUnroll) {
-      V vx[kUnroll], vd[kUnroll];
+    for (int j = 0; j < CV; ++j) t1[j] = t2[j] = 0.f;
+    if (k.on) {
+      V first_row;
+      first_row.raw = xv[k.base];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (i + u < mine) {
-          vx[u].raw = px[(i + u) * step];
-          vd[u].raw = pd[(i + u) * step];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (i + u < mine) {
+      for (int j = 0; j < CV; ++j)
+        ch[j] = bwd_chan(Elem<T>::load(first_row.e[j]), stats, scale, bias,
+                         (long long)k.w.n * gm.C + k.vi * CV + j, k.vi * CV + j, relu);
+    }
+    ring_walk<D>(
+        k.w.count, [&](long long u, int slot) { issue(k, u, slot); },
+        [&](long long u, int slot) {
+          if (row(k, u) < 0) return;
+          V vx, vd;
+          vx.raw = ring[2 * slot][tid];
+          vd.raw = ring[2 * slot + 1][tid];
 #pragma unroll
           for (int j = 0; j < CV; ++j) {
-            const float xf = Elem<T>::load(vx[u].e[j]);
-            const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd[u].e[j]) : 0.f;
+            const float xf = Elem<T>::load(vx.e[j]);
+            const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd.e[j]) : 0.f;
             t1[j] += e;
             t2[j] = fmaf(e, (xf - ch[j].x0) - ch[j].mean, t2[j]);
           }
-        }
-      }
-    }
-  }
-  // a fixed-shape tree over the row groups
-  __shared__ float s_t1[kThreads * CV], s_t2[kThreads * CV];
-  for (int h = rpb / 2; h > 0; h >>= 1) {
-    if (g >= h && g < 2 * h) {  // the upper half of the live groups publishes
+        });
+
+    // the warp's row groups by shuffles (lane i and lane i ^ off add the same
+    // pair, so every lane holds the same sums), then the warps in order
+    for (int off = gm.tv; off < 32; off <<= 1) {
 #pragma unroll
       for (int j = 0; j < CV; ++j) {
-        s_t1[threadIdx.x * CV + j] = t1[j];
-        s_t2[threadIdx.x * CV + j] = t2[j];
+        t1[j] += __shfl_xor_sync(0xffffffffu, t1[j], off);
+        t2[j] += __shfl_xor_sync(0xffffffffu, t2[j], off);
       }
     }
-    __syncthreads();
-    if (g < h) {
-      const int o = threadIdx.x + h * gm.tv;
+    if (tid % 32 < gm.tv) {
 #pragma unroll
       for (int j = 0; j < CV; ++j) {
-        t1[j] += s_t1[o * CV + j];
-        t2[j] += s_t2[o * CV + j];
+        s_red[0][tid / 32][lane * CV + j] = t1[j];
+        s_red[1][tid / 32][lane * CV + j] = t2[j];
       }
     }
     __syncthreads();
-  }
-  if (g == 0 && vi < gm.vpr) {
-#pragma unroll
-    for (int j = 0; j < CV; ++j) {
-      const long long off = ((long long)n * gm.C + vi * CV + j) * gm.K + k;
-      part_t1[off] = t1[j];
-      part_t2[off] = t2[j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-bwd_finalize_kernel(const float* __restrict__ part_t1, const float* __restrict__ part_t2,
-                    float* __restrict__ tsum, int C, int K) {
-  const int c = blockIdx.x, n = blockIdx.y;
-  const long long base = ((long long)n * C + c) * K;
-  float a = 0.f, b = 0.f;
-  for (int k = threadIdx.x; k < K; k += kThreads) {
-    a += part_t1[base + k];
-    b += part_t2[base + k];
-  }
-  __shared__ float s_a[kThreads], s_b[kThreads];
-  s_a[threadIdx.x] = a;
-  s_b[threadIdx.x] = b;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) {
-      s_a[threadIdx.x] = a = a + s_a[threadIdx.x + half];
-      s_b[threadIdx.x] = b = b + s_b[threadIdx.x + half];
+    if (tid < tch) {
+      float a = 0.f, b = 0.f;
+      for (int wp = 0; wp < kWarps; ++wp) {
+        a += s_red[0][wp][tid];
+        b += s_red[1][wp][tid];
+      }
+      const int c = k.w.z * tch + tid;
+      if (c < gm.C) part[((long long)k.w.n * gm.C + c) * gm.P + k.w.j] = make_float2(a, b);
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    tsum[((long long)n * C + c) * 2] = a;
-    tsum[((long long)n * C + c) * 2 + 1] = b;
-  }
-}
 
-template <typename T, typename R>
-__global__ void __launch_bounds__(kThreads)
-bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-              const float* __restrict__ stats, const float* __restrict__ scale,
-              const float* __restrict__ bias, const float* __restrict__ tsum,
-              T* __restrict__ dx, Geom gm, int relu) {
-  using V = Vec<T, R>;
-  constexpr int CV = kCV<T, R>;
-  const int k = blockIdx.x, n = blockIdx.y;
-  const int rpb = kThreads / gm.tv;
-  const int lane = threadIdx.x % gm.tv, g = threadIdx.x / gm.tv;
-  const int vi = blockIdx.z * gm.tv + lane;
-  const long long r0 = (long long)k * rpb * gm.m;
-  const int rows = (int)min((long long)rpb * gm.m, gm.S - r0);
-  if (vi >= gm.vpr || g >= rows) return;
-  const int mine = min(gm.m, (rows - g + rpb - 1) / rpb);
-  V first;
-  first.raw = reinterpret_cast<const R*>(x + (long long)n * gm.S * gm.C)[vi];
-  const float m = (float)gm.S;
-  BwdChan ch[CV];
-  float a[CV], b[CV];
-#pragma unroll
-  for (int j = 0; j < CV; ++j) {
-    const long long nc = (long long)n * gm.C + vi * CV + j;
-    ch[j] = bwd_chan(Elem<T>::load(first.e[j]), stats, scale, bias, nc, vi * CV + j, relu);
-    const float s1 = tsum[nc * 2], s2 = ch[j].inv * tsum[nc * 2 + 1];
-    b[j] = -(ch[j].coef * ch[j].inv) * (s2 / m);
-    a[j] = -(ch[j].coef * (s1 / m));
-  }
-  const long long off = ((long long)n * gm.S + r0 + g) * gm.C;
-  const R* px = reinterpret_cast<const R*>(x + off) + vi;
-  const R* pd = reinterpret_cast<const R*>(dy + off) + vi;
-  R* q = reinterpret_cast<R*>(dx + off) + vi;
-  const long long step = (long long)rpb * gm.vpr;
-  for (int i = 0; i < mine; i += kUnroll) {
-    V vx[kUnroll], vd[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i + u < mine) {
-        vx[u].raw = px[(i + u) * step];
-        vd[u].raw = pd[(i + u) * step];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i + u < mine) {
-        V o;
-#pragma unroll
-        for (int j = 0; j < CV; ++j) {
-          const float xf = Elem<T>::load(vx[u].e[j]);
-          const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd[u].e[j]) : 0.f;
-          o.e[j] = Elem<T>::store(
-              fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j])));
+  // b. merge: one warp per channel sums the P partials of each sample, and
+  // with affine the samples' dscale and dbias; then every block waits
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  grid.sync();
+  {
+    const int l32 = tid % 32;
+    const int warps = gridDim.x * kWarps;
+    for (int c = blockIdx.x * kWarps + tid / 32; c < gm.C; c += warps) {
+      float ds = 0.f, db = 0.f;
+      for (int n = 0; n < gm.N; ++n) {
+        const long long nc = (long long)n * gm.C + c;
+        const float2* p = part + nc * gm.P;  // written by other blocks: read through L2
+        float a = 0.f, b = 0.f;
+#pragma unroll 4
+        for (int j = l32; j < gm.P; j += 32) {
+          const float2 v = __ldcg(p + j);
+          a += v.x;
+          b += v.y;
         }
-        __stcs(q + (i + u) * step, o.raw);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+          b += __shfl_xor_sync(0xffffffffu, b, off);
+        }
+        if (l32 == 0) tsum[nc] = make_float2(a, b);
+        ds += stats[nc * 2 + 1] * b;  // dscale = sum_n inv * t2, dbias = sum_n t1
+        db += a;
+      }
+      if (dsb && l32 == 0) {
+        dsb[c] = ds;
+        dsb[gm.C + c] = db;
       }
     }
+  }
+  grid.sync();
+
+  // c. dx: the units backwards, the ones (a) read last first
+  R* out = reinterpret_cast<R*>(dx);
+  for (long long it = first; it < last; ++it) {
+    const Walk k = walk(it);
+    BwdChan ch[CV];
+    float a[CV], b[CV];
+    if (k.on) {
+      V first_row;
+      first_row.raw = xv[k.base];
+      const float m = (float)gm.S;
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        const long long nc = (long long)k.w.n * gm.C + k.vi * CV + j;
+        ch[j] = bwd_chan(Elem<T>::load(first_row.e[j]), stats, scale, bias, nc, k.vi * CV + j,
+                         relu);
+        const float2 t = __ldcg(tsum + nc);
+        const float s1 = t.x, s2 = ch[j].inv * t.y;
+        b[j] = -(ch[j].coef * ch[j].inv) * (s2 / m);
+        a[j] = -(ch[j].coef * (s1 / m));
+      }
+    }
+    const long long top = k.w.count - 1;  // step i walks unit top - i
+    ring_walk<D>(
+        k.w.count, [&](long long i, int slot) { issue(k, top - i, slot); },
+        [&](long long i, int slot) {
+          const long long r = row(k, top - i);
+          if (r < 0) return;
+          V vx, vd, o;
+          vx.raw = ring[2 * slot][tid];
+          vd.raw = ring[2 * slot + 1][tid];
+#pragma unroll
+          for (int j = 0; j < CV; ++j) {
+            const float xf = Elem<T>::load(vx.e[j]);
+            const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd.e[j]) : 0.f;
+            o.e[j] = Elem<T>::store(
+                fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j])));
+          }
+          __stcs(out + k.base + r * gm.vpr, o.raw);
+        });
   }
 }
 
 template <typename T, typename R>
 int launch_bwd(const void* x, const void* dy, const float* stats, const float* scale,
-               const float* bias, void* dx, float* part, float* tsum, int N, long long S,
-               int C, int CT, long long chunk, int K, int relu, cudaStream_t stream) {
+               const float* bias, void* dx, float* part, long long part_floats, float* tsum,
+               float* dsb, int N, long long S, int C, int CT, int P, int grid, int relu,
+               cudaStream_t stream) {
   constexpr int CV = kCV<T, R>;
-  Geom gm;
+  BwdGeom gm;
   gm.S = S;
+  gm.N = N;
   gm.C = C;
   gm.vpr = C / CV;
   gm.tv = CT / CV;
-  gm.K = K;
-  const int rpb = gm.tv > 0 ? kThreads / gm.tv : 0;
+  gm.P = P;
   if (C % CV || CT % CV || gm.tv < 1 || gm.tv > 32 || (gm.tv & (gm.tv - 1)) ||
-      chunk % rpb || (long long)K * chunk < S || N > 65535 ||
-      (gm.vpr + gm.tv - 1) / gm.tv > 65535)
+      CT > kMaxTile || P < 1 || N < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
-  gm.m = (int)(chunk / rpb);
-  float* part_t1 = part;
-  float* part_t2 = part + (long long)N * C * K;
-  const dim3 grid(K, N, (gm.vpr + gm.tv - 1) / gm.tv);
-  bwd_reduce_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale, bias, part_t1,
-      part_t2, gm, relu);
-  bwd_finalize_kernel<<<dim3(C, N), kThreads, 0, stream>>>(part_t1, part_t2, tsum, C, K);
-  bwd_dx_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale, bias, tsum,
-      static_cast<T*>(dx), gm, relu);
+  gm.tiles = (gm.vpr + gm.tv - 1) / gm.tv;
+  gm.U = (S + kThreads / gm.tv - 1) / (kThreads / gm.tv);
+  gm.items = (long long)N * gm.tiles * P;
+  // the partials are indexed ((n * C + c) * P + j) * 2 floats
+  if (grid < 1 || grid > gm.items || P > gm.U || part_floats < 2LL * N * C * P)
+    return (int)cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  float2* pp = reinterpret_cast<float2*>(part);
+  float2* tp = reinterpret_cast<float2*>(tsum);
+  void* args[] = {(void*)&xp, (void*)&dyp, (void*)&stats, (void*)&scale, (void*)&bias,
+                  (void*)&dxp, (void*)&pp, (void*)&tp, (void*)&dsb, (void*)&gm, (void*)&relu};
+  const int err = (int)cudaLaunchCooperativeKernel((const void*)bwd_persistent_kernel<T, R>,
+                                                   dim3(grid), dim3(kThreads), args, 0, stream);
+  // a refused launch also sets the runtime's last error: clear it, so that
+  // the next launch's check does not report it again
+  if (err) return cudaGetLastError(), err;
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename R>
+int bwd_blocks_per_sm() {
+  int blocks = 0;
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, bwd_persistent_kernel<T, R>, kThreads, 0);
+  return err ? -err : blocks;
+}
+
+template <typename T>
+int bwd_blocks_per_sm_vec(int vec_bytes) {
+  switch (vec_bytes) {
+    case 16: return bwd_blocks_per_sm<T, uint4>();
+    case 8: return bwd_blocks_per_sm<T, uint2>();
+    case 4: return bwd_blocks_per_sm<T, unsigned>();
+    case 2:
+      if constexpr (sizeof(T) == 2) return bwd_blocks_per_sm<T, unsigned short>();
+      else return -(int)cudaErrorInvalidValue;
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch_bwd_vec(int vec_bytes, const void* x, const void* dy, const float* stats,
-                   const float* scale, const float* bias, void* dx, float* part, float* tsum,
-                   int N, long long S, int C, int CT, long long chunk, int K, int relu,
-                   cudaStream_t s) {
+                   const float* scale, const float* bias, void* dx, float* part,
+                   long long part_floats, float* tsum, float* dsb, int N, long long S, int C,
+                   int CT, int P, int grid, int relu, cudaStream_t s) {
   switch (vec_bytes) {
-    case 16: return launch_bwd<T, uint4>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
-    case 8: return launch_bwd<T, uint2>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
-    case 4: return launch_bwd<T, unsigned>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+    case 16: return launch_bwd<T, uint4>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
+    case 8: return launch_bwd<T, uint2>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
+    case 4: return launch_bwd<T, unsigned>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
     case 2:
       if constexpr (sizeof(T) == 2)
-        return launch_bwd<T, unsigned short>(x, dy, stats, scale, bias, dx, part, tsum, N, S, C, CT, chunk, K, relu, s);
+        return launch_bwd<T, unsigned short>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
       else
         return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
@@ -639,24 +793,41 @@ extern "C" int hdf_instance_norm_relu(const void* x, const float* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward of hdf_instance_norm_relu. x, dy and dx are contiguous (N, S,
-// C) of one dtype; stats is what the forward wrote for this x (per (n, c):
-// the mean relative to row 0, then rsqrt(var + eps)); scale and bias as in
-// the forward. The plan is the forward's (launch_plan), with vec_bytes
-// dividing all three addresses. part is float32 scratch of 2 * N * C * K;
-// tsum (N * C * 2) receives (t1, t2) per (n, c), from which the caller sums
-// dscale and dbias. Returns as hdf_instance_norm_relu does.
+// The backward of hdf_instance_norm_relu, one cooperative launch. x, dy and
+// dx are contiguous (N, S, C) of one dtype; stats is what the forward wrote
+// for this x (per (n, c): the mean relative to row 0, then rsqrt(var +
+// eps)); scale and bias as in the forward. The caller chooses the plan
+// (ops/instance_norm.py::bwd_launch_plan): vec_bytes (dividing C *
+// elem_bytes and all three addresses), the channel tile CT (at most 64
+// channels; CT * elem_bytes / vec_bytes threads per row, a power of two <=
+// 32), the parts P of each (n, tile) (at most its units of 256 / that count
+// rows), and the grid (at most N * tiles * P, and no more blocks than the
+// card holds at once: hdf_instance_norm_relu_bwd_blocks_per_sm). part is
+// float32 scratch of part_floats >= 2 * N * C * P; tsum (N * C * 2)
+// receives (t1, t2) per (n, c), and dsb, where not null, dscale then dbias
+// (2 * C: sum_n inv * t2 and sum_n t1, samples in order). Returns the
+// launch's error (cudaErrorCooperativeLaunchTooLarge for a grid that cannot
+// co-reside), or cudaErrorInvalidValue for a dtype or plan it does not take.
 extern "C" int hdf_instance_norm_relu_bwd(const void* x, const void* dy, const float* stats,
                                           const float* scale, const float* bias, void* dx,
-                                          float* part, float* tsum, int dtype, int vec_bytes,
-                                          int N, long long S, int C, int CT, int chunk, int K,
+                                          float* part, long long part_floats, float* tsum,
+                                          float* dsb, int dtype, int vec_bytes, int N,
+                                          long long S, int C, int CT, int P, int grid,
                                           int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd_vec<float>(vec_bytes, x, dy, stats, scale, bias, dx, part, tsum, N, S,
-                                 C, CT, chunk, K, relu, s);
+    return launch_bwd_vec<float>(vec_bytes, x, dy, stats, scale, bias, dx, part, part_floats,
+                                 tsum, dsb, N, S, C, CT, P, grid, relu, s);
   if (dtype == 1)
-    return launch_bwd_vec<__nv_bfloat16>(vec_bytes, x, dy, stats, scale, bias, dx, part, tsum,
-                                         N, S, C, CT, chunk, K, relu, s);
+    return launch_bwd_vec<__nv_bfloat16>(vec_bytes, x, dy, stats, scale, bias, dx, part,
+                                         part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the backward kernel that one multiprocessor holds at once, or
+// minus the CUDA error.
+extern "C" int hdf_instance_norm_relu_bwd_blocks_per_sm(int dtype, int vec_bytes) {
+  if (dtype == 0) return bwd_blocks_per_sm_vec<float>(vec_bytes);
+  if (dtype == 1) return bwd_blocks_per_sm_vec<__nv_bfloat16>(vec_bytes);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -41,7 +41,8 @@ def get_net(
     plain versions everywhere. ``remat`` in {True, "encoder", "levels",
     False} checkpoints HDenseFormer's blocks as JAX's does
     (``models.hdenseformer.REMAT_BLOCKS``, through ``torch.utils.checkpoint``);
-    Hecktor20Top1 has no remat in JAX and gets none. The model is
+    Hecktor20Top1 takes ``bool(remat)``, as JAX's get_net passes it, and
+    then checkpoints each of its ``res`` and ``sen`` blocks. The model is
     returned in eval mode; ``train/loop.py``'s step puts it in training,
     where HDenseFormer's dropout (0.5) draws from the generator it is given.
 
@@ -80,7 +81,8 @@ def get_net(
             )
         from hdenseformer_tpu_torch.models.hecktor20top1 import hecktertop1
 
-        return hecktertop1(channels, num_classes, input_shape, s2d=s2d, **kw).eval()
+        return hecktertop1(channels, num_classes, input_shape, s2d=s2d, remat=bool(remat),
+                           **kw).eval()
     if net_name not in ("HDenseFormer_32", "HDenseFormer_16"):
         raise ValueError(f"unknown net_name {net_name!r}")
     from hdenseformer_tpu_torch.models.hdenseformer import HDenseFormer_16, HDenseFormer_32

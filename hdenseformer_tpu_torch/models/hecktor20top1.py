@@ -1,4 +1,4 @@
-"""Hecktor20Top1, 3-D, forward (eval) only.
+"""Hecktor20Top1, 3-D.
 
 Counterpart of ``hdenseformer_tpu/models/hecktor20top1.py``: a 5-level UNet
 of SE-normalized residual conv blocks (FastSmoothSENorm: InstanceNorm
@@ -21,6 +21,13 @@ parameter tree. The dict form that also packs level 2 raises.
 Where JAX decides the packing at each call from the input's shape, the port
 decides it once, from ``image_size``, when it builds the modules; a packed
 model then takes inputs whose spatial dims are even.
+
+``remat`` checkpoints what JAX's ``nn.remat`` wraps: every block that the
+model's ``res`` and ``sen`` helpers build (``block_*_left``, a
+``RESseNormConv``, and ``block_*_right``, a ``FastSmoothSeNormConv``), each
+through ``torch.utils.checkpoint`` (``models.hdenseformer.remat_call``).
+The vision heads' convs, the transposed convs and the 1x1 head are not
+wrapped, as in JAX. The blocks draw no dropout, so nothing is replayed.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hdenseformer_tpu_torch.models.hdenseformer import remat_call
 from hdenseformer_tpu_torch.models.layers import Conv, ConvTranspose, InstanceNorm
 from hdenseformer_tpu_torch.ops.resize import max_pool, upsample_linear
 from hdenseformer_tpu_torch.ops.s2d import (
@@ -175,7 +183,7 @@ class Hecktor20Top1(nn.Module):
     def __init__(self, in_channels: int, n_cls: int, n_filters: int = 32,
                  image_size: Sequence[int] = (144, 144, 144), reduction: int = 2,
                  s2d=None, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False, device=None):
         super().__init__()
         nf, r = n_filters, reduction
         image_size = tuple(image_size)
@@ -207,6 +215,16 @@ class Hecktor20Top1(nn.Module):
         self.block_1_1_right = sen(2 * nf, nf, packed=pk)
         self.block_1_2_right = sen(nf, nf, packed=pk)
         self.conv1x1 = Conv(nf, n_cls, 1, packed=pk, device=device)
+        self.remat = bool(remat)
+        # the blocks res() and sen() built: what JAX's Res and Sen wrap
+        self.remat_blocks = frozenset(
+            name for name, m in self.named_children()
+            if self.remat and isinstance(m, (RESseNormConv, FastSmoothSeNormConv)))
+
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The block ``name`` on ``x``, checkpointed where ``remat`` says."""
+        block = getattr(self, name)
+        return remat_call(block, x) if name in self.remat_blocks else block(x)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
@@ -219,31 +237,28 @@ class Hecktor20Top1(nn.Module):
                 f"this Hecktor20Top1 packs level 1 and takes even spatial dims, got "
                 f"{tuple(x.shape)}; build it with s2d=False for odd dims"
             )
-        if self.packed:
-            ds0 = self.block_1_2_left(self.block_1_1_left(pack(x)))
-            h = max_pool_packed(ds0)
-        else:
-            ds0 = self.block_1_2_left(self.block_1_1_left(x))
-            h = max_pool(ds0)
+        h = pack(x) if self.packed else x
+        ds0 = self._block("block_1_2_left", self._block("block_1_1_left", h))
+        h = max_pool_packed(ds0) if self.packed else max_pool(ds0)
         skips = []
         for lvl in (2, 3, 4, 5):
             if lvl > 2:
                 h = max_pool(h)
             for i in range(1, 4):
-                h = getattr(self, f"block_{lvl}_{i}_left")(h)
+                h = self._block(f"block_{lvl}_{i}_left", h)
             skips.append(h)
         h = skips.pop()
         visions = []
         for lvl in (4, 3, 2):
             h = torch.cat([getattr(self, f"upconv_{lvl}")(h), skips.pop()], dim=-1)
-            h = getattr(self, f"block_{lvl}_1_right")(h)
-            h = getattr(self, f"block_{lvl}_2_right")(h)
+            h = self._block(f"block_{lvl}_1_right", h)
+            h = self._block(f"block_{lvl}_2_right", h)
             visions.append(getattr(self, f"vision_{lvl}")(h))
         sv4, sv3, sv2 = visions
         up1 = self.upconv_1(h)
         h = concat_packed([up1, ds0]) if self.packed else torch.cat([up1, ds0], dim=-1)
-        h = self.block_1_1_right(h)
-        h = self.block_1_2_right(h + sv4 + sv3 + sv2)
+        h = self._block("block_1_1_right", h)
+        h = self._block("block_1_2_right", h + sv4 + sv3 + sv2)
         logits = self.conv1x1(h.float())
         return unpack(logits) if self.packed else logits
 

@@ -49,11 +49,13 @@ _SIGNATURES = {
     "hdf_instance_norm_relu": (
         _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _p,
     ),
-    # x, dy, stats, scale, bias, dx, part, tsum, dtype, vec_bytes, N, S, C, CT, chunk,
-    # K, relu, stream
+    # x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, dtype, vec_bytes,
+    # N, S, C, CT, P, grid, relu, stream
     "hdf_instance_norm_relu_bwd": (
-        _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p,
+        _p, _p, _p, _p, _p, _p, _p, _ll, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p,
     ),
+    # dtype, vec_bytes
+    "hdf_instance_norm_relu_bwd_blocks_per_sm": (_i, _i),
     # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
     "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),
 }

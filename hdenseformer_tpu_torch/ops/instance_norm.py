@@ -19,10 +19,14 @@ positions, biased variance, ``eps``, batch statistics in eval as in train
   any other device raises. The forward keeps x in its own dtype and the
   per-(n, c) statistics, nothing of full size in fp32, as ``fused_norm``'s
   residuals.
+- ``launch_plan`` cuts the forward's grid, ``bwd_launch_plan`` the
+  backward's: one persistent, co-resident grid that reduces, waits at a
+  grid barrier and then writes dx.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from math import prod
 from typing import Optional
 
@@ -35,6 +39,10 @@ _THREADS = 256  # kThreads in csrc/instance_norm_relu.cu
 _MAX_ROW_THREADS = 32  # threads across one row's channel tile, at most
 _ONE_WAVE = 132 * 8  # blocks of 256 threads that fill an H100's 132 SMs once
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+# The backward (bwd_persistent_kernel): a channel tile is 128 or 64 bytes of
+# a row, at most 32 threads and 64 channels
+_BWD_TILE_BYTES = (128, 64)
+_BWD_MAX_TILE = 64  # kMaxTile in csrc/instance_norm_relu.cu
 
 
 @dataclass(frozen=True)
@@ -72,9 +80,7 @@ def launch_plan(n: int, s: int, c: int, elem_bytes: int, addresses=(0,)) -> Laun
     reduces 32 rows of a chunk, or 16 where 32 leaves the grid under one
     wave of the card.
     """
-    vec = next(v for v in (16, 8, 4, 2)
-               if v >= elem_bytes and (c * elem_bytes) % v == 0
-               and all(a % v == 0 for a in addresses))
+    vec = _vector_bytes(c, elem_bytes, addresses)
     cv = vec // elem_bytes
     vpr = c // cv
     row_threads = min(_MAX_ROW_THREADS, 1 << (vpr - 1).bit_length())
@@ -90,6 +96,79 @@ def launch_plan(n: int, s: int, c: int, elem_bytes: int, addresses=(0,)) -> Laun
         channel_tile=row_threads * cv, rows_per_block=rows_per_block, rows_per_thread=m,
         chunk=chunk, k=k, grid=(k, n, tiles), part_floats=2 * n * c * k,
         stats_floats=2 * n * c,
+    )
+
+
+def _vector_bytes(c: int, elem_bytes: int, addresses) -> int:
+    return next(v for v in (16, 8, 4, 2)
+                if v >= elem_bytes and (c * elem_bytes) % v == 0
+                and all(a % v == 0 for a in addresses))
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How ``bwd_persistent_kernel`` cuts an (N, S, C) backward.
+
+    ``row_threads`` threads of ``vec_bytes`` (at most 32) cover a
+    ``channel_tile`` of 128 or 64 bytes of a row, so a block of 256 threads covers ``rows_per_unit``
+    rows of one tile at a time: a unit. Each (n, tile) has ``units`` units,
+    dealt to ``parts`` parts (part j takes units j, j + parts, ...), so that
+    the grid reads one narrow window of memory at a time. Item (n, tile,
+    part) is numbered ``(n * tiles + tile) * parts + part``, and block b of
+    ``grid`` owns items [b * items // grid, (b + 1) * items // grid).
+    ``part_floats`` is the scratch of one (t1, t2) pair per (n, c, part).
+    """
+
+    vec_bytes: int
+    cv: int
+    vectors_per_row: int
+    row_threads: int
+    channel_tile: int
+    rows_per_unit: int
+    tiles: int
+    units: int
+    parts: int
+    items: int
+    grid: int
+    part_floats: int
+    tsum_floats: int
+
+
+def bwd_launch_plan(n: int, s: int, c: int, elem_bytes: int, addresses=(0,), sms: int = 132,
+                    blocks_per_sm: int = 2) -> BwdPlan:
+    """The backward's launch geometry on a card of ``sms`` multiprocessors
+    that each hold ``blocks_per_sm`` of its blocks.
+
+    The vector is the forward's. The tile is 128 bytes of a row (a whole row
+    where it is shorter: fewer, longer reads) unless 64 bytes give the
+    co-resident grid more of the items it can hold. Each (n, tile) gets as
+    many parts as the grid allows, but no more than its units; where N *
+    tiles exceeds the grid, each (n, tile) is one part and a block owns
+    several.
+    """
+    return _bwd_plan(n, s, c, elem_bytes, _vector_bytes(c, elem_bytes, addresses), sms,
+                     blocks_per_sm)
+
+
+@lru_cache(maxsize=1024)
+def _bwd_plan(n, s, c, elem_bytes, vec, sms, blocks_per_sm) -> BwdPlan:
+    cv = vec // elem_bytes
+    vpr = c // cv
+    co = sms * blocks_per_sm
+    cuts = []  # (items, tv, tiles, units, parts) of the 128- and the 64-byte tile
+    for tile_bytes in _BWD_TILE_BYTES:
+        tv = min(1 << (vpr - 1).bit_length(), max(1, tile_bytes // vec), _BWD_MAX_TILE // cv,
+                 _MAX_ROW_THREADS)
+        tiles = -(-vpr // tv)
+        units = -(-s // (_THREADS // tv))
+        parts = max(1, min(co // (n * tiles), units))
+        cuts.append((n * tiles * parts, tv, tiles, units, parts))
+    wide, narrow = cuts
+    items, tv, tiles, units, parts = wide if wide[0] >= min(co, narrow[0]) else narrow
+    return BwdPlan(
+        vec_bytes=vec, cv=cv, vectors_per_row=vpr, row_threads=tv, channel_tile=tv * cv,
+        rows_per_unit=_THREADS // tv, tiles=tiles, units=units, parts=parts, items=items,
+        grid=min(items, co), part_floats=2 * n * c * parts, tsum_floats=2 * n * c,
     )
 
 
@@ -274,7 +353,7 @@ def instance_norm_relu_bwd(
     """
     if x.device.type == "cpu":
         return instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
-    n, s, c = _check_cuda(x, scale, bias, "instance_norm_relu_bwd")
+    n, _, c = _check_cuda(x, scale, bias, "instance_norm_relu_bwd")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(
             f"instance_norm_relu_bwd: dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does "
@@ -285,27 +364,57 @@ def instance_norm_relu_bwd(
     if stats.dtype != torch.float32 or stats.numel() != 2 * n * c or not stats.is_contiguous():
         raise ValueError(f"instance_norm_relu_bwd: stats must be float32 of {2 * n * c}")
     dx = torch.empty_like(x)
-    plan = _plan("instance_norm_relu_bwd", x, dy, dx)
-    part = torch.empty(plan.part_floats, dtype=torch.float32, device=x.device)
-    tsum = torch.empty(2 * n * c, dtype=torch.float32, device=x.device)
+    return launch_bwd(bwd_plan(x, dy, dx), dx, dy, x, stats, scale, bias, relu)
+
+
+def launch_bwd(plan: BwdPlan, dx, dy, x, stats, scale, bias, relu: bool):
+    """One launch of the backward kernel with ``plan``, writing ``dx``; the
+    arguments as ``instance_norm_relu_bwd`` checked them. Returns (dx,
+    dscale, dbias)."""
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
     lib = load_library()
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=x.device)
+    tsum = torch.empty(plan.tsum_floats, dtype=torch.float32, device=x.device)
+    # dscale then dbias, summed by the kernel
+    dsb = None if scale is None else torch.empty(2 * c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hdf_instance_norm_relu_bwd(
             x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), tsum.data_ptr(),
-            _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.chunk,
-            plan.k, int(relu), stream,
+            dx.data_ptr(), part.data_ptr(), part.numel(), tsum.data_ptr(),
+            None if dsb is None else dsb.data_ptr(),
+            _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.parts,
+            plan.grid, int(relu), stream,
         )
     check(err, "instance_norm_relu_bwd")
     instance_norm_relu_bwd.launches += 1
-    if scale is None:
+    if dsb is None:
         return dx, None, None
-    t = tsum.view(n, c, 2)
-    inv = stats.view(n, c, 2)[..., 1]
-    return dx, (inv * t[..., 1]).sum(0), t[..., 0].sum(0)
+    return dx, dsb[:c], dsb[c:]
+
+
+def bwd_plan(x: torch.Tensor, *others: torch.Tensor) -> BwdPlan:
+    """The backward's plan for x (N, *spatial, C) on its card, vectors
+    aligned to x and ``others`` (dy, dx): the card's multiprocessors and the
+    blocks each holds, as the kernel's occupancy query reports them."""
+    n, c = x.shape[0], x.shape[-1]
+    vec = _vector_bytes(c, x.element_size(), tuple(t.data_ptr() for t in (x, *others)))
+    return _bwd_plan(n, x.numel() // (n * c), c, x.element_size(), vec,
+                     *_bwd_residency(load_library(), x.device, x.dtype, vec))
+
+
+@lru_cache(maxsize=None)
+def _bwd_residency(lib, device: torch.device, dtype: torch.dtype, vec: int) -> tuple[int, int]:
+    """(multiprocessors, backward blocks each holds at once) of the card."""
+    with torch.cuda.device(device):
+        blocks = lib.hdf_instance_norm_relu_bwd_blocks_per_sm(_DTYPES[dtype], vec)
+    if blocks < 1:
+        raise RuntimeError("instance_norm_relu_bwd: no block of the backward fits a "
+                           f"multiprocessor (CUDA error {-blocks})")
+    return torch.cuda.get_device_properties(device).multi_processor_count, blocks
 
 
 class _InstanceNormReLU(torch.autograd.Function):

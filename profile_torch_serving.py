@@ -56,8 +56,8 @@ from chip_smoke import (
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import predict_volume
 
-# the port's kernels by symbol name (csrc/*.cu); InstanceNorm is three passes
-# each way (the backward first: "finalize_kernel" names a pass of both)
+# the port's kernels by symbol name (csrc/*.cu); the InstanceNorm forward is
+# three passes, its backward one persistent kernel
 GROUPS = {
     "dense_attention kernel": ("dense_attention_kernel",),
     "instance_norm_relu backward kernel": IN_BWD_PASSES,

@@ -9,6 +9,8 @@ the card run it without the repository's conftest (which imports JAX):
 fp32 comparisons turn TF32 off in cuDNN and cuBLAS, since a float32
 convolution otherwise runs in TF32 on the card.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -361,14 +363,143 @@ def test_instance_norm_backward_kernel_matches_plain(cuda, c, dtype, affine, rel
 
 
 @pytest.mark.parametrize("shape", [(2, 9, 9, 9, 256), (1, 72, 72, 72, 32), (1, 72, 72, 72, 64),
-                                   (1, 36, 36, 36, 128), (1, 18, 18, 18, 256), (2, 5, 6, 7, 6)])
+                                   (1, 36, 36, 36, 128), (1, 18, 18, 18, 256), (2, 5, 6, 7, 6),
+                                   # more (sample, channel tile) pairs than the grid holds
+                                   # blocks: each block owns several
+                                   (300, 4, 4, 4, 32), (40, 3, 3, 3, 512),
+                                   # Hecktor20Top1's level 5 and vision-head norms
+                                   (2, 9, 9, 9, 512), (2, 18, 18, 18, 32),
+                                   # odd C > 32: 2-byte vectors, a tile of 32 threads
+                                   (2, 4099, 33), (1, 5000, 301)])
 def test_instance_norm_backward_kernel_shapes(cuda, shape):
     x, dy, scale, bias, stats = _norm_backward_case(cuda, shape, torch.bfloat16, True, True,
                                                     seed=70)
     got = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    again = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
     ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
     torch.cuda.synchronize()
     assert_norm_grads_close(got, ref, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # a fixed merge order
+
+
+def test_instance_norm_backward_is_one_launch(cuda):
+    """The backward is one cooperative kernel a call, dscale and dbias
+    included, its grid the blocks the card holds at once (or its items)."""
+    from torch.autograd import DeviceType
+
+    from hdenseformer_tpu_torch.ops._build import load_library
+    from hdenseformer_tpu_torch.ops.instance_norm import _bwd_residency, bwd_plan
+
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, (1, 36, 36, 36, 128),
+                                                    torch.bfloat16, True, True, seed=71)
+    plan = bwd_plan(x, dy)
+    sms, blocks = _bwd_residency(load_library(), x.device, x.dtype, plan.vec_bytes)
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks >= 1 and plan.grid == min(plan.items, sms * blocks)
+    instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert names and all("bwd_persistent_kernel" in n for n in names), names
+    assert len(names) == 1
+
+
+def _bwd_plan_as(plan, s, tv, parts, grid):
+    """``plan`` with another tile (tv threads), part count and grid."""
+    tiles = -(-plan.vectors_per_row // tv)
+    units = -(-s // (256 // tv))
+    n = plan.tsum_floats // (2 * plan.vectors_per_row * plan.cv)
+    return dataclasses.replace(
+        plan, row_threads=tv, channel_tile=tv * plan.cv, rows_per_unit=256 // tv, tiles=tiles,
+        units=units, parts=parts, items=n * tiles * parts, grid=grid,
+        part_floats=2 * n * plan.vectors_per_row * plan.cv * parts)
+
+
+# (threads a tile, parts, grid) at (1, 72^3, 64) bf16: 16-byte vectors, so
+# 4 threads are a 64-byte tile (two tiles), 8 the whole row. The first is the
+# plan of a sweep that once ended in an illegal address: two items a block.
+@pytest.mark.parametrize("tv,parts,grid", [(4, 264, 264), (4, 132, 264), (8, 264, 264),
+                                           (8, 1, 1), (4, 5832, 132), (8, 11664, 264)])
+def test_instance_norm_backward_kernel_plans(cuda, tv, parts, grid):
+    """Other launch plans than the card's own at one shape: every row once,
+    the same gradients, bitwise reruns."""
+    from hdenseformer_tpu_torch.ops.instance_norm import bwd_plan, launch_bwd
+
+    shape = (1, 72, 72, 72, 64)
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, shape, torch.bfloat16, True, True,
+                                                    seed=72)
+    plan = _bwd_plan_as(bwd_plan(x, dy), 72**3, tv, parts, grid)
+    assert plan.vec_bytes == 16 and plan.grid <= plan.items
+    got = launch_bwd(plan, torch.empty_like(x), dy, x, stats, scale, bias, True)
+    again = launch_bwd(plan, torch.empty_like(x), dy, x, stats, scale, bias, True)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
+    torch.cuda.synchronize()
+    assert_norm_grads_close(got, ref, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_instance_norm_backward_refuses_a_plan_it_cannot_run(cuda):
+    """Scratch shorter than the plan's partials, or a grid the card cannot
+    hold at once, is refused before anything runs; the next call is clean."""
+    from hdenseformer_tpu_torch.ops.instance_norm import bwd_plan, launch_bwd
+
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, (1, 72, 72, 72, 64),
+                                                    torch.bfloat16, True, True, seed=73)
+    plan = bwd_plan(x, dy)
+    short = dataclasses.replace(plan, part_floats=plan.part_floats - 2)
+    wide = _bwd_plan_as(plan, 72**3, 4, 5832, 11664)  # ~44 blocks a multiprocessor
+    for bad in (short, wide):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch_bwd(bad, torch.empty_like(x), dy, x, stats, scale, bias, True)
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    (x.float() * 2).sum()  # a PyTorch launch after the refusals
+    torch.cuda.synchronize()
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
+    assert_norm_grads_close(got, ref, torch.bfloat16)
+
+
+def test_hecktor_remat_step_on_the_card(cuda):
+    """Hecktor20Top1 (n_filters 32, 32^3, packed) with remat on and off, fp32
+    through the kernels, cuDNN deterministic: equal loss, gradients within
+    1e-4 of each tensor's max, and the launches the model's code gives: the
+    recompute runs the 27 norms and 4 half-shifts of the checkpointed blocks
+    again, the backward once. The bar: the max-pool and trilinear backwards
+    add with atomics, so any two runs' fp32 gradients differ in their
+    rounding, which the SE norms of five levels amplify (1.1e-5 of a conv
+    weight's max measured on the H100)."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(12)
+        x = torch.randn(2, 32, 32, 32, 2, generator=g, device=cuda)
+        label = torch.zeros(2, 32, 32, 32, 2, device=cuda)
+        label[..., 0] = 1
+        label[:, 8:20, 10:22, 6:18] = torch.tensor([0.0, 1.0], device=cuda)
+        runs = {}
+        for remat in (False, True):
+            net = get_net("hecktor20top1", 2, 2, (32, 32, 32), remat=remat, device=cuda).train()
+            init_weights(net, torch.Generator().manual_seed(0))
+            shift_pack.launches = shift_unpack.launches = 0
+            instance_norm_relu.launches = instance_norm_relu_bwd.launches = 0
+            loss = get_loss("FocalLoss")(net(x), label)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[remat] = (float(loss.detach()), {n: p.grad for n, p in net.named_parameters()},
+                           (instance_norm_relu.launches, shift_pack.launches,
+                            instance_norm_relu_bwd.launches, shift_unpack.launches))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    (loss0, grads0, counts0), (loss1, grads1, counts1) = runs[False], runs[True]
+    assert counts0 == (30, 4, 30, 3) and counts1 == (57, 8, 30, 3)
+    assert loss1 == loss0
+    for name, ref in grads0.items():
+        assert float((grads1[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
 
 
 def test_instance_norm_backward_kernel_mean_far_from_zero(cuda):

@@ -1,6 +1,7 @@
 """The launch plans of the port's InstanceNorm and attention kernels, on CPU.
 
-``ops/instance_norm.py::launch_plan`` and ``ops/dense_attention.py::launch_plan``
+``ops/instance_norm.py::launch_plan`` (the forward), ``bwd_launch_plan``
+(the backward's persistent grid) and ``ops/dense_attention.py::launch_plan``
 cut a call into the grid that the CUDA kernels in ``csrc/`` walk. The kernels
 run only on the card (tests/test_torch_cuda.py), but their geometry is plain
 arithmetic: these tests replay it in Python and check that every row, channel
@@ -15,7 +16,10 @@ torch = pytest.importorskip("torch")
 from hdenseformer_tpu_torch.ops.dense_attention import (  # noqa: E402
     launch_plan as attention_plan,
 )
-from hdenseformer_tpu_torch.ops.instance_norm import launch_plan  # noqa: E402
+from hdenseformer_tpu_torch.ops.instance_norm import (  # noqa: E402
+    bwd_launch_plan,
+    launch_plan,
+)
 
 THREADS = 256  # kThreads in csrc/instance_norm_relu.cu
 GRID_X, GRID_YZ = 2**31 - 1, 65535
@@ -104,6 +108,102 @@ def test_instance_norm_plan_fills_the_card_at_the_serving_shapes():
     for n, s, c in SERVING[:3]:
         plan = launch_plan(n, s, c, 2)
         assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132 * 8
+
+
+# The backward's shapes: a bench.py train step of HDenseFormer_32 (batch 1,
+# its 18 InstanceNorms at 4 shapes), Hecktor20Top1's trainer step (batch 2,
+# level 1 packed: the (2, 8 * 72^3, 32) view, then levels 2-5 and the vision
+# heads' 32-channel norms), and chip_smoke.py's ragged and guard cases
+TRAIN_STEP = [(1, 144**3, 32), (1, 72**3, 64), (1, 36**3, 128), (1, 18**3, 256)]
+HECKTOR_STEP = [(2, 8 * 72**3, 32), (2, 72**3, 64), (2, 36**3, 128), (2, 18**3, 256),
+                (2, 9**3, 512), (2, 72**3, 32), (2, 36**3, 32), (2, 18**3, 32)]
+# odd C > 32: bf16 rows of 2-byte vectors, more than 32 of them
+RAGGED = [(3, 4099, 2), (3, 4099, 32), (3, 4099, 256), (2, 4096, 32), (1, 1, 8), (1, 7, 3),
+          (1, 5000, 300), (300, 64, 32), (2, 5 * 6 * 7, 6), (2, 4099, 33), (1, 5000, 301)]
+RING_BYTES = 32768  # kRingBytes in the kernel: x and dy of the units in flight
+RED_BYTES = 2 * 8 * 64 * 4  # s_red in the kernel
+STATIC_LIMIT = 48 * 1024  # static shared memory a block may declare
+
+
+def _bwd_rows(plan, n, s, c):
+    """Replay bwd_persistent_kernel's walk: per block, the (n, row, channel)
+    triples its threads read, in walk order.
+
+    Item it -> part j = it % P, segment it // P = (n, tile z); its units
+    j, j + P, ... < U; thread (g, lane) reads row u * rpu + g < S of each
+    unit u, vector z * tv + lane < C / cv."""
+    tv, cv, rpu = plan.row_threads, plan.cv, plan.rows_per_unit
+    out = []
+    for b in range(plan.grid):
+        rows = []
+        for it in range(b * plan.items // plan.grid, (b + 1) * plan.items // plan.grid):
+            j, seg = it % plan.parts, it // plan.parts
+            nn, z = seg // plan.tiles, seg % plan.tiles
+            vi = z * tv + np.arange(tv)
+            vi = vi[vi < plan.vectors_per_row]
+            chans = (vi[:, None] * cv + np.arange(cv)[None, :]).ravel()
+            for u in range(j, plan.units, plan.parts):
+                r = u * rpu + np.arange(rpu)
+                r = r[r < s]
+                cells = np.stack(np.broadcast_arrays(nn, r[:, None], chans[None, :]), -1)
+                rows.append(cells.reshape(-1, 3))
+        out.append(np.concatenate(rows) if rows else np.zeros((0, 3), int))
+    return out
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("n,s,c", TRAIN_STEP[2:] + HECKTOR_STEP[3:5] + RAGGED)
+def test_bwd_plan_owns_every_row_once(n, s, c, elem_bytes, blocks_per_sm):
+    plan = bwd_launch_plan(n, s, c, elem_bytes, sms=132, blocks_per_sm=blocks_per_sm)
+    cells = np.concatenate(_bwd_rows(plan, n, s, c))
+    flat = (cells[:, 0] * s + cells[:, 1]) * c + cells[:, 2]
+    # every (n, row, channel) read by exactly one thread of one block
+    np.testing.assert_array_equal(np.sort(flat), np.arange(n * s * c))
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("n,s,c", TRAIN_STEP + HECKTOR_STEP + RAGGED)
+def test_bwd_plan_fits_the_card(n, s, c, elem_bytes, blocks_per_sm):
+    plan = bwd_launch_plan(n, s, c, elem_bytes, sms=132, blocks_per_sm=blocks_per_sm)
+    fwd = launch_plan(n, s, c, elem_bytes)
+    # the forward's vector; a tile of at most 64 bytes of whole vectors
+    assert (plan.vec_bytes, plan.cv, plan.vectors_per_row) == (
+        fwd.vec_bytes, fwd.cv, fwd.vectors_per_row)
+    tv = plan.row_threads
+    assert tv & (tv - 1) == 0 and 1 <= tv <= 32 and plan.channel_tile == tv * plan.cv
+    assert plan.channel_tile * elem_bytes <= 128 and plan.channel_tile <= 64
+    assert plan.rows_per_unit * tv == THREADS
+    assert plan.tiles == -(-plan.vectors_per_row // tv)
+    assert plan.units == -(-s // plan.rows_per_unit)
+    # a co-resident grid: never more blocks than the card holds at once
+    assert 1 <= plan.grid <= min(plan.items, 132 * blocks_per_sm)
+    assert 1 <= plan.parts <= plan.units and plan.items == n * plan.tiles * plan.parts
+    if plan.items > plan.grid:  # several items a block only where N * tiles needs it
+        assert plan.parts == 1 and n * plan.tiles > 132 * blocks_per_sm
+    # the ring holds whole units of x and dy, and beside the tile's (t1, t2)
+    # per warp it fits the static shared memory of a block
+    unit_bytes = THREADS * plan.vec_bytes * 2
+    assert RING_BYTES % unit_bytes == 0 and RING_BYTES // unit_bytes >= 1
+    assert RING_BYTES + RED_BYTES <= STATIC_LIMIT
+    # the scratch the C function indexes: (t1, t2) at ((n * C + c) * P + j), tsum (n, c, 2)
+    assert plan.part_floats == 2 * n * c * plan.parts and plan.tsum_floats == 2 * n * c
+    # the plan travels as C ints
+    assert plan.grid < 2**31 and plan.parts < 2**31
+
+
+@pytest.mark.parametrize("n,s,c,tile,parts", [
+    (1, 144**3, 32, 32, 264), (1, 72**3, 64, 64, 264), (1, 36**3, 128, 64, 132),
+    (1, 18**3, 256, 64, 66),
+])
+def test_bwd_plan_at_the_train_step(n, s, c, tile, parts):
+    # bench.py's four shapes (bf16, 132 SMs, two blocks each): 16-byte
+    # vectors, a 128-byte tile (a whole row at C = 32), and the 264 blocks
+    # one item each
+    plan = bwd_launch_plan(n, s, c, 2, sms=132, blocks_per_sm=2)
+    assert (plan.vec_bytes, plan.channel_tile, plan.parts) == (16, tile, parts)
+    assert plan.grid == plan.items == 264
 
 
 ATTENTION = [(8, 8, 729, 4), (8, 8, 729, 8), (1, 2, 130, 4), (2, 2, 17, 8), (1, 1, 1, 4),
