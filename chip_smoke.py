@@ -32,6 +32,13 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    F.relu(F.instance_norm(...)); summed over a bench.py train step's 18
    InstanceNorm shapes (forward and backward) and over the 30 backward
    shapes of a Hecktor20Top1 trainer step (batch 2);
+1c. on-device augmentation (``data/augment_device.augment_batch_3d``, no
+   custom kernel): the draw and apply of a batch of 2 synthetic CT+PET
+   cases of 152^3 cropped to 144^3, the same drawn values applied on the
+   card and on the CPU (image within 1e-5 + 1e-5 |ref|, labels equal on at
+   least 99.99 % of the voxels: only soft values at 0.5 may round across),
+   the whole augmentation timed by device time with its draw, beside the
+   host pipeline's time for one sample;
 2. the full-width HDenseFormer_32 forward (2 modalities, 144^3, depth 24,
    bf16, 8 windows), once through the kernels and once through the plain
    versions: logit difference, argmax agreement, kernel launch counts;
@@ -49,9 +56,10 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    moved by one rounding step (the network's own sensitivity, which sets
    the bars); then the full-width train step of bench.py (2 modalities,
    144^3, batch 1, depth 24, bf16, FocalLoss deep supervision, Adam with
-   coupled L2 1e-4, lr 1e-3, dropout 0.5, no rematerialisation) on a
-   synthetic CT+PET case: one warm step, the best of 4 chained windows of 8
-   steps, the loss after every window, peak memory, launches per step;
+   coupled L2 1e-4, lr 1e-3, dropout 0.5, no rematerialisation) on its zero
+   image, built and timed by ``hdenseformer_tpu_torch.bench`` (one warm
+   step, the best of 4 chained windows of 8 steps): the loss after every
+   window, peak memory, launches per step, and the bench's JSON line;
    then one 64^3 fp32 step with remat on and off (cuDNN deterministic, one
    dropout seed: equal loss, gradients within 1e-5 of their max, the
    generator in one state), and the peak memory and time of one full-width
@@ -68,6 +76,11 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    the preset's remat, as JAX). Per epoch: losses, dice, seconds, step time
    and the share spent waiting on the loader; launches per train step,
    checked against the counts the models' code gives;
+5b. the same 2 epochs of HDenseFormer_32 with ``device_augment=True``
+   (through ``SemanticSeg``: the CLI has no flag for it, as JAX's has
+   none): the loader ships raw cases and the augmentation runs in the step
+   on the card. Steady step time, loader-wait share and peak memory beside
+   phase 5's; launches per train step equal to phase 5's; finite losses;
 6. a {"kernels": [...]} line with each kernel's numbers;
 7. the result line {"ok": true, "device": {...}}.
 
@@ -97,11 +110,17 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from hdenseformer_tpu_torch import cli
+from hdenseformer_tpu_torch import bench, cli
 from hdenseformer_tpu_torch.configs import get_config
+from hdenseformer_tpu_torch.data import augment_device
+from hdenseformer_tpu_torch.data.augment3d import (
+    RandomCrop3D,
+    RandomFlip3D,
+    RandomTranslationRotationZoom3D,
+)
 from hdenseformer_tpu_torch.data.io import save_as_hdf5
 from hdenseformer_tpu_torch.data.pipeline import get_cross_validation_by_sample
-from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
+from hdenseformer_tpu_torch.data.transforms import Compose, PETandCTNormalize, ToOneHot
 from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
 from hdenseformer_tpu_torch.losses import get_loss
 from hdenseformer_tpu_torch.metrics.eval3d import multi_dice, multi_hd
@@ -194,7 +213,8 @@ HECKTOR_TRAIN_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30 + 27, "sh
                         "shift_pack_backward": 3, "instance_norm_relu_backward": 30}
 # the train step of bench.py: batch 1, Adam with coupled L2, 4 chained
 # windows of 8 steps; a 144^3 patch counts (144 / 128)^3 128^3 patches
-LR, WEIGHT_DECAY, TRAIN_WINDOWS, TRAIN_STEPS = 1e-3, 1e-4, 4, 8
+LR, WEIGHT_DECAY = bench.LR, bench.WEIGHT_DECAY
+TRAIN_WINDOWS, TRAIN_STEPS = bench.REPS, bench.STEPS
 PATCH_EQUIV = (PATCH / 128) ** 3
 # the trainer phase: 6 synthetic cases of CASE^3 (3 patients x 2; RandomCrop3D
 # draws a 144^3 patch), fold 1 of 3, 2 epochs, then one resumed
@@ -702,6 +722,53 @@ def phase_shift_grad(gen) -> dict:
     return counts
 
 
+def phase_augment(args) -> dict:
+    """Phase 1c: ``augment_batch_3d`` on a batch of 2 raw cases of CASE^3 to
+    PATCH^3. The card's draw is applied on the card and, moved, on the CPU:
+    the image within 1e-5 + 1e-5 |ref|, the labels equal on >= 99.99 % of
+    the voxels (a soft value at 0.5 may round across). Timed with its draw
+    by device time and by CUDA events (host gaps included), beside the host
+    pipeline (RandomCrop3D, PETandCTNormalize, the scipy affine, flip and
+    one-hot) on one sample."""
+    raw = [synthetic_volume(args.seed + i, args.case) for i in range(2)]
+    image = torch.from_numpy(np.stack([np.moveaxis(v, 0, -1) for v in raw]))
+    label = torch.from_numpy(np.stack([sphere(args.case)] * 2))
+    patch = (args.patch,) * 3
+    img_c, lab_c = image.cuda(), label.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    draw = augment_device.draw_batch_3d(gen, img_c.shape, patch)
+    got_i, got_l = augment_device.apply_batch_3d(img_c, lab_c, draw, N_CLS)
+    t0 = time.perf_counter()
+    ref_i, ref_l = augment_device.apply_batch_3d(image, label, draw.to("cpu"), N_CLS)
+    cpu_s = time.perf_counter() - t0
+    abs_err, rel_err, worst = max_err(got_i.cpu(), ref_i, 1e-5, 1e-5)
+    agree = float((got_l.argmax(-1).cpu() == ref_l.argmax(-1)).float().mean())
+
+    def augment():
+        return augment_device.augment_batch_3d(gen, img_c, lab_c, patch, num_classes=N_CLS)
+
+    host = Compose([RandomCrop3D(patch), PETandCTNormalize(),
+                    RandomTranslationRotationZoom3D(mode="tr", num_class=N_CLS),
+                    RandomFlip3D(mode="hv"), ToOneHot(num_class=N_CLS, input_channel=2)])
+    t0 = time.perf_counter()
+    host({"image": raw[0].copy(), "label": sphere(args.case)}, np.random.default_rng(args.seed))
+    host_s = time.perf_counter() - t0
+    rec = dict(batch=2, case=args.case, patch=args.patch, image_max_abs_err=abs_err,
+               image_max_rel_err=rel_err, image_worst_vs_bar=worst, bar="1e-5 + 1e-5 |ref|",
+               label_agreement=agree, label_bar=0.9999, device_ms=device_ms(augment, 10),
+               event_ms=cuda_ms(augment, 5, 3), cpu_apply_s=cpu_s,
+               host_pipeline_s_per_sample=host_s, translation=draw.affine.translation.tolist(),
+               angle=draw.affine.angle.tolist(), origins=draw.origins.tolist(),
+               flips=draw.flips.tolist())
+    emit("augment", **rec)
+    if not (worst <= 1.0 and agree >= 0.9999 and bool(torch.isfinite(got_i).all())
+            and tuple(got_i.shape) == (2,) + patch + (2,)):
+        fail(f"augmentation on the card vs the CPU: {rec}")
+    del img_c, lab_c, got_i, got_l
+    torch.cuda.empty_cache()
+    return rec
+
+
 def build_models(args):
     nets = [
         get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
@@ -1028,61 +1095,39 @@ def phase_train_compare(args) -> dict:
     return out
 
 
-def build_train(args):
-    """bench.py's train step at full width, random weights from ``args.seed``:
-    (state, step, batch, dropout generator)."""
-    net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
-                  dtype=torch.bfloat16, remat=False, device="cuda")
-    init_weights(net, torch.Generator().manual_seed(args.seed))
-    state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
-                                          params=net.parameters()))
-    step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
-    return (state, step, synthetic_case(args.seed, PATCH),
-            torch.Generator(device="cuda").manual_seed(args.seed))
-
-
 def phase_train(args) -> dict:
-    """The full-width train step of bench.py on a synthetic case."""
+    """The full-width train step of bench.py, built and timed by
+    ``hdenseformer_tpu_torch.bench`` (its protocol, its zero input)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, step, batch, gen = build_train(args)
+    state, step, batch, gen = bench.build("cuda", PATCH, args.depth, args.seed)
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, out = step(state, batch, gen)
-    first_loss = float(out["loss"])
-    first_ms = (time.perf_counter() - t0) * 1e3
-    per_step = read_counts()
-    expect = hdf_expect(args, train=True)
-    if per_step != expect:
-        fail(f"train step launched {per_step}, expected {expect}")
-    reset_counts()
-    windows, losses = [], []
-    for _ in range(TRAIN_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            state, out = step(state, batch, gen)
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / TRAIN_STEPS)
-        losses.append(float(out["loss"]))
+    timed = bench.time_steps(state, step, batch, gen, TRAIN_STEPS, TRAIN_WINDOWS)
     counts = read_counts()
-    steps = TRAIN_WINDOWS * TRAIN_STEPS
+    steps = 1 + TRAIN_WINDOWS * TRAIN_STEPS
+    expect = hdf_expect(args, train=True)
+    if any(counts[k] != v * steps for k, v in expect.items()):
+        fail(f"the {steps} steps launched {counts}, not {steps} x {expect}")
+    windows = [t * 1e3 / TRAIN_STEPS for t in timed["rep_window_s"]]
     best = min(windows)
-    rec = dict(patch=PATCH, batch=1, depth=args.depth, dtype="bfloat16", dropout=0.5,
-               first_step_ms=first_ms, first_loss=first_loss, window_ms_per_step=windows,
-               window_losses=losses, ms_per_step=best,
-               patches_128_per_s=PATCH_EQUIV / (best / 1e3),
+    out = timed["metrics"]
+    rec = dict(patch=PATCH, batch=bench.BATCH, depth=args.depth, dtype="bfloat16", dropout=0.5,
+               input="bench.py's: zero image, background label",
+               first_step_ms=timed["first_call_s"] * 1e3, first_loss=timed["first_loss"],
+               window_ms_per_step=windows, window_losses=timed["window_losses"],
+               ms_per_step=best, patches_128_per_s=PATCH_EQUIV / (best / 1e3),
                window_spread=max(windows) / best,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches_per_step=per_step, launches_in_windows=counts, steps=state.step,
+               launches_per_step=expect, launches_in_run=counts, steps=state.step,
                dice=float(out["dice"]), cm=out["cm"].tolist())
     emit("train", **rec)
-    if any(counts[k] != v * steps for k, v in per_step.items()):
-        fail(f"the {steps} timed steps launched {counts}, not {steps} x {per_step}")
-    if not all(np.isfinite([first_loss] + losses)) or not losses[-1] < first_loss:
-        fail(f"train losses {first_loss} -> {losses}: not finite and falling")
-    return per_step
+    emit("bench", **bench.result_line(timed["best_window_s"], TRAIN_STEPS, PATCH))
+    losses = timed["window_losses"]
+    if not all(np.isfinite([timed["first_loss"]] + losses)) or not losses[-1] < timed["first_loss"]:
+        fail(f"train losses {timed['first_loss']} -> {losses}: not finite and falling")
+    del state, batch
+    torch.cuda.empty_cache()
+    return expect
 
 
 def phase_remat_compare(args) -> None:
@@ -1183,10 +1228,10 @@ class TrainerRun:
         self.args, self.case_format, self.device = args, case_format, device
         self.seg_cls = SemanticSeg if case_format == "hdf5" else NpySemanticSeg
 
-    def config(self, net: str, epochs: int):
+    def config(self, net: str, epochs: int, version: str = "smoke-"):
         return get_config("Hecktor21", net_name=net, data_path="cases", test_path="test",
                           n_epoch=epochs, fold_num=3, current_fold=1, seed=self.args.seed,
-                          transformer_depth=self.args.depth, version="smoke-" + net,
+                          transformer_depth=self.args.depth, version=version + net,
                           input_shape=(self.args.patch,) * 3, patch_size=(self.args.patch,) * 3,
                           step_size=(self.args.patch // 2,) * 3)
 
@@ -1285,7 +1330,9 @@ def phase_trainer(args, work: str, case_format: str, device: str = "cuda") -> di
     cwd = os.getcwd()
     os.chdir(work)  # ./ckpt and ./log, as the CLI lays them out
     try:
-        return drive_trainer(args, run, paths, tests)
+        by_path, host = drive_trainer(args, run, paths, tests)
+        by_path["trainer-device-augment"] = drive_device_augment(args, run, paths, host)
+        return by_path
     finally:
         os.chdir(cwd)
 
@@ -1372,8 +1419,56 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
          loss=hcfg.loss_fun, deep_supervision=hcfg.use_ds, remat=hcfg.remat)
     if on_card and hstep != HECKTOR_TRAIN_EXPECT:
         fail(f"Hecktor20Top1's train step launched {hstep}, expected {HECKTOR_TRAIN_EXPECT}")
-    return {"trainer": {k: counts[k] + resume_counts[k] + infer_counts[k] for k in counts},
-            "trainer-hecktor20top1": hcounts}
+    # phase 5's first run alone (not the resumed epoch), as 5b runs it
+    first_run = epochs[:TRAIN_EPOCHS]
+    host = dict(steady_step_s=statistics.mean(r["step_s"] for r in first_run[1:]),
+                loader_wait_share=[r["loader_wait_share"] for r in first_run],
+                peak_memory_bytes=peak, launches_per_train_step=step, train_wall_s=train_s)
+    return ({"trainer": {k: counts[k] + resume_counts[k] + infer_counts[k] for k in counts},
+             "trainer-hecktor20top1": hcounts}, host)
+
+
+def drive_device_augment(args, run: TrainerRun, paths: list, host: dict) -> dict:
+    """Phase 5b: phase 5's first run (HDenseFormer_32, 2 epochs of fold 1 at
+    the Hecktor21 preset) with ``device_augment=True``, through
+    ``SemanticSeg`` (the CLI has no flag for it). Its steady step, loader
+    wait and peak beside phase 5's (``host``); launches per train step must
+    equal phase 5's (the augmentation launches no custom kernel). Returns
+    the run's launches."""
+    on_card = run.device == "cuda"
+    forward = hdf_expect(args)
+    cfg = run.config("HDenseFormer_32", TRAIN_EPOCHS, version="smoke-augment-")
+    train, val = run.split(cfg, paths)
+    n_train, n_val = -(-len(train) // cfg.batch_size), -(-len(val) // cfg.batch_size)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    seg = run.seg_cls(**cfg.init_trainer_kwargs(), device_augment=True, device=run.device)
+    seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    step = per_train_step(counts, TRAIN_EPOCHS * n_train, TRAIN_EPOCHS * n_val,
+                          forward) if on_card else None
+    epochs = epoch_records(cfg)
+    for rec in epochs:
+        emit("trainer_epoch", net=cfg.net_name, device_augment=True, **rec)
+    steady = [r["step_s"] for r in epochs[1:]]
+    emit("trainer_device_augment", net=cfg.net_name, cases=len(paths), case_size=args.case,
+         patch=args.patch, batch=cfg.batch_size, depth=args.depth, remat=cfg.remat,
+         train_wall_s=train_s, steady_step_s=statistics.mean(steady) if steady else None,
+         loader_wait_share=[r["loader_wait_share"] for r in epochs], peak_memory_bytes=peak,
+         launches=counts, launches_per_train_step=step,
+         train_losses=[r["train_loss"] for r in epochs], host_augmentation=host)
+    if on_card and step != host["launches_per_train_step"]:
+        fail(f"device_augment train step launched {step}, host augmentation "
+             f"{host['launches_per_train_step']}")
+    if len(epochs) != TRAIN_EPOCHS or not all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in epochs):
+        fail(f"device_augment trainer epochs {epochs}")
+    return counts
 
 
 def remat_memory(args, net_name: str = "HDenseFormer_32") -> dict:
@@ -1445,6 +1540,7 @@ def main() -> int:
     main_shapes = phase_kernels(gen)
     main_shapes["instance_norm_relu_backward"] = phase_norm_backward(gen)
     by_path = {"shift_grad": phase_shift_grad(gen)}
+    phase_augment(args)
     net, plain = build_models(args)
     phase_forward(args, net, plain, gen)
     by_path["serve-200"] = phase_serving(args, net, plain, "serving", hdf_expect(args))

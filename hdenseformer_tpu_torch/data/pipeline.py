@@ -147,6 +147,19 @@ class BatchLoader:
         for s in range(0, len(order), self.batch_size):
             yield order[s : s + self.batch_size]
 
+    def _stack(self, samples: list, indices) -> dict:
+        """One batch; samples of more than one shape raise, naming them (raw
+        cases of several sizes, as on-device augmentation batches them)."""
+        for key in ("image", "label"):
+            shapes = [s[key].shape for s in samples]
+            if len(set(shapes)) > 1:
+                cases = [self.dataset.path_list[int(i)] for i in indices]
+                raise ValueError(
+                    f"a batch mixes {key} shapes {shapes} (cases {cases}): the samples of "
+                    "a batch are stacked, so they need one shape; with device_augment "
+                    "they are the raw cases, uncropped")
+        return {key: np.stack([s[key] for s in samples]) for key in ("image", "label")}
+
     def epoch(self, epoch: int = 0):
         """Yield batches for one epoch, prefetched in a background thread."""
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -170,10 +183,7 @@ class BatchLoader:
                         samples = list(
                             pool.map(lambda i: self._load_one(epoch, int(i)), idx_batch)
                         )
-                        put({
-                            "image": np.stack([s["image"] for s in samples]),
-                            "label": np.stack([s["label"] for s in samples]),
-                        })
+                        put(self._stack(samples, idx_batch))
             except Exception as e:  # handed to the consumer, which raises it
                 put(e)
             finally:

@@ -23,6 +23,15 @@ device:
   (seed, optimizer step) before each step (``step_seed``), as JAX's key is
   ``fold_in(PRNGKey(seed), step)``: a resumed run draws the masks of an
   unbroken one;
+- with ``device_augment`` (3-D only) the loader ships raw channels-last
+  cases (``RawChannelsLast``) and ``data/augment_device.augment_batch_3d``
+  runs inside the step on the card, drawing from a second generator seeded
+  from (seed, 777, step) (``augment_seed``; JAX's
+  ``fold_in(fold_in(key, 777), step)``): the dropout masks are those of a
+  run without it, and a resumed run replays the unbroken run's draws;
+- ``load_pretrained`` reads the port's checkpoints and the JAX package's
+  (flax msgpack; ``train/checkpoint.py``), weights and, with
+  ``ckpt_point``, the optimizer state, epoch and step;
 - as in JAX, a resumed run builds a fresh LR scheduler and steps it from
   epoch 0, so its rate restarts;
 - the knob ``device`` is the torch device (None: the GPU, raising without
@@ -31,9 +40,9 @@ device:
   XLA knobs, accepted and ignored.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
-the 2-D transform table (queue 1 item 3, with the 2-D zoo), on-device
-augmentation (``device_augment``, item 5), ``ex_pre_trained`` (the 2-D
-encoders, item 3) and more than one device (item 6).
+the 2-D transform table (queue 1 item 3, with the 2-D zoo),
+``ex_pre_trained`` (the 2-D encoders, item 3) and more than one device
+(item 6).
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from hdenseformer_tpu_torch.data.augment_device import augment_batch_3d
 from hdenseformer_tpu_torch.data.augment3d import (
     RandomCrop3D,
     RandomFlip3D,
@@ -59,6 +69,7 @@ from hdenseformer_tpu_torch.data.transforms import (
     CropResize,
     MRNormalize,
     PETandCTNormalize,
+    RawChannelsLast,
     ToOneHot,
     TruncAndNormalize,
 )
@@ -72,8 +83,10 @@ from hdenseformer_tpu_torch.metrics.running import (
 from hdenseformer_tpu_torch.models import get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
 from hdenseformer_tpu_torch.train.checkpoint import (
+    checkpoint_format,
     dfs_remove_weight,
     load_checkpoint,
+    load_jax_state,
     metric_filename,
     save_checkpoint,
     wait_for_async_saves,
@@ -106,17 +119,32 @@ def _metrics(criterion, outs, batch, num_classes: int) -> Dict[str, torch.Tensor
     return {"loss": loss, "dice": dice, "cm": cm}
 
 
-def make_train_step(criterion: Callable, num_classes: int):
-    """``train_step(state, batch, generator) -> (state, {"loss", "dice", "cm"})``.
+def make_train_step(criterion: Callable, num_classes: int,
+                    augment_fn: Optional[Callable] = None):
+    """``train_step(state, batch, generator[, augment_generator]) -> (state,
+    {"loss", "dice", "cm"})``.
 
     ``batch`` holds ``"image"`` (N, *spatial, C_in), the one-hot ``"label"``
     (N, *spatial, num_classes) and optionally ``"weight"`` (N,) of 1/0, all
     on the model's device. ``generator`` (on that device) feeds the model's
     dropout and advances with it; None where the model has none. Every model
     of ``get_net`` takes it. The state is updated in place and returned.
+
+    With ``augment_fn(generator, image, int_label) -> (image, onehot_label)``
+    the batch holds the raw image and the class volume instead, and the
+    augmentation runs first on the device, without gradients and outside
+    any checkpointed block, drawing from ``augment_generator`` (never the
+    dropout generator).
     """
 
-    def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator]):
+    def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
+                   augment_generator: Optional[torch.Generator] = None):
+        if augment_fn is not None:
+            if augment_generator is None:
+                raise ValueError("a train step with augment_fn needs an augment_generator")
+            with torch.no_grad():
+                image, label = augment_fn(augment_generator, batch["image"], batch["label"])
+            batch = dict(batch, image=image, label=label)
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -147,6 +175,15 @@ def make_eval_step(criterion: Callable, num_classes: int):
 def step_seed(seed: int, step: int) -> int:
     """The dropout seed of optimizer step ``step`` of a run seeded ``seed``."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+AUGMENT_STREAM = 777  # JAX folds 777 into the run's key for augmentation
+
+
+def augment_seed(seed: int, step: int) -> int:
+    """The on-device augmentation seed of optimizer step ``step``."""
+    return int(np.random.SeedSequence([seed, AUGMENT_STREAM, step])
+               .generate_state(1, np.uint64)[0])
 
 
 def pad_and_mask_batch(batch: Dict[str, np.ndarray], batch_size: int, device
@@ -268,8 +305,6 @@ class SemanticSeg:
         del norm_barrier, shift_pack  # XLA knobs: nothing in the port reads them
         if ex_pre_trained:
             raise _not_ported("ex_pre_trained (the 2-D encoders' weights)", 3)
-        if device_augment:
-            raise _not_ported("device_augment (on-device augmentation)", 5)
         self.net_name = net_name
         self.encoder_name = encoder_name
         self.lr = lr
@@ -300,6 +335,7 @@ class SemanticSeg:
         self.transformer_depth = transformer_depth
         self.key_touple = tuple(key_touple)
         self.seed = seed
+        self.device_augment = device_augment
 
         if self.roi_number is not None and self.num_classes != 2:
             raise ValueError("num_classes must be set to 2 for binary segmentation")
@@ -349,13 +385,24 @@ class SemanticSeg:
     def load_pretrained(self, state: TrainState, weight_path: str, ckpt_point=True
                         ) -> TrainState:
         """The checkpoint's weights; with ``ckpt_point`` also its optimizer
-        state and step, and training resumes at the epoch after its own."""
+        state and step, and training resumes at the epoch after its own.
+
+        The file is the port's (``torch.save``) or the JAX package's (flax
+        msgpack), told apart by its bytes. A JAX checkpoint's Adam or SGD
+        state is mapped onto the optimizer's (its learning rate is not: the
+        trainer rebuilds the schedule on resume, as JAX's does)."""
         ckpt = load_checkpoint(weight_path)
-        state.model.load_state_dict(ckpt["model"])
+        optimizer = state.optimizer if ckpt_point else None
+        if checkpoint_format(weight_path) == "flax":
+            has_optimizer = load_jax_state(ckpt, state.model, optimizer)
+        else:
+            state.model.load_state_dict(ckpt["model"])
+            has_optimizer = ckpt.get("optimizer") is not None
+            if optimizer is not None and has_optimizer:
+                optimizer.load_state_dict(ckpt["optimizer"])
         if ckpt_point:
             self.start_epoch = int(ckpt["epoch"]) + 1
-            if ckpt.get("optimizer") is not None:
-                state.optimizer.load_state_dict(ckpt["optimizer"])
+            if has_optimizer:
                 state.step = int(ckpt["step"])
         return state
 
@@ -376,6 +423,8 @@ class SemanticSeg:
     ) -> Dict[str, Any]:
         if n_devices not in (None, 1):
             raise _not_ported(f"training on {n_devices} devices", 6)
+        if self.device_augment and len(self.input_shape) != 3:
+            raise ValueError("device_augment currently supports the 3D pipeline")
         if len(self.input_shape) != 3:
             raise _not_ported("the 2-D transform table (with the 2-D zoo)", 3)
         output_dir = os.path.join(output_dir, f"fold{cur_fold}")
@@ -392,13 +441,23 @@ class SemanticSeg:
             state = self.load_pretrained(state, self.weight_path, self.ckpt_point)
         print(f"{self.net_name}: {count_params(state.model) / 1e6:.3f} M params")
 
-        train_step = make_train_step(criterion, self.num_classes)
+        augment_fn, augment_generator = None, None
+        train_tfm = Compose(self.train_transform_3d)
+        if self.device_augment:
+            patch, ncls = self.patch_size, self.num_classes
+
+            def augment_fn(generator, image, label):
+                return augment_batch_3d(generator, image, label, patch, num_classes=ncls)
+
+            augment_generator = torch.Generator(device=self.device)
+            train_tfm = Compose([RawChannelsLast()])
+        train_step = make_train_step(criterion, self.num_classes, augment_fn=augment_fn)
         eval_step = make_eval_step(criterion, self.num_classes)
         generator = torch.Generator(device=self.device)
 
         train_ds = SegDataset(
             train_path, roi_number=self.roi_number, num_class=self.num_classes,
-            transform=Compose(self.train_transform_3d), img_key=self.key_touple[0],
+            transform=train_tfm, img_key=self.key_touple[0],
             lab_key=self.key_touple[1], reader=self.reader,
         )
         val_ds = SegDataset(
@@ -427,9 +486,9 @@ class SemanticSeg:
             if sched is not None:
                 set_learning_rate(state.optimizer, sched.step(prev_val_loss))
 
-            state, tr = self._run_epoch(state, train_loader, train_step, epoch, generator,
-                                        train=True)
-            _, va = self._run_epoch(state, val_loader, eval_step, epoch, generator, train=False)
+            state, tr = self._run_epoch(state, train_loader, train_step, epoch,
+                                        (generator, augment_generator), train=True)
+            _, va = self._run_epoch(state, val_loader, eval_step, epoch, None, train=False)
             prev_val_loss = va["loss"]
 
             print(f"epoch:{epoch}/{self.n_epoch},train_loss:{tr['loss']:.5f},"
@@ -472,9 +531,10 @@ class SemanticSeg:
         self.state = state
         return history
 
-    def _run_epoch(self, state, loader, step_fn, epoch, generator, train: bool):
+    def _run_epoch(self, state, loader, step_fn, epoch, generators, train: bool):
         """One pass over ``loader``: the loss, dice and running dice, and the
-        wall seconds, steps and seconds spent waiting for the loader."""
+        wall seconds, steps and seconds spent waiting for the loader.
+        ``generators`` is (dropout, augmentation or None) in training."""
         loss_meter, dice_meter = AverageMeter(), AverageMeter()
         run_dice = RunningDice(labels=range(self.num_classes), ignore_label=-1)
         # metrics stay on the card until drained (every 10 global steps, the
@@ -506,8 +566,11 @@ class SemanticSeg:
             n = batch["image"].shape[0]
             batch = pad_and_mask_batch(batch, self.batch_size, self.device)
             if train:
+                generator, augment_generator = generators
                 generator.manual_seed(step_seed(self.seed, state.step))
-                state, metrics = step_fn(state, batch, generator)
+                if augment_generator is not None:
+                    augment_generator.manual_seed(augment_seed(self.seed, state.step))
+                state, metrics = step_fn(state, batch, generator, augment_generator)
             else:
                 metrics = step_fn(state, batch)
             pending.append((n, metrics))

@@ -2,8 +2,9 @@
 
 ``from_jax_params`` takes ``variables["params"]`` of a flax model of the JAX
 package, as nested dicts of numpy arrays (convert with
-``jax.tree_util.tree_map(np.asarray, ...)``), and returns the state dict of
-the matching port module. The rules:
+``jax.tree_util.tree_map(np.asarray, ...)``) or of tensors (a checkpoint
+read by ``train.checkpoint.load_checkpoint``), and returns the state dict
+of the matching port module. The rules:
 
 - names: ``kernel`` and ``scale`` become ``weight``; others stay;
 - Dense kernels ``(in, out)`` become ``Linear`` weights ``(out, in)``;
@@ -54,6 +55,8 @@ def from_jax_params(params: Mapping, prefix: str = "") -> dict[str, torch.Tensor
     root = tuple(prefix.split(".")) if prefix else ()
     out = {}
     for path, leaf in _leaves(params):
+        if isinstance(leaf, torch.Tensor):  # a decoded checkpoint's leaf, bf16 included
+            leaf = leaf.float().numpy()
         arr = np.asarray(leaf, dtype=np.float32)
         if path[0] == "attns":
             banks = [(("attns", str(m)) + path[1:], arr[m]) for m in range(arr.shape[0])]

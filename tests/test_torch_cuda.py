@@ -684,3 +684,60 @@ def test_remat_step_equals_the_plain_step_on_the_card(cuda):
         # the ZERO_GRADIENT biases get rounding noise: held against the largest
         scale = top if name in ZERO_GRADIENT else float(ref.abs().max())
         assert float((grads1[name] - ref).abs().max()) <= 1e-5 * scale, name
+
+
+def _raw_case(shape, seed=0):
+    """A raw CT+PET batch (B, *spatial, 2) and its class volume, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    image = torch.randn(*shape, 2, generator=g)
+    image[..., 0] = image[..., 0] * 800 + 100
+    image[..., 1] = image[..., 1].abs() * 5 + 1
+    label = torch.zeros(shape)
+    c = [s // 2 for s in shape[1:]]
+    label[:, c[0] - 8:c[0] + 8, c[1] - 6:c[1] + 9, c[2] - 7:c[2] + 7] = 1
+    return image, label
+
+
+def test_device_augmentation_on_the_card_matches_the_cpu(cuda):
+    """The same draw applied on the card and on the CPU: image within 1e-5
+    (absolute, and relative), labels equal but where a soft value rounds
+    across 0.5 (at most 1e-4 of the voxels)."""
+    from hdenseformer_tpu_torch.data import augment_device as ta
+
+    image, label = _raw_case((2, 40, 38, 36))
+    draw = ta.draw_batch_3d(torch.Generator().manual_seed(3), image.shape, (32, 32, 32))
+    got_i, got_l = ta.apply_batch_3d(image.to(cuda), label.to(cuda), draw.to(cuda), 2)
+    ref_i, ref_l = ta.apply_batch_3d(image, label, draw, 2)
+    torch.testing.assert_close(got_i.cpu(), ref_i, rtol=1e-5, atol=1e-5)
+    assert float((got_l.cpu() != ref_l).any(-1).float().mean()) <= 1e-4
+
+
+def test_augmented_train_step_has_no_host_sync(cuda):
+    """The step with on-device augmentation (crop origins drawn on the card,
+    the crop a gather) never waits for the card."""
+    from hdenseformer_tpu_torch.data.augment_device import augment_batch_3d
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    net = get_net("HDenseFormer_32", 2, 2, (32, 32, 32), transformer_depth=2, device=cuda)
+    init_weights(net, torch.Generator().manual_seed(0))
+    state = TrainState(net, get_optimizer("Adam", 1e-3, weight_decay=1e-4,
+                                          params=net.parameters()))
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), 2, augment_fn=lambda g, i, l:
+                           augment_batch_3d(g, i, l, (32, 32, 32), num_classes=2))
+    image, label = _raw_case((2, 40, 38, 36))
+    batch = {"image": image.to(cuda), "label": label.to(cuda),
+             "weight": torch.tensor([1.0, 0.0], device=cuda)}
+    gens = [torch.Generator(device=cuda).manual_seed(s) for s in (1, 2)]
+    step(state, batch, *gens)  # the first step builds the kernels and cuDNN's plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = step(state, batch, *gens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 2 and bool(torch.isfinite(out["loss"]))
+    assert int(out["cm"].sum()) == 32 ** 3

@@ -25,6 +25,7 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.data.transforms",
     "hdenseformer_tpu_torch.data.io",
     "hdenseformer_tpu_torch.data.augment3d",
+    "hdenseformer_tpu_torch.data.augment_device",
     "hdenseformer_tpu_torch.data.pipeline",
     "hdenseformer_tpu_torch.data.convert",
     "hdenseformer_tpu_torch.infer",
@@ -44,6 +45,7 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.configs.config",
     "hdenseformer_tpu_torch.utils",
     "hdenseformer_tpu_torch.cli",
+    "hdenseformer_tpu_torch.bench",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

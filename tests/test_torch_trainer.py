@@ -142,7 +142,7 @@ def test_trainer_inference_writes_each_case(tmp_path, cases, first_epoch):
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(device_augment=True), "item 5"), (dict(ex_pre_trained="x.pth"), "item 3"),
+    (dict(ex_pre_trained=True), "item 3"), (dict(ex_pre_trained="x.pth"), "item 3"),
 ])
 def test_unported_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
