@@ -5,8 +5,9 @@
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
-HDenseFormer_32 and Hecktor20Top1, the train step of HDenseFormer_32 and
-the trainer of both (in ``_smoke_work/``, removed at the end):
+HDenseFormer_32 and Hecktor20Top1, the train step of HDenseFormer_32, the
+3-D zoo's forwards and train steps, and the trainer of da_unet,
+HDenseFormer_32 and Hecktor20Top1 (in ``_smoke_work/``, removed at the end):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
@@ -65,6 +66,21 @@ the trainer of both (in ``_smoke_work/``, removed at the end):
    generator in one state), and the peak memory and time of one full-width
    step at batch 2 with remat on and off, of HDenseFormer_32 and of
    Hecktor20Top1;
+4b. the 3-D zoo: UNETR's InstanceNorm shapes at batch 2 (affine, ReLU off,
+   bf16), forward and backward kernels against their plain versions and
+   timed, summed over a forward and a step; then each of unet_3d, da_unet,
+   se_unet, da_se_unet, res_da_se_unet, TransBTS and unetr from get_net at
+   the Hecktor21 preset (2 channels, 2 classes, 144^3, bf16, full width): an
+   eval forward of 2 windows and 2 train steps at batch 2 (FocalLoss, Adam
+   with coupled L2 1e-4, lr 1e-3, seeded dropout): finite losses, ms a step,
+   peak memory, parameters; launches checked against the model's count
+   (UNETR 15 InstanceNorms a forward, 15 + 15 a step; the others none); a
+   BatchNorm model's running statistics unmoved by the eval forward and all
+   moved by the steps; UNETR's eval forward also through the plain versions
+   (phase 2's bars). Then da_unet through the trainer: one epoch of fold 1
+   on phase 5's cases, inf-sw of one 200^3 volume (labels equal to
+   predict_volume's under the checkpoint's weights and running statistics,
+   which must have moved off (0, 1)), eval;
 5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
    where h5py imports and driven through the CLI (``cli.main``), else as
    .npy case directories driven through ``SemanticSeg`` with a .npy reader
@@ -118,7 +134,7 @@ from hdenseformer_tpu_torch.data.augment3d import (
     RandomFlip3D,
     RandomTranslationRotationZoom3D,
 )
-from hdenseformer_tpu_torch.data.io import save_as_hdf5
+from hdenseformer_tpu_torch.data.io import hdf5_reader, save_as_hdf5
 from hdenseformer_tpu_torch.data.pipeline import get_cross_validation_by_sample
 from hdenseformer_tpu_torch.data.transforms import Compose, PETandCTNormalize, ToOneHot
 from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
@@ -145,7 +161,7 @@ from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_unpack,
     shift_unpack_ref,
 )
-from hdenseformer_tpu_torch.train.checkpoint import get_weight_path
+from hdenseformer_tpu_torch.train.checkpoint import get_weight_path, load_checkpoint
 from hdenseformer_tpu_torch.train.loop import SemanticSeg, TrainState, make_train_step
 from hdenseformer_tpu_torch.train.state import get_optimizer
 
@@ -223,6 +239,16 @@ WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_work")
 # the conv biases under an InstanceNorm without affine: their true gradient
 # is zero, and what any implementation returns for them is rounding noise
 ZERO_GRADIENT = ("deep_conv.conv.bias", "up1.conv.bias", "up2.conv.bias", "up3.conv.bias")
+# the 3-D zoo of get_net, at the Hecktor21 preset (2 channels, 2 classes,
+# 144^3, bf16, full width), batch 2
+ZOO = ("unet_3d", "da_unet", "se_unet", "da_se_unet", "res_da_se_unet", "TransBTS", "unetr")
+ZOO_BATCH, ZOO_STEPS = 2, 2
+# (S, C) and count of UNETR's InstanceNorms (affine, no ReLU) in one forward
+# at 144^3: three a UnetResBlock (norm1, norm2 and the residual's norm3),
+# encoder1 and decoder2 at 144^3 x 16, decoder3 at 72^3 x 32, decoder4 at
+# 36^3 x 64, decoder5 at 18^3 x 128
+IN_UNETR = (((PATCH ** 3, 16), 6), (((PATCH // 2) ** 3, 32), 3),
+            (((PATCH // 4) ** 3, 64), 3), (((PATCH // 8) ** 3, 128), 3))
 
 
 def fail(msg: str) -> None:
@@ -273,7 +299,10 @@ def device_kernels(fn, iters: int = 10, tries: int = 3) -> dict:
     """Device ms per call of each kernel name that ``fn`` launches.
 
     A profile that holds no device event is taken again, up to ``tries``
-    times: on the card machine CUPTI now and then delivers none."""
+    times: on the card machine CUPTI now and then delivers none. Each name's
+    time is its mean event times its launches a call (its event count over
+    ``iters``, rounded), so an event that CUPTI drops does not shorten the
+    call."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -282,13 +311,14 @@ def device_kernels(fn, iters: int = 10, tries: int = 3) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        total, count = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / iters / 1e3)
-        if by_name:
-            return by_name
+                total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                count[e.name] = count.get(e.name, 0) + 1
+        if total:
+            return {name: total[name] / count[name] * max(1, round(count[name] / iters))
+                    for name in total}
     fail(f"torch.profiler recorded no device time in {tries} profiles")
 
 
@@ -322,7 +352,7 @@ def phase_env(args) -> str:
     return smi
 
 
-def instance_norm_times(x, scale, bias, library: bool = True) -> dict:
+def instance_norm_times(x, scale, bias, library: bool = True, relu: bool = True) -> dict:
     """Device times of the kernel (by pass), its plain version and, with
     ``library``, ``F.relu(F.instance_norm(...))``; the bound. Each pass's
     rate counts the bytes it must move: x for the statistics, x and y for
@@ -333,7 +363,7 @@ def instance_norm_times(x, scale, bias, library: bool = True) -> dict:
     nbytes = 2 * x.numel() * x.element_size() + (2 * c * 4 if affine else 0)
     rec = dict(zip(("bound_ms", "bound_by"), bound(nbytes, 7 * x.numel(), torch.float32)))
     iters = 10 if x.numel() > 1e8 else 50
-    by_kernel = device_kernels(lambda: instance_norm_relu(x, scale, bias), iters)
+    by_kernel = device_kernels(lambda: instance_norm_relu(x, scale, bias, relu=relu), iters)
     passes = {p: sum(t for name, t in by_kernel.items() if p in name) for p in IN_PASSES}
     if any(t == 0 for t in passes.values()):
         fail(f"instance_norm_relu: the profiler saw {sorted(by_kernel)}, not its three passes")
@@ -342,7 +372,8 @@ def instance_norm_times(x, scale, bias, library: bool = True) -> dict:
     rec["passes_ms"] = passes
     rec["passes_tb_per_s"] = {"partial_stats_kernel": xbytes / passes["partial_stats_kernel"] / 1e9,
                               "normalize_kernel": 2 * xbytes / passes["normalize_kernel"] / 1e9}
-    rec["plain_ms"] = device_ms(lambda: instance_norm_relu_ref(x, scale, bias), iters)
+    rec["plain_ms"] = device_ms(lambda: instance_norm_relu_ref(x, scale, bias, relu=relu),
+                                iters)
     if library:
         # the library call on the same channels-last tensor, viewed as (N, C, S)
         rec["library_ms"] = device_ms(
@@ -1186,6 +1217,197 @@ def phase_remat_compare(args) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_unetr_norms(gen) -> dict:
+    """UNETR's InstanceNorm shapes at batch 2 (bf16, affine, ReLU off): the
+    forward kernel against its plain version (phase 1's bf16 bar) and the
+    backward kernel against its plain version (phase 1b's bars), each shape
+    timed and summed over one UNETR forward and one train step."""
+    per = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0,
+               bwd_bound_ms=0.0)
+    for (s, c), count in IN_UNETR:
+        x, dy, scale, bias = norm_bwd_inputs(gen, (ZOO_BATCH, s, c), torch.bfloat16, True)
+        got = instance_norm_relu(x, scale, bias, relu=False)
+        plain = instance_norm_relu_ref(x, scale, bias, relu=False)
+        torch.cuda.synchronize()
+        abs_e, _, over = max_err(got, plain, BF16_STEP, 1e-6)
+        if not over <= 1.0:
+            fail(f"instance_norm_relu (2, {s}, {c}) ReLU off: {abs_e} over tolerance")
+        vs_plain = norm_bwd_compare(x, dy, scale, bias, False, f"(2, {s}, {c}) ReLU off")
+        fwd = instance_norm_times(x, scale, bias, library=False, relu=False)
+        bwd = norm_backward_times(x, dy, scale, bias, False, library=False)
+        emit("instance_norm_unetr_shape", shape=[ZOO_BATCH, s, c], dtype="bfloat16", relu=False,
+             launches_per_forward=count, fwd_max_abs_err=abs_e, bwd_vs_plain=vs_plain,
+             fwd_ms=fwd["ms"], fwd_plain_ms=fwd["plain_ms"], fwd_bound_ms=fwd["bound_ms"],
+             bwd_ms=bwd["ms"], bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"])
+        for key in per:
+            per[key] += (fwd if key.startswith("fwd") else bwd)[key[4:]] * count
+        del x, dy, got, plain
+        torch.cuda.empty_cache()
+    emit("instance_norm_per_unetr_step", launches_forward=sum(n for _, n in IN_UNETR),
+         launches_backward=sum(n for _, n in IN_UNETR), **per)
+    return per
+
+
+def zoo_expect(name: str, train: bool) -> dict:
+    """Launches of one zoo forward (or train step): UNETR's InstanceNorms
+    (one backward each in a step), none for the others."""
+    expect = dict.fromkeys(KERNELS, 0)
+    if name == "unetr":
+        norms = sum(n for _, n in IN_UNETR)
+        expect.update(instance_norm_relu=norms,
+                      instance_norm_relu_backward=norms if train else 0)
+    return expect
+
+
+def buffers_of(net) -> dict:
+    return {n: b.detach().clone() for n, b in net.named_buffers()}
+
+
+def phase_zoo(args, gen) -> dict:
+    """Each model of the 3-D zoo at the Hecktor21 preset (144^3, bf16, full
+    width): an eval forward of 2 windows and ZOO_STEPS train steps at batch
+    2 (FocalLoss, Adam with coupled L2 1e-4, lr 1e-3, dropout from a seeded
+    generator): finite loss, ms a step, peak memory, parameters, launches
+    against the model's count; a BatchNorm model's running statistics must
+    not move in the eval forward and must move in the step. UNETR's eval
+    forward also runs through the plain versions from the same weights
+    (phase 2's bars). Returns UNETR's launches (its forward and steps)."""
+    t0 = time.perf_counter()
+    case = synthetic_case(args.seed, PATCH)
+    batch = {k: v.repeat(ZOO_BATCH, 1, 1, 1, 1) for k, v in case.items()}
+    x = torch.randn((ZOO_BATCH, PATCH, PATCH, PATCH, 2), generator=gen, device="cuda")
+    unetr_counts = dict.fromkeys(KERNELS, 0)
+    for name in ZOO:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = get_net(name, 2, N_CLS, (PATCH,) * 3, dtype=torch.bfloat16, device="cuda")
+        init_weights(net, torch.Generator().manual_seed(args.seed))
+        fresh = buffers_of(net)
+        with torch.inference_mode():
+            reset_counts()
+            logits, first_ms = timed_forward(net, x)
+            fwd_counts = read_counts()
+            _, warm_ms = timed_forward(net, x)
+        rec = dict(net=name, params=sum(p.numel() for p in net.parameters()),
+                   batch_norm_buffers=len(fresh), eval_first_ms=first_ms, eval_warm_ms=warm_ms,
+                   launches_forward=fwd_counts)
+        if name in ("TransBTS", "unetr"):
+            # layers.self_attention: SDPA would draw its dropout from the global RNG
+            rec["attention"] = "plain math, fp32 scores (layers.self_attention)"
+        if name == "unetr":
+            plain = get_net(name, 2, N_CLS, (PATCH,) * 3, dtype=torch.bfloat16,
+                            use_kernels=False, device="cuda")
+            plain.load_state_dict(net.state_dict())
+            with torch.inference_mode():
+                reset_counts()
+                ref = plain(x)
+                rec["launches_plain_forward"] = read_counts()
+            rec["kernels_vs_plain"] = compare_logits(logits, ref)
+            del plain, ref
+        if logits.shape != x.shape[:-1] + (N_CLS,) or logits.dtype != torch.float32 or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"{name} eval logits {tuple(logits.shape)} {logits.dtype}, or not finite")
+        if any(not torch.equal(b, fresh[n]) for n, b in net.named_buffers()):
+            fail(f"{name}'s eval forward moved its running statistics")
+        del logits
+        opt = get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY, params=net.parameters())
+        state = TrainState(net, opt)
+        step = make_train_step(get_loss("FocalLoss", use_ds=False), N_CLS)
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        steps = []
+        for _ in range(ZOO_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, out = step(state, batch, g)
+            loss = float(out["loss"])
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                              launches=read_counts()))
+        moved = [n for n, b in net.named_buffers() if not torch.equal(b, fresh[n])]
+        rec.update(step_ms=[st["ms"] for st in steps], losses=[st["loss"] for st in steps],
+                   launches_step=steps[-1]["launches"], statistics_moved=len(moved),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit("zoo", **rec)
+        if fwd_counts != zoo_expect(name, False) or any(
+                st["launches"] != zoo_expect(name, True) for st in steps):
+            fail(f"{name} launched {fwd_counts} a forward and {[st['launches'] for st in steps]} "
+                 f"a step, expected {zoo_expect(name, False)} and {zoo_expect(name, True)}")
+        if not all(np.isfinite(rec["losses"])):
+            fail(f"{name} train losses {rec['losses']}")
+        if len(moved) != len(fresh):
+            fail(f"{name}: {len(fresh) - len(moved)} running statistics did not move in training")
+        if name == "unetr":
+            cmp = rec["kernels_vs_plain"]
+            if any(rec["launches_plain_forward"].values()) or cmp["argmax_agreement"] < 0.99 or (
+                    cmp["argmax_agreement_margin_gt_0p1"] < 0.999):
+                fail(f"UNETR kernels vs plain path: {cmp}, plain launched "
+                     f"{rec['launches_plain_forward']}")
+            for counts in [fwd_counts] + [st["launches"] for st in steps]:
+                for k, v in counts.items():
+                    unetr_counts[k] += v
+        del net, opt, state, step
+    emit("zoo_phase", seconds=time.perf_counter() - t0)
+    del batch, x
+    torch.cuda.empty_cache()
+    return unetr_counts
+
+
+def phase_zoo_journey(args, work: str, case_format: str, device: str = "cuda") -> dict:
+    """da_unet through the trainer at the Hecktor21 preset: one epoch of fold
+    1 of 3 on phase 5's cases, ``-m inf-sw`` of one 200^3 volume, ``-m
+    eval``. The checkpoint's running statistics must have moved off (0, 1),
+    and inf-sw's labels must be ``predict_volume``'s under them in eval
+    mode. da_unet launches no kernel of the port."""
+    t0 = time.perf_counter()
+    run = TrainerRun(args, case_format, device)
+    names = [f"p{i}_{s}" for i in range(3) for s in "ab"]
+    paths = write_cases(os.path.join(work, "cases"), names, args.case, args.seed, case_format)
+    tests = write_cases(os.path.join(work, "test"), ["t0_a"], args.volume, args.seed + 100,
+                        case_format)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cfg = run.config("da_unet", 1, version="smoke-zoo-")
+        reset_counts()
+        run.train(cfg, paths)
+        ckpt = get_weight_path(os.path.join(cfg.output_dir, "fold1"))
+        stats = {k: v for k, v in load_checkpoint(ckpt)["model"].items()
+                 if k.endswith((".mean", ".var"))}
+        fresh = sum(bool(torch.all(v == (0.0 if k.endswith(".mean") else 1.0)))
+                    for k, v in stats.items())
+        save = os.path.join("seg", cfg.version)
+        run.infer(cfg, tests, ckpt, save)
+        counts = read_counts()
+        labels = np.load(os.path.join(save, os.path.basename(tests[0]).split(".")[0] + ".npy"))
+        net = get_net("da_unet", 2, N_CLS, (PATCH,) * 3, dtype=torch.bfloat16, device=device)
+        net.load_state_dict(load_checkpoint(ckpt)["model"])
+        volume = (npy_reader(tests[0], "ct") if case_format == "npy"
+                  else hdf5_reader(tests[0], "ct"))
+        image = PETandCTNormalize()({"image": volume})["image"]
+        want = predict_volume(net.eval(), image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
+                              window_batch=WINDOWS)
+        rows = run.evaluate(cfg, tests, save)
+        epochs = epoch_records(cfg)
+    finally:
+        os.chdir(cwd)
+    rec = dict(net="da_unet", case_format=case_format, epochs=epochs, checkpoint_statistics=len(
+        stats), statistics_left_at_init=fresh, label_shape=list(labels.shape),
+        labels_vs_predict_volume=float((labels == want).mean()), eval_rows=rows,
+        launches=counts, seconds=time.perf_counter() - t0)
+    emit("zoo_journey", **rec)
+    if any(counts.values()):
+        fail(f"the da_unet journey launched {counts}; da_unet has no kernel of the port")
+    if not stats or fresh:
+        fail(f"{fresh} of the checkpoint's {len(stats)} running statistics are still (0, 1)")
+    if labels.shape != (args.volume,) * 3 or rec["labels_vs_predict_volume"] < 0.999:
+        fail(f"inf-sw labels {labels.shape}, {rec['labels_vs_predict_volume']} equal to "
+             "predict_volume under the checkpoint")
+    if len(rows) != 1 or len(epochs) != 1 or not np.isfinite(epochs[0]["train_loss"]):
+        fail(f"the da_unet journey: epochs {epochs}, eval rows {rows}")
+    return counts
+
+
 def npy_reader(path: str, key: str) -> np.ndarray:
     """One volume of a case directory holding ``<key>.npy`` per key: this
     phase's case format on a machine without h5py."""
@@ -1556,8 +1778,21 @@ def main() -> int:
     phase_remat_compare(args)
     remat_memory(args)
     remat_memory(args, "hecktor20top1")
+    t_zoo = time.perf_counter()
+    unetr = phase_unetr_norms(gen)
+    main_shapes["instance_norm_relu"].update(
+        {f"per_unetr_forward_{k}": unetr[f"fwd_{k}"] for k in ("ms", "plain_ms", "bound_ms")})
+    main_shapes["instance_norm_relu_backward"].update(
+        {f"per_unetr_step_{k}": unetr[f"bwd_{k}"] for k in ("ms", "plain_ms", "bound_ms")})
+    by_path["zoo-unetr"] = phase_zoo(args, gen)
     case_format = "hdf5" if importlib.util.find_spec("h5py") else "npy"
     shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        by_path["zoo-da_unet-trainer"] = phase_zoo_journey(args, os.path.join(WORK, "zoo"),
+                                                           case_format)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    emit("zoo_total", seconds=time.perf_counter() - t_zoo)
     try:
         by_path.update(phase_trainer(args, WORK, case_format))
     finally:

@@ -9,6 +9,10 @@ Usage:
     python -m hdenseformer_tpu_torch.cli -m train-cross --dataset Hecktor21 \
         --net HDenseFormer_32 --data-path ./dataset/hecktor
 
+``--net`` takes every 3-D name of ``models.get_net``: HDenseFormer_32/_16,
+hecktor20top1, unet_3d, da_unet, se_unet, da_se_unet, res_da_se_unet,
+TransBTS and unetr.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
 ``-m predict-2d`` (the 2-D zoo, queue 1 item 3) and ``--profile`` (queue 1
 item 6).

@@ -21,9 +21,13 @@ The space-to-depth packed arguments run at full rank (``ops/s2d.py``):
 packed_out=True)`` for k3 s2 p1 op1, and ``InstanceNorm(packed=True)``,
 which is what Hecktor20Top1's level 1 runs. Not ported here: partial-rank
 packing (``packed_dims`` naming fewer dims raises), the shift-free conv pair
-(``packed_shift``/``shift``, HDenseFormer's packed level 0), the BatchNorm
-variants, 1-D and 2-D convolutions and dilation (ROADMAP.md queue 1 items 3
-and 4).
+(``packed_shift``/``shift``, HDenseFormer's packed level 0), the packed
+BatchNorm and GroupNorm (ROADMAP.md queue 1 item 4), 1-D and 2-D
+convolutions and dilation (item 3, the 2-D zoo).
+
+``BatchNorm`` and ``GroupNorm`` hold the parameters that JAX keeps one
+module deeper, under ``BatchNorm_0`` and ``GroupNorm_0``;
+``weights.from_jax_params`` drops that level.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from hdenseformer_tpu_torch.ops.resize import upsample_linear
 from hdenseformer_tpu_torch.ops.s2d import conv1_packed, conv_transpose_packed, convk_packed
 
 _CL = torch.channels_last_3d
-EPS = 1e-5  # torch's InstanceNorm and LayerNorm default, as in the JAX modules
+EPS = 1e-5  # torch's norms' default, as in the JAX modules
+MOMENTUM = 0.1  # torch's BatchNorm momentum (flax's 0.9)
 
 
 def _uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -120,8 +125,8 @@ class ConvTranspose(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
-                 dtype: Optional[torch.dtype] = None, packed_out: bool = False,
-                 device=None):
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None,
+                 packed_out: bool = False, device=None):
         super().__init__()
         k = kernel_size
         if packed_out and (k, stride, padding, output_padding) != (3, 2, 1, 1):
@@ -132,20 +137,24 @@ class ConvTranspose(nn.Module):
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
         self.dtype, self.packed_out = dtype, packed_out
         self.weight = nn.Parameter(torch.empty(in_features, features, k, k, k, device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(features, device=device)) if use_bias else None
+        )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # torch's fan_in for a transposed conv: dim 1 times the receptive field
         bound = 1.0 / math.sqrt(self.weight[0].numel())
         _uniform_(self.weight, bound, generator)
-        _uniform_(self.bias, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         if self.packed_out:
             return conv_transpose_packed(x, self.weight, self.bias, dt)
         w = self.weight.to(dt, memory_format=_CL)
-        y = F.conv_transpose3d(x.to(dt).movedim(-1, 1), w, self.bias.to(dt), self.stride,
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose3d(x.to(dt).movedim(-1, 1), w, b, self.stride,
                                self.padding, self.output_padding)
         return y.movedim(1, -1)
 
@@ -213,6 +222,69 @@ class InstanceNorm(nn.Module):
         return fn(x, self.weight, self.bias, EPS, self.fuse_relu)
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm over every axis but the channels, torch's bookkeeping (JAX
+    ``_TorchBatchNorm``).
+
+    Training mode normalises with the batch's mean and biased variance and
+    updates the running statistics with momentum 0.1, storing the unbiased
+    variance (m / (m - 1) for m values a channel). Where a channel sees one
+    value (m = 1, batch 1 at a 1^3 grid), torch's ``F.batch_norm`` raises;
+    as JAX, the output is then the bias and the stored variance the biased
+    one, 0. Eval mode normalises with the running statistics. Statistics,
+    normalisation and the output are fp32 whatever the input's dtype; the
+    next conv casts back. The state is the buffers ``mean`` and ``var``
+    (initially 0 and 1), JAX's ``batch_stats`` leaves.
+    """
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training and x.numel() == x.shape[-1]:  # m = 1
+            with torch.no_grad():
+                self.mean.mul_(1.0 - MOMENTUM).add_(MOMENTUM * x32.reshape(-1))
+                self.var.mul_(1.0 - MOMENTUM)
+            # x less its own mean: zero, and no gradient to x or the scale
+            return (x32 - x32) * (self.weight * EPS ** -0.5) + self.bias
+        y = F.batch_norm(x32.movedim(-1, 1), self.mean, self.var, self.weight, self.bias,
+                         self.training, MOMENTUM, EPS)
+        return y.movedim(1, -1)
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm(num_groups, dtype=float32)`` (TransBTS's
+    GroupNorm(8)): consecutive channels form a group; fp32 statistics and an
+    fp32 output; affine."""
+
+    def __init__(self, features: int, num_groups: int = 8, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float().movedim(-1, 1), self.num_groups, self.weight, self.bias,
+                         EPS)
+        return y.movedim(1, -1)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, eps 1e-5, fp32 statistics."""
 
@@ -263,6 +335,33 @@ class UpConv(nn.Module):
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """torch.nn.GELU default: the exact erf form."""
     return F.gelu(x)
+
+
+def self_attention(qkv: torch.Tensor, heads: int, p: float = 0.0, training: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Multi-head attention of the (b, n, 3 c) output of a ``qkv`` projection,
+    split as torch's ``reshape(b, n, 3, heads, c / heads)``, at JAX's
+    precision (TransBTS's ``SelfAttention``, UNETR's ``ViTBlock``): scores
+    and softmax in fp32 (the einsum's ``preferred_element_type``), dropout
+    ``p`` on the probabilities, which are cast to v's dtype for P.V.
+    Returns (b, n, c).
+
+    Plain math, not ``F.scaled_dot_product_attention``: SDPA draws its
+    dropout from the global RNG, where the port draws every mask from an
+    explicit generator.
+    """
+    b, n = qkv.shape[:2]
+    qkv = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = dropout(torch.softmax(scores * q.shape[-1] ** -0.5, dim=-1), p, training, generator)
+    out = torch.matmul(probs.to(v.dtype), v)
+    return out.transpose(1, 2).reshape(b, n, -1)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU with slope 0.01 (UNETR's, as monai's)."""
+    return F.leaky_relu(x, 0.01)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

@@ -1,0 +1,233 @@
+"""TransBTS: a 3-D UNet encoder, a transformer bottleneck, a conv decoder.
+
+Counterpart of ``hdenseformer_tpu/models/transbts.py``:
+
+- the encoder (``UnetEncoder``, module ``Unet``): ``InitConv``, channel
+  dropout 0.2, GroupNorm(8)-ReLU-conv residual ``EnBlock``s and stride-2
+  ``EnDown`` convs to the 1/8 grid at 128 channels;
+- the bottleneck: BatchNorm, ReLU, a 3x3 conv to ``embedding_dim``, the grid
+  flattened to tokens, a learned position embedding (zeros at init),
+  dropout, and ``num_layers`` pre-LN transformer layers (bias-free ``qkv``,
+  fp32 scores and softmax, exact GELU; dropout on the probabilities and at
+  four more sites a layer);
+- the decoder reads the last layer's output before any LayerNorm: two
+  conv-BN-ReLU ``Enblock8`` pairs (the second residual), three ``DeUp``s
+  (1x1 conv, ConvTranspose k2 s2 with bias, ``[skip, up]``, 1x1 conv), each
+  followed by a residual conv-BN-ReLU ``DeBlock``, and the fp32 1x1
+  ``endconv``.
+
+Input ``(N, D, H, W, C)``, output channels-last fp32 logits. Module and
+parameter names are the JAX ones. GroupNorm and BatchNorm return fp32
+(``layers.GroupNorm``, ``layers.BatchNorm``), and each conv casts back to
+``dtype``, as JAX's fine path does.
+
+Dropout draws from the ``generator`` given to ``forward``. The encoder's
+channel dropout is split into a draw (``UnetEncoder.channel_keep``: one
+keep coin per (sample, channel)) and its application, so that a caller can
+replay a mask drawn elsewhere.
+
+``img_dim`` is the input's edge (an int) or its spatial shape: the position
+embedding has a row per token of the 1/8 grid, which the port fixes when
+it builds the model (JAX sizes it from the input at ``init``).
+
+The port runs the fine grid. JAX's default (``s2d=None``) packs levels 0
+and 1; its tests hold packed equal to fine in fp32, and in bf16 its packed
+GroupNorm and BatchNorm keep the input dtype. The packed path waits for
+ROADMAP.md queue 1 item 4. The token grid is the input's 1/8 by
+construction (JAX's ``patch_dim`` of 8).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hdenseformer_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    ConvTranspose,
+    Dense,
+    GroupNorm,
+    LayerNorm,
+    dropout,
+    gelu_exact,
+    self_attention,
+)
+
+CHANNEL_DROPOUT = 0.2  # the encoder's, fixed where TransBTSModel builds it, as in JAX
+
+
+class EnBlock(nn.Module):
+    """GN-ReLU-conv x2 plus the input."""
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.bn1 = GroupNorm(channels, device=device)
+        self.conv1 = Conv(channels, channels, 3, 1, 1, **kw)
+        self.bn2 = GroupNorm(channels, device=device)
+        self.conv2 = Conv(channels, channels, 3, 1, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.relu(self.bn1(x)))
+        return self.conv2(F.relu(self.bn2(h))) + x
+
+
+class UnetEncoder(nn.Module):
+    """The 4-level encoder to the 1/8 grid; returns the three skips and the
+    bottom feature map."""
+
+    def __init__(self, in_channels: int, base_channels: int = 16,
+                 dropout: float = CHANNEL_DROPOUT, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        bc, self.p = base_channels, dropout
+        kw = dict(dtype=dtype, device=device)
+        self.InitConv = Conv(in_channels, bc, 3, 1, 1, **kw)
+        self.EnBlock1 = EnBlock(bc, **kw)
+        self.EnDown1 = Conv(bc, 2 * bc, 3, 2, 1, **kw)
+        self.EnBlock2_1 = EnBlock(2 * bc, **kw)
+        self.EnBlock2_2 = EnBlock(2 * bc, **kw)
+        self.EnDown2 = Conv(2 * bc, 4 * bc, 3, 2, 1, **kw)
+        self.EnBlock3_1 = EnBlock(4 * bc, **kw)
+        self.EnBlock3_2 = EnBlock(4 * bc, **kw)
+        self.EnDown3 = Conv(4 * bc, 8 * bc, 3, 2, 1, **kw)
+        for i in range(1, 5):
+            self.add_module(f"EnBlock4_{i}", EnBlock(8 * bc, **kw))
+
+    def channel_keep(self, x: torch.Tensor, generator: Optional[torch.Generator]
+                     ) -> torch.Tensor:
+        """The draw of the channel dropout: a (N, 1, 1, 1, C) keep mask, each
+        coin kept with probability 1 - p, from ``generator`` (on x's device)."""
+        if generator is None:
+            raise ValueError("dropout in training needs an explicit torch.Generator")
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return torch.rand(shape, generator=generator, device=x.device) >= self.p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        x = self.InitConv(x)
+        if self.training and self.p > 0:
+            keep = self.channel_keep(x, generator)
+            x = torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+        x1_1 = self.EnBlock1(x)
+        h = self.EnBlock2_1(self.EnDown1(x1_1))
+        x2_1 = self.EnBlock2_2(h)
+        h = self.EnBlock3_1(self.EnDown2(x2_1))
+        x3_1 = self.EnBlock3_2(h)
+        h = self.EnDown3(x3_1)
+        for i in range(1, 5):
+            h = getattr(self, f"EnBlock4_{i}")(h)
+        return x1_1, x2_1, x3_1, h
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention (``layers.self_attention``) with dropout on
+    the probabilities and on the projected output."""
+
+    def __init__(self, dim: int, heads: int = 8, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.heads, self.p = heads, dropout
+        kw = dict(dtype=dtype, device=device)
+        self.qkv = Dense(dim, 3 * dim, use_bias=False, **kw)
+        self.proj = Dense(dim, dim, **kw)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        out = self_attention(self.qkv(x), self.heads, self.p, self.training, generator)
+        return dropout(self.proj(out), self.p, self.training, generator)
+
+
+def _grid(size: int) -> int:
+    """The edge after three k3 s2 p1 convs: ceil(size / 2), thrice."""
+    for _ in range(3):
+        size = -(-size // 2)
+    return size
+
+
+class TransBTSModel(nn.Module):
+    """The full model; ``forward`` returns fp32 logits (N, D, H, W, classes)."""
+
+    def __init__(self, n_channels: int = 2, num_classes: int = 2, img_dim=144,
+                 embedding_dim: int = 512, num_heads: int = 8, num_layers: int = 4,
+                 hidden_dim: int = 4096, dropout_rate: float = 0.1,
+                 attn_dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        ed = embedding_dim
+        dims = (img_dim,) * 3 if isinstance(img_dim, int) else tuple(img_dim)
+        self.num_layers, self.p = num_layers, dropout_rate
+        kw = dict(dtype=dtype, device=device)
+        self.Unet = UnetEncoder(n_channels, 16, CHANNEL_DROPOUT, **kw)
+        self.bn = BatchNorm(128, device=device)
+        self.conv_x = Conv(128, ed, 3, 1, 1, **kw)
+        tokens = 1
+        for d in dims:
+            tokens *= _grid(d)
+        self.position_embeddings = nn.Parameter(torch.empty(tokens, ed, device=device))
+        for i in range(num_layers):
+            self.add_module(f"attn_norm_{i}", LayerNorm(ed, device=device))
+            self.add_module(f"attn_{i}", SelfAttention(ed, num_heads, attn_dropout_rate, **kw))
+            self.add_module(f"ff_norm_{i}", LayerNorm(ed, device=device))
+            self.add_module(f"ff_fc1_{i}", Dense(ed, hidden_dim, **kw))
+            self.add_module(f"ff_fc2_{i}", Dense(hidden_dim, ed, **kw))
+        q = ed // 4
+        for name, cin in (("Enblock8_1_conv1", ed), ("Enblock8_1_conv2", q),
+                          ("Enblock8_2_conv1", q), ("Enblock8_2_conv2", q)):
+            self.add_module(name, Conv(cin, q, 3, 1, 1, **kw))
+            self.add_module(name.replace("conv", "bn"), BatchNorm(q, device=device))
+        cin = q
+        for lvl, out, skip in ((4, ed // 8, 64), (3, ed // 16, 32), (2, ed // 32, 16)):
+            self.add_module(f"DeUp{lvl}_conv1", Conv(cin, out, 1, **kw))
+            self.add_module(f"DeUp{lvl}_conv2", ConvTranspose(out, out, 2, 2, **kw))
+            self.add_module(f"DeUp{lvl}_conv3", Conv(skip + out, out, 1, **kw))
+            for j in (1, 2):
+                self.add_module(f"DeBlock{lvl}_conv{j}", Conv(out, out, 3, 1, 1, **kw))
+                self.add_module(f"DeBlock{lvl}_bn{j}", BatchNorm(out, device=device))
+            cin = out
+        self.endconv = Conv(cin, num_classes, 1, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.position_embeddings)
+
+    def _pair(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``{name}conv1`` - ``bn1`` - ReLU - ``conv2`` - ``bn2`` - ReLU."""
+        for j in (1, 2):
+            x = F.relu(getattr(self, f"{name}bn{j}")(getattr(self, f"{name}conv{j}")(x)))
+        return x
+
+    def _deup(self, lvl: int, h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """``DeUp{lvl}``, then the residual ``DeBlock{lvl}``."""
+        h = getattr(self, f"DeUp{lvl}_conv2")(getattr(self, f"DeUp{lvl}_conv1")(h))
+        h = getattr(self, f"DeUp{lvl}_conv3")(torch.cat([skip, h.to(skip.dtype)], dim=-1))
+        return self._pair(f"DeBlock{lvl}_", h) + h
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        train, p = self.training, self.p
+        x1_1, x2_1, x3_1, h = self.Unet(x, generator)
+        h = self.conv_x(F.relu(self.bn(h)))
+        b, grid, ed = h.shape[0], h.shape[1:-1], h.shape[-1]
+        tokens = h.reshape(b, -1, ed) + self.position_embeddings.to(h.dtype)
+        tokens = dropout(tokens, p, train, generator)
+        for i in range(self.num_layers):
+            a = getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(tokens), generator)
+            tokens = tokens + dropout(a, p, train, generator)
+            f = getattr(self, f"ff_fc1_{i}")(getattr(self, f"ff_norm_{i}")(tokens))
+            f = getattr(self, f"ff_fc2_{i}")(dropout(gelu_exact(f), p, train, generator))
+            tokens = tokens + dropout(f, p, train, generator)
+        y = tokens.reshape(b, *grid, ed)  # the last layer's output, before any LayerNorm
+        y = self._pair("Enblock8_1_", y)
+        y = self._pair("Enblock8_2_", y) + y
+        y = self._deup(4, y, x3_1)
+        y = self._deup(3, y, x2_1)
+        y = self._deup(2, y, x1_1)
+        return self.endconv(y.float())
+
+
+def TransBTS(n_channels=2, num_classes=2, img_dim=144, dtype=None, device=None):
+    """The factory of the JAX package's signature, and ``device``."""
+    return TransBTSModel(n_channels=n_channels, num_classes=num_classes, img_dim=img_dim,
+                         dtype=dtype, device=device)

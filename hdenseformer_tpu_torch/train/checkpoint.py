@@ -24,7 +24,9 @@ JAX module's thread drops it).
 "model_state"]}``, decoded with ``msgpack`` alone (no flax). The two
 formats are told apart by their first bytes (``checkpoint_format``): a
 ``torch.save`` file is a zip, flax's a msgpack map. ``load_jax_state``
-carries such a tree into a port model and its optimizer.
+carries such a tree into a port model and its optimizer, the BatchNorm
+running statistics of ``model_state["batch_stats"]`` included; the port's
+own checkpoints carry them as buffers of the model's state dict.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import msgpack
 import numpy as np
 import torch
 
-from hdenseformer_tpu_torch.weights import from_jax_params
+from hdenseformer_tpu_torch.weights import from_jax_batch_stats, from_jax_params
 
 
 def _to_host(obj: Any) -> Any:
@@ -206,19 +208,22 @@ def load_jax_state(ckpt: Mapping, model: torch.nn.Module,
     ``opt_state``, its moments into the optimizer. Returns whether the
     optimizer state was loaded.
 
-    The moments go through ``from_jax_params`` as the weights do (kernels
-    transposed, ``attns`` split per modality): optax's ``mu``, ``nu`` and
-    ``count`` become Adam's ``exp_avg``, ``exp_avg_sq`` and ``step``, and
-    SGD's ``trace`` its ``momentum_buffer``, set per parameter, so the
-    port's two parameter groups do not matter. The injected learning rate
-    is not read. A checkpoint with ``model_state`` (BatchNorm statistics,
-    which only the unported DAUNet family has) raises.
+    ``model_state["batch_stats"]`` (the running statistics of a BatchNorm
+    model) becomes the BatchNorm buffers; a model with BatchNorm needs it,
+    and a model without rejects it (the load is strict). The moments go
+    through ``from_jax_params`` as the weights do (kernels transposed,
+    ``attns`` split per modality): optax's ``mu``, ``nu`` and ``count``
+    become Adam's ``exp_avg``, ``exp_avg_sq`` and ``step``, and SGD's
+    ``trace`` its ``momentum_buffer``, set per parameter, so the port's two
+    parameter groups do not matter. The injected learning rate is not read.
     """
-    if ckpt.get("model_state"):
-        raise NotImplementedError(
-            "a JAX checkpoint with model_state (BatchNorm running statistics) is not "
-            "ported yet: ROADMAP.md queue 1 item 3")
-    model.load_state_dict(from_jax_params(ckpt["params"]), strict=True)
+    state = from_jax_params(ckpt["params"], model=model)
+    model_state = ckpt.get("model_state") or {}
+    if set(model_state) - {"batch_stats"}:
+        raise ValueError(f"the checkpoint's model_state holds {sorted(model_state)}; the "
+                         "port maps batch_stats only")
+    state.update(from_jax_batch_stats(model_state.get("batch_stats") or {}))
+    model.load_state_dict(state, strict=True)
     if optimizer is None or ckpt.get("opt_state") is None:
         return False
     moments = _optax_moments(ckpt["opt_state"], optimizer)
@@ -228,10 +233,10 @@ def load_jax_state(ckpt: Mapping, model: torch.nn.Module,
             moments):
         raise ValueError(f"the checkpoint's optimizer state is not {type(optimizer).__name__}'s")
     if sgd:
-        slots = {"momentum_buffer": from_jax_params(moments["trace"])}
+        slots = {"momentum_buffer": from_jax_params(moments["trace"], model=model)}
     else:
-        slots = {"exp_avg": from_jax_params(moments["mu"]),
-                 "exp_avg_sq": from_jax_params(moments["nu"])}
+        slots = {"exp_avg": from_jax_params(moments["mu"], model=model),
+                 "exp_avg_sq": from_jax_params(moments["nu"], model=model)}
     for key, values in slots.items():
         if sorted(values) != sorted(named):
             raise KeyError(f"the checkpoint's {key} does not name the model's parameters: "

@@ -8,7 +8,11 @@ dice and the confusion matrix on the fp32 logits of head 0. The metrics
 stay tensors on the device: the step never waits for the card. Precision
 is the model's: bf16 compute with fp32 parameters when it is built with
 ``dtype=torch.bfloat16``, fp32 heads and loss; rematerialisation is the
-model's ``remat``.
+model's ``remat``. A BatchNorm model (the DAUNet family, TransBTS) updates
+its running statistics in the step's one training-mode forward, once an
+optimizer step, as JAX's ``mutable`` apply does; the eval step and
+inference read them in eval mode, as JAX's ``train=False``, and the port's
+checkpoints carry them as buffers of the model's state dict.
 
 ``SemanticSeg`` keeps the JAX class's constructor knobs and ``trainer()``
 keyword arguments, its epoch loop (per-epoch LR schedule, validation,

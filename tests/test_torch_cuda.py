@@ -741,3 +741,73 @@ def test_augmented_train_step_has_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert state.step == 2 and bool(torch.isfinite(out["loss"]))
     assert int(out["cm"].sum()) == 32 ** 3
+
+
+def _unetr_pair(cuda):
+    """UNETR at 32^3 (12 layers, hidden 48, 4 heads, mlp 96, feature size 8),
+    through the kernels and through the plain versions, one set of weights."""
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.models.unetr import UNETR
+
+    small = dict(feature_size=8, hidden_size=48, mlp_dim=96, num_heads=4)
+    nets = [UNETR(2, 2, (32, 32, 32), use_kernels=use, device=cuda, **small)
+            for use in (True, False, False)]
+    init_weights(nets[0], torch.Generator().manual_seed(0))
+    for net in nets[1:]:
+        net.load_state_dict(nets[0].state_dict())
+    return nets
+
+
+def test_unetr_forward_goes_through_the_kernels(cuda):
+    """UNETR's 15 InstanceNorms (affine, ReLU off) through the kernel, fp32,
+    TF32 off: the kernel changes no value beyond summation order (the same
+    bar as Hecktor20Top1's kernel path, 1e-4)."""
+    net, plain, _ = _unetr_pair(cuda)
+    x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    instance_norm_relu.launches = instance_norm_relu_bwd.launches = 0
+    with torch.inference_mode():
+        got = net.eval()(x)
+        launches = instance_norm_relu.launches
+        ref = plain.eval()(x)
+    torch.cuda.synchronize()
+    assert launches == 15 and instance_norm_relu.launches == 15
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_unetr_train_step_goes_through_the_kernels(cuda):
+    """One train step of UNETR through the kernels against the plain
+    versions: 15 forward and 15 backward launches, the loss within 1e-5,
+    every gradient within 3x the plain path's own difference on the input
+    moved by 1e-6 (worst and median tensor, as
+    test_model_gradients_through_the_kernels holds HDenseFormer's)."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    nets = _unetr_pair(cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 32, 32, 32, 2, generator=g, device=cuda)
+    label = torch.zeros(2, 32, 32, 32, 2, device=cuda)
+    label[..., 0] = 1
+    label[:, 8:20, 10:22, 6:18] = torch.tensor([0.0, 1.0], device=cuda)
+    inputs = (x, x, x * (1 + 1e-6 * torch.randn(x.shape, generator=g, device=cuda)))
+    step = make_train_step(get_loss("FocalLoss", use_ds=False), 2)
+    losses, counts = [], []
+    for net, inp in zip(nets, inputs):
+        opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
+        instance_norm_relu.launches = instance_norm_relu_bwd.launches = 0
+        _, out = step(TrainState(net, opt), {"image": inp, "label": label}, None)
+        losses.append(float(out["loss"]))
+        counts.append((instance_norm_relu.launches, instance_norm_relu_bwd.launches))
+    assert counts == [(15, 15), (0, 0), (0, 0)]
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    grads = [dict(net.named_parameters()) for net in nets]
+    ratios = {"kernels": [], "moved": []}
+    for name, p in grads[0].items():
+        ref = grads[1][name].grad
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        for key, other in (("kernels", p.grad), ("moved", grads[2][name].grad)):
+            ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
+    got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
+    assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]

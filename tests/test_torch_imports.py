@@ -20,6 +20,9 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.models.layers",
     "hdenseformer_tpu_torch.models.hdenseformer",
     "hdenseformer_tpu_torch.models.hecktor20top1",
+    "hdenseformer_tpu_torch.models.daunet",
+    "hdenseformer_tpu_torch.models.transbts",
+    "hdenseformer_tpu_torch.models.unetr",
     "hdenseformer_tpu_torch.weights",
     "hdenseformer_tpu_torch.data",
     "hdenseformer_tpu_torch.data.transforms",
@@ -77,6 +80,14 @@ def test_get_net_defaults_to_the_gpu(monkeypatch):
     from hdenseformer_tpu_torch.models import get_net
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("HDenseFormer_32", "hecktor20top1"):
+    for name in ("HDenseFormer_32", "hecktor20top1", "da_unet", "TransBTS", "unetr"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_net(name, 2, 2, (32, 32, 32), transformer_depth=4)
+
+
+@pytest.mark.parametrize("name", ["HDenseFormer_2D_32", "unet", "unet++", "deeplabv3+"])
+def test_2d_names_raise_until_the_2d_zoo_is_ported(name):
+    from hdenseformer_tpu_torch.models import get_net
+
+    with pytest.raises(NotImplementedError, match="queue 1 item 3 \\(the 2-D zoo\\)"):
+        get_net(name, 2, 2, (64, 64), device="cpu")

@@ -17,7 +17,9 @@ port decodes the file with msgpack alone and loads weights and Adam state:
   step's 1e-5 where the gradient is clear does not carry over) and within
   2 lr everywhere;
 - chunked arrays, a bf16 leaf, the dispatch on the file's bytes, a
-  ``model_state`` that raises, epoch and step through ``load_pretrained``,
+  ``model_state`` that does not fit the model raises (a BatchNorm model's
+  loads: tests/test_torch_zoo_checkpoint.py), epoch and step through
+  ``load_pretrained``,
   and ``-m inf-sw`` on a fold directory JAX wrote, against JAX's
   ``inference_slidingwindow`` labels.
 """
@@ -307,7 +309,11 @@ def test_model_state_raises(tmp_path, hdf_run):
     seg = SemanticSeg(net_name="HDenseFormer_16", channels=2, num_classes=2, roi_number=None,
                       input_shape=(32, 32, 32), transformer_depth=2, use_fp16=False,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # HDenseFormer has no BatchNorm: the strict load refuses the statistics
+    with pytest.raises(RuntimeError, match="Unexpected key.*mean"):
+        seg.load_pretrained(seg.build_state(), path)
+    jckpt.save_checkpoint(path, params, model_state={"cache": {"x": np.zeros(1, np.float32)}})
+    with pytest.raises(ValueError, match="batch_stats only"):
         seg.load_pretrained(seg.build_state(), path)
 
 

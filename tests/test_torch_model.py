@@ -121,7 +121,7 @@ def test_get_net_builds_hdenseformer_and_names_the_rest():
     assert net.block_1_1_left.conv.weight.shape == (16, 2, 3, 3, 3)
     assert len(net.attns) == 2 and net.head.weight.shape == (3, 16, 1, 1, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_net("unetr", 1, 2, (96, 96, 96), device="cpu")
+        get_net("unet", 1, 2, (96, 96), device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         get_net("nope", 1, 2, (32, 32, 32), device="cpu")
 
