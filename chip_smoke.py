@@ -6,8 +6,10 @@
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
 HDenseFormer_32 and Hecktor20Top1, the train step of HDenseFormer_32, the
-3-D zoo's forwards and train steps, and the trainer of da_unet,
-HDenseFormer_32 and Hecktor20Top1 (in ``_smoke_work/``, removed at the end):
+3-D zoo's forwards and train steps, the 2-D path (HDenseFormer_2D_32 and
+the smp-style baselines, per-slice prediction), and the trainer of da_unet,
+HDenseFormer_2D_32, HDenseFormer_32 and Hecktor20Top1 (in ``_smoke_work/``,
+removed at the end):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build and what ptxas reported;
@@ -81,6 +83,22 @@ HDenseFormer_32 and Hecktor20Top1 (in ``_smoke_work/``, removed at the end):
    on phase 5's cases, inf-sw of one 200^3 volume (labels equal to
    predict_volume's under the checkpoint's weights and running statistics,
    which must have moved off (0, 1)), eval;
+4c. the 2-D path at the PI-CAI22 preset (3 channels, 384^2, 2 classes,
+   bf16, full width, batch 24): attention at one modality path's (24, 8,
+   576, 4) and each of HDenseFormer_2D_32's 18 InstanceNorm shapes, forward
+   and backward, against their plain versions with phase 1's and 1b's bars,
+   timed beside their bounds and summed over a forward and a step;
+   HDenseFormer_2D_32 (get_net's remat on) through the kernels and through
+   the plain versions on 24 slices (phase 2's bars), then 2 train steps
+   (launches checked: 72 attentions and 18 norms a forward, twice in a step
+   with the recompute, 18 backward norms); unet, unet++ and deeplabv3+ on
+   resnet18 and resnet50: an eval forward (the aux head's (24, 1) logits,
+   running statistics unmoved) and 2 train steps (finite losses, every
+   running statistic moved, no kernel of the port); then the 2-D journey:
+   one epoch of HDenseFormer_2D_32 through the trainer on 72 synthetic
+   slice cases (.npy), ``predict_case_2d`` of two 3 x 30 x 400^2 volumes
+   (seconds a volume, slices/s; labels equal to a direct argmax of the
+   model's logits on the same preprocessed slices) and their dice and HD95;
 5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
    where h5py imports and driven through the CLI (``cli.main``), else as
    .npy case directories driven through ``SemanticSeg`` with a .npy reader
@@ -249,6 +267,24 @@ ZOO_BATCH, ZOO_STEPS = 2, 2
 # 36^3 x 64, decoder5 at 18^3 x 128
 IN_UNETR = (((PATCH ** 3, 16), 6), (((PATCH // 2) ** 3, 32), 3),
             (((PATCH // 4) ** 3, 64), 3), (((PATCH // 8) ** 3, 128), 3))
+# phase 4c, the 2-D path at the PI-CAI22 preset: 3 channels, 384^2 slices, 2
+# classes, bf16, full width, 24 slices a batch (the preset's 2-D batch)
+SLICE, SLICE_CH, SLICE_BATCH = 384, 3, 24
+# (S, C), count and affine of HDenseFormer_2D_32's InstanceNorms in one
+# forward at 384^2: the BasicConvs (affine), two a level in the encoder and
+# two in the decoder (level 4: encoder only), and the UpConv pyramid's four
+# (no affine): deep_conv on the 24^2 token grid, up1-up3
+IN_2D = (((SLICE ** 2, 32), 4, True), (((SLICE // 2) ** 2, 64), 4, True),
+         (((SLICE // 4) ** 2, 128), 4, True), (((SLICE // 8) ** 2, 256), 2, True),
+         (((SLICE // 16) ** 2, 256), 1, False), (((SLICE // 8) ** 2, 128), 1, False),
+         (((SLICE // 4) ** 2, 64), 1, False), (((SLICE // 2) ** 2, 32), 1, False))
+ATTN_2D = (SLICE_BATCH, 8, (SLICE // 16) ** 2, 4)  # one modality path's attention
+SMP_2D = tuple((net, enc) for net in ("unet", "unet++", "deeplabv3+")
+               for enc in ("resnet18", "resnet50"))
+SMP_2D_STEPS = 2
+# the 2-D journey: 72 slice cases (fold 1 of 3: 48 train, 2 steps of 24), then
+# per-slice prediction of 2 volumes of 30 slices of 400^2 (chunks of 24 and 6)
+JOURNEY_SLICES, JOURNEY_VOLUME = 72, (30, 400, 400)
 
 
 def fail(msg: str) -> None:
@@ -1408,6 +1444,344 @@ def phase_zoo_journey(args, work: str, case_format: str, device: str = "cuda") -
     return counts
 
 
+def hdf2d_expect(args, train: bool = False) -> dict:
+    """Launches of one HDenseFormer_2D_32 forward at PI-CAI22 (3 modality
+    paths of depth attentions, 18 InstanceNorms), or of one train step with
+    get_net's remat: the forward and its recompute, a backward per norm."""
+    n = 2 if train else 1
+    return {"dense_attention": n * SLICE_CH * args.depth, "instance_norm_relu": n * 18,
+            "shift_pack": 0, "shift_pack_backward": 0,
+            "instance_norm_relu_backward": 18 if train else 0}
+
+
+def phase_2d_kernels(args, gen) -> dict:
+    """Phase 4c's kernel shapes: attention at one modality path's (24, 8, 576,
+    4) and each of HDenseFormer_2D_32's InstanceNorm shapes at batch 24, bf16,
+    forward and backward, against their plain versions with phase 1's and
+    1b's bars (reruns bitwise), timed beside their bounds (the largest shape
+    also beside its PyTorch call), and summed over a serving forward and a
+    train step with remat (each forward norm twice). Returns per kernel the
+    numbers for the kernels line."""
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(ATTN_2D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    got = dense_attention(q, k, v)
+    checks = {"plain": (attention_ref(q, k, v), 2.0 ** -8, 2e-2),
+              "fp32_math": (attention_ref(q.float(), k.float(), v.float()), 2.0 ** -8, 1e-5)}
+    torch.cuda.synchronize()
+    rec = dict(shape=list(ATTN_2D), dtype="bfloat16")
+    for ref_name, (ref, rtol, atol) in checks.items():
+        abs_e, rel_e, over = max_err(got, ref, rtol, atol)
+        rec[f"vs_{ref_name}"] = dict(max_abs=abs_e, max_rel=rel_e, rtol=rtol, atol=atol)
+        if not over <= 1.0:
+            fail(f"dense_attention {ATTN_2D} vs {ref_name}: {abs_e} over tolerance")
+    if not torch.equal(got, dense_attention(q, k, v)):
+        fail(f"dense_attention {ATTN_2D}: reruns differ")
+    b, h, n, d = ATTN_2D
+    rec["bound_ms"], rec["bound_by"] = bound(4 * q.numel() * q.element_size(),
+                                             4 * b * h * n * n * d, torch.bfloat16)
+    rec["ms"] = device_ms(lambda: dense_attention(q, k, v), iters=50)
+    rec["plain_ms"] = device_ms(lambda: attention_ref(q, k, v), iters=20)
+    rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+    forward = hdf2d_expect(args)
+    rec["launches_per_forward"] = forward["dense_attention"]
+    rec["per_forward_ms"] = rec["ms"] * forward["dense_attention"]
+    emit("kernel_check_2d", kernel="dense_attention", **rec)
+    timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out = {"dense_attention": dict(max_abs_err=rec["vs_plain"]["max_abs"], **{
+        key: rec[key] for key in ("shape", "per_forward_ms") + timed})}
+    del q, k, v, got, checks
+
+    fwd_sum = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bwd_sum = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for i, ((s, c), count, affine) in enumerate(IN_2D):
+        shape = (SLICE_BATCH, s, c)
+        x, dy, scale, bias = norm_bwd_inputs(gen, shape, torch.bfloat16, affine)
+        got = instance_norm_relu(x, scale, bias)
+        again = instance_norm_relu(x, scale, bias)
+        plain = instance_norm_relu_ref(x, scale, bias)
+        torch.cuda.synchronize()
+        abs_e, _, over = max_err(got, plain, BF16_STEP, 1e-6)
+        if not over <= 1.0 or not torch.equal(got, again):
+            fail(f"instance_norm_relu {shape}: {abs_e} over tolerance, or reruns differ")
+        vs_plain = norm_bwd_compare(x, dy, scale, bias, True, f"{shape} bfloat16")
+        fwd = instance_norm_times(x, scale, bias, library=i == 0)
+        bwd = norm_backward_times(x, dy, scale, bias, True, library=i == 0)
+        emit("instance_norm_2d_shape", shape=list(shape), dtype="bfloat16", affine=affine,
+             launches_per_forward=count, fwd_max_abs_err=abs_e, bwd_vs_plain=vs_plain,
+             bitwise_rerun=True, fwd={k: fwd[k] for k in fwd if k != "passes_ms"},
+             bwd={k: bwd[k] for k in bwd if k != "kernel_ms"})
+        for key in fwd_sum:
+            fwd_sum[key] += fwd[key] * count
+            bwd_sum[key] += bwd[key] * count
+        if i == 0:
+            out["instance_norm_relu"] = dict(shape=list(shape), max_abs_err=abs_e, **{
+                key: fwd[key] for key in timed})
+            out["instance_norm_relu_backward"] = dict(
+                shape=list(shape), max_abs_err=vs_plain["dx_max_abs"],
+                **{key: bwd[key] for key in timed})
+        del x, dy, got, again, plain
+        torch.cuda.empty_cache()
+    launches = sum(count for _, count, _ in IN_2D)
+    if launches != forward["instance_norm_relu"]:
+        fail(f"IN_2D holds {launches} norms, the model's forward {forward['instance_norm_relu']}")
+    emit("instance_norm_per_2d_step", launches_forward=launches, launches_backward=launches,
+         per_forward=fwd_sum, per_train_step_forward={k: 2 * v for k, v in fwd_sum.items()},
+         per_train_step_backward=bwd_sum)
+    out["instance_norm_relu"].update({f"per_forward_{k}": v for k, v in fwd_sum.items()})
+    out["instance_norm_relu_backward"].update({f"per_step_{k}": v for k, v in bwd_sum.items()})
+    return out
+
+
+def mr_slices(seed: int, shape) -> tuple:
+    """Raw synthetic MR slices (SLICE_CH, *shape) with (h, w) the last two
+    dims: gamma noise around a bright centred disc of radius 0.15 h, and the
+    disc's (uint8) label of ``shape``."""
+    h, w = shape[-2:]
+    grid = np.indices((h, w), dtype=np.float32) - np.array([h, w], np.float32)[:, None, None] / 2
+    label = np.broadcast_to(np.sqrt((grid ** 2).sum(0)) < 0.15 * h, shape).astype(np.uint8)
+    image = np.random.default_rng(seed).gamma(2.0, 40.0, (SLICE_CH,) + tuple(shape))
+    return (image + 200.0 * label).astype(np.float32), label
+
+
+def synthetic_slices(seed: int, n: int) -> dict:
+    """A batch of ``n`` synthetic MR slices of SLICE^2 on the card, scaled to
+    [0, 1] per slice as MRNormalize scales them, and their one-hot labels."""
+    image, label = mr_slices(seed, (n, SLICE, SLICE))
+    image = np.moveaxis(image, 0, -1)
+    image /= image.max(axis=(1, 2, 3), keepdims=True)
+    return {"image": torch.from_numpy(np.ascontiguousarray(image)).cuda(),
+            "label": torch.from_numpy(np.eye(N_CLS, dtype=np.float32)[label]).cuda()}
+
+
+def phase_2d_hdenseformer(args, gen) -> dict:
+    """HDenseFormer_2D_32 at PI-CAI22 (get_net's remat on): an eval forward
+    of 24 slices through the kernels and through the plain versions (phase
+    2's bars), then 2 train steps (FocalLoss deep supervision, Adam with
+    coupled L2 1e-4): ms a step, peak memory, launches against the model's
+    count. Returns the launches by path."""
+    nets = [get_net("HDenseFormer_2D_32", SLICE_CH, N_CLS, (SLICE, SLICE),
+                    transformer_depth=args.depth, dtype=torch.bfloat16, use_kernels=use,
+                    device="cuda") for use in (True, False)]
+    init_weights(nets[0], torch.Generator().manual_seed(args.seed))
+    nets[1].load_state_dict(nets[0].state_dict())
+    batch = synthetic_slices(args.seed, SLICE_BATCH)
+    expect = hdf2d_expect(args)
+    moved = batch["image"] * (1 + 2.0 ** -8 * torch.randn(batch["image"].shape, generator=gen,
+                                                         device="cuda"))
+    with torch.inference_mode():
+        reset_counts()
+        outs, first_ms = timed_forward(nets[0], batch["image"])
+        counts = read_counts()
+        outs, warm_ms = timed_forward(nets[0], batch["image"])
+        reset_counts()
+        ref, plain_ms = timed_forward(nets[1], batch["image"])
+        plain_counts = read_counts()
+        ref_moved = nets[1](moved)
+    shapes = [list(o.shape) for o in outs]
+    want = [[SLICE_BATCH, SLICE // 2 ** i, SLICE // 2 ** i, N_CLS] for i in range(4)]
+    if shapes != want or any(o.dtype != torch.float32 for o in outs) or not all(
+            bool(torch.isfinite(o).all()) for o in outs + ref):
+        fail(f"HDenseFormer_2D forward outputs {shapes}, expected finite fp32 {want}")
+    if counts != expect or any(plain_counts.values()):
+        fail(f"HDenseFormer_2D forward launched {counts} (plain {plain_counts}), expected {expect}")
+    cmp, own = compare_logits(outs[0], ref[0]), compare_logits(ref_moved[0], ref[0])
+    emit("hdenseformer_2d_forward", shape=list(batch["image"].shape), dtype="bfloat16",
+         depth=args.depth, launches=counts, first_ms=first_ms, warm_ms=warm_ms,
+         plain_ms=plain_ms, slices_per_s=SLICE_BATCH / (warm_ms / 1e3), kernels_vs_plain=cmp,
+         plain_vs_plain_on_moved_input=own)
+    # Bars: where the plain top-two margin exceeds 0.1, phase 2's 99.9 %; over
+    # all pixels, at most 3x the disagreement of the plain path with itself on
+    # the input moved by one bf16 step (phase 4's method): random weights
+    # leave a fifth of the 384^2 pixels within 0.1 of a tie, where bf16
+    # rounding alone flips the argmax
+    if cmp["argmax_agreement_margin_gt_0p1"] < 0.999 or (
+            1 - cmp["argmax_agreement"] > 3 * (1 - own["argmax_agreement"])):
+        fail(f"HDenseFormer_2D kernels vs plain path: {cmp}; plain vs itself on the moved "
+             f"input: {own}")
+    net = nets[0]
+    del nets, outs, ref, ref_moved, moved
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
+                                          params=net.parameters()))
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    train_expect, steps = hdf2d_expect(args, train=True), []
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, out = step(state, batch, g)
+        loss = float(out["loss"])
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss, launches=read_counts()))
+    emit("hdenseformer_2d_train", batch=SLICE_BATCH, remat=net.remat, step_ms=[
+        st["ms"] for st in steps], losses=[st["loss"] for st in steps],
+        launches_per_step=steps[-1]["launches"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if any(st["launches"] != train_expect for st in steps) or not all(
+            np.isfinite(st["loss"]) for st in steps):
+        fail(f"HDenseFormer_2D steps: {steps}, expected {train_expect} launches a step")
+    del state, step, net, batch
+    torch.cuda.empty_cache()
+    return {"2d-serve": counts,
+            "2d-train": {k: sum(st["launches"][k] for st in steps) for k in KERNELS}}
+
+
+def phase_2d_zoo(args) -> None:
+    """Each smp-style baseline (unet, unet++, deeplabv3+ on resnet18 and
+    resnet50) at PI-CAI22, bf16, batch 24: an eval forward (masks and the
+    aux head's (24, 1) logits, running statistics unmoved) and 2 train
+    steps (FocalLoss, Adam with coupled L2 1e-4; losses finite, every
+    running statistic moved). They launch no kernel of the port."""
+    t0 = time.perf_counter()
+    batch = synthetic_slices(args.seed, SLICE_BATCH)
+    for name, encoder in SMP_2D:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = get_net(name, SLICE_CH, N_CLS, (SLICE, SLICE), encoder_name=encoder,
+                      dtype=torch.bfloat16, device="cuda")
+        init_weights(net, torch.Generator().manual_seed(args.seed))
+        fresh = buffers_of(net)
+        with torch.inference_mode():
+            reset_counts()
+            (masks, labels), first_ms = timed_forward(net, batch["image"])
+            fwd_counts = read_counts()
+            _, warm_ms = timed_forward(net, batch["image"])
+        if (tuple(masks.shape) != (SLICE_BATCH, SLICE, SLICE, N_CLS)
+                or tuple(labels.shape) != (SLICE_BATCH, N_CLS - 1)
+                or masks.dtype != torch.float32
+                or not bool(torch.isfinite(masks).all() and torch.isfinite(labels).all())):
+            fail(f"{name}/{encoder} eval outputs {tuple(masks.shape)} {tuple(labels.shape)}")
+        if any(not torch.equal(b, fresh[n]) for n, b in net.named_buffers()):
+            fail(f"{name}/{encoder}'s eval forward moved its running statistics")
+        del masks, labels
+        state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
+                                              params=net.parameters()))
+        step = make_train_step(get_loss("FocalLoss", use_ds=False), N_CLS)
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        steps = []
+        for _ in range(SMP_2D_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, out = step(state, batch, g)
+            loss = float(out["loss"])
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                              launches=read_counts()))
+        moved = [n for n, b in net.named_buffers() if not torch.equal(b, fresh[n])]
+        emit("zoo_2d", net=name, encoder=encoder, params=sum(p.numel() for p in net.parameters()),
+             batch_norm_buffers=len(fresh), eval_first_ms=first_ms, eval_warm_ms=warm_ms,
+             step_ms=[st["ms"] for st in steps], losses=[st["loss"] for st in steps],
+             statistics_moved=len(moved), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_forward=fwd_counts, launches_step=steps[-1]["launches"])
+        if any(fwd_counts.values()) or any(any(st["launches"].values()) for st in steps):
+            fail(f"{name}/{encoder} launched a kernel of the port")
+        if not all(np.isfinite(st["loss"]) for st in steps) or len(moved) != len(fresh):
+            fail(f"{name}/{encoder}: losses {[st['loss'] for st in steps]}, "
+                 f"{len(fresh) - len(moved)} running statistics unmoved")
+        del net, state, step
+    emit("zoo_2d_phase", seconds=time.perf_counter() - t0)
+    del batch
+    torch.cuda.empty_cache()
+
+
+def write_slice_cases(root: str, n: int, seed: int) -> list:
+    """``n`` synthetic 2-D slice cases (raw (3, SLICE, SLICE) image, (SLICE,
+    SLICE) label) as ``.npy`` case directories; their paths."""
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        image, label = mr_slices(seed + i, (SLICE, SLICE))
+        path = os.path.join(root, f"s{i:03d}")
+        os.makedirs(path)
+        np.save(os.path.join(path, "ct.npy"), image)
+        np.save(os.path.join(path, "seg.npy"), label)
+        paths.append(path)
+    return paths
+
+
+def phase_2d_journey(args, work: str) -> dict:
+    """The 2-D journey at PI-CAI22: HDenseFormer_2D_32 trains one epoch of fold
+    1 of 3 on JOURNEY_SLICES synthetic slice cases (``.npy`` directories, the
+    trainer with the preset's host transforms 1, 6, 7, 10); then
+    ``predict_case_2d`` of 2 synthetic volumes of 30 x 400^2 (chunks of 24
+    and 6, each slice resized to 384^2 and the labels back to 400^2): seconds
+    a volume, slices/s, and labels equal to a direct argmax of the model's
+    logits on the same preprocessed slices, resized back on the host; then
+    dice and HD95 per volume. Returns the launches of the run."""
+    from hdenseformer_tpu_torch.infer.slices import predict_case_2d, preprocess_slices
+
+    t0 = time.perf_counter()
+    paths = write_slice_cases(os.path.join(work, "slices"), JOURNEY_SLICES, args.seed)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cfg = get_config("PI-CAI22", net_name="HDenseFormer_2D_32", data_path="slices",
+                         n_epoch=1, fold_num=3, current_fold=1, seed=args.seed,
+                         transformer_depth=args.depth, version="smoke-2d")
+        seg = NpySemanticSeg(**cfg.init_trainer_kwargs(), device="cuda")
+        train, val = get_cross_validation_by_sample(paths, cfg.fold_num, cfg.current_fold,
+                                                    shuffle_seed=cfg.seed)
+        reset_counts()
+        t = time.perf_counter()
+        seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+        train_s = time.perf_counter() - t
+        train_counts = read_counts()
+        epochs = epoch_records(cfg)
+    finally:
+        os.chdir(cwd)
+    n_train = epochs[0]["train_steps"]
+    n_val = -(-len(val) // cfg.batch_size)
+    per_step = per_train_step(train_counts, n_train, n_val, hdf2d_expect(args))
+    model = seg.state.model.eval()
+    reset_counts()
+    volumes, rows = [], []
+    for i in range(2):
+        image, gt = mr_slices(args.seed + 200 + i, JOURNEY_VOLUME)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred = predict_case_2d(model, image, (SLICE, SLICE), N_CLS, SLICE_CH,
+                               slice_batch=SLICE_BATCH)
+        torch.cuda.synchronize()
+        volumes.append(time.perf_counter() - t)
+        rows.append(dict(dice=multi_dice(gt, pred, 1)[1], hd95=multi_hd(gt, pred, 1)[1],
+                         image=image, pred=pred))
+    predict_counts = read_counts()
+    # a direct argmax of the model's logits on the same slices, chunk by chunk
+    direct_equal = []
+    d, h, w = JOURNEY_VOLUME
+    idx_h = np.minimum(np.floor(np.arange(h) * SLICE / h).astype(int), SLICE - 1)
+    idx_w = np.minimum(np.floor(np.arange(w) * SLICE / w).astype(int), SLICE - 1)
+    with torch.inference_mode():
+        for row in rows:
+            stack = preprocess_slices(row.pop("image"), (SLICE, SLICE), N_CLS, SLICE_CH)
+            labels = np.concatenate([
+                model(torch.from_numpy(stack[s:s + SLICE_BATCH]).cuda())[0].float()
+                .argmax(-1).cpu().numpy() for s in range(0, d, SLICE_BATCH)])
+            direct = labels[:, idx_h[:, None], idx_w[None, :]].astype(np.uint8)
+            direct_equal.append(bool(np.array_equal(direct, row.pop("pred"))))
+    chunks = -(-d // SLICE_BATCH)
+    want = {k: 2 * chunks * v for k, v in hdf2d_expect(args).items()}
+    rec = dict(net="HDenseFormer_2D_32", case_format="npy", slices=JOURNEY_SLICES,
+               train_cases=len(train), val_cases=len(val), epochs=epochs, train_s=train_s,
+               launches_per_train_step=per_step, volume=[SLICE_CH, *JOURNEY_VOLUME],
+               seconds_per_volume=volumes, slices_per_s=[d / s for s in volumes],
+               launches_predict=predict_counts, labels_equal_direct_argmax=direct_equal,
+               eval_rows=rows, seconds=time.perf_counter() - t0)
+    emit("journey_2d", **rec)
+    if per_step != hdf2d_expect(args, train=True):
+        fail(f"the 2-D trainer launched {per_step} a step, expected {hdf2d_expect(args, True)}")
+    if predict_counts != want or not all(direct_equal):
+        fail(f"predict_case_2d launched {predict_counts} (expected {want}); labels equal to "
+             f"the direct argmax: {direct_equal}")
+    if not np.isfinite(epochs[0]["train_loss"]) or len(rows) != 2:
+        fail(f"the 2-D journey: epochs {epochs}, eval rows {rows}")
+    return {k: train_counts[k] + predict_counts[k] for k in KERNELS}
+
+
 def npy_reader(path: str, key: str) -> np.ndarray:
     """One volume of a case directory holding ``<key>.npy`` per key: this
     phase's case format on a machine without h5py."""
@@ -1793,6 +2167,18 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     emit("zoo_total", seconds=time.perf_counter() - t_zoo)
+    t_2d = time.perf_counter()
+    at_2d = phase_2d_kernels(args, gen)
+    for name, rec in at_2d.items():
+        main_shapes[name]["at_2d_shape"] = rec
+    by_path.update(phase_2d_hdenseformer(args, gen))
+    phase_2d_zoo(args)
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        by_path["2d-journey"] = phase_2d_journey(args, os.path.join(WORK, "2d"))
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    emit("phase_2d_total", seconds=time.perf_counter() - t_2d)
     try:
         by_path.update(phase_trainer(args, WORK, case_format))
     finally:

@@ -1,4 +1,4 @@
-"""Command line of the port: train / train-cross / inf-sw / eval / convert.
+"""Command line of the port: train / train-cross / inf-sw / predict-2d / eval / convert.
 
 Counterpart of ``hdenseformer_tpu/cli.py``, with its flags and one more,
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
@@ -9,13 +9,15 @@ Usage:
     python -m hdenseformer_tpu_torch.cli -m train-cross --dataset Hecktor21 \
         --net HDenseFormer_32 --data-path ./dataset/hecktor
 
-``--net`` takes every 3-D name of ``models.get_net``: HDenseFormer_32/_16,
+``--net`` takes every name of ``models.get_net``: HDenseFormer_32/_16,
 hecktor20top1, unet_3d, da_unet, se_unet, da_se_unet, res_da_se_unet,
-TransBTS and unetr.
+TransBTS and unetr in 3-D; HDenseFormer_2D_32/_16 and unet, unet++ and
+deeplabv3+ (with ``--encoder resnet18|resnet34|resnet50``) in 2-D. A 2-D net
+trains on 2-D slice cases (the PI-CAI22 preset) and ``-m predict-2d`` runs
+it slice by slice over the volumes of ``--test-path`` (``infer/slices.py``).
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
-``-m predict-2d`` (the 2-D zoo, queue 1 item 3) and ``--profile`` (queue 1
-item 6).
+Not ported: ``--profile`` and inference over several devices, each raising
+``NotImplementedError`` with its ROADMAP.md item (queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -197,6 +199,34 @@ def run_inference(cfg, args) -> list:
     return written
 
 
+def run_predict_2d(cfg, args) -> list:
+    """Per-slice 2-D prediction of every case of the test path with the
+    newest checkpoint of ``--fold``; returns the paths written."""
+    from hdenseformer_tpu_torch.infer.slices import eval_dir_2d
+    from hdenseformer_tpu_torch.train.checkpoint import get_weight_path
+    from hdenseformer_tpu_torch.train.loop import SemanticSeg
+
+    ckpt_dir = os.path.join(cfg.output_dir, f"fold{cfg.current_fold}")
+    weight_path = get_weight_path(ckpt_dir)
+    if weight_path is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    kwargs = cfg.init_trainer_kwargs()
+    kwargs["weight_path"] = weight_path
+    kwargs["pre_trained"] = True
+    seg = SemanticSeg(**kwargs, device=args.device)
+    state = seg.load_pretrained(seg.build_state(), weight_path, ckpt_point=False)
+    save_path = args.save_path or os.path.join(
+        cfg.save_root, "2d", cfg.version, f"fold{cfg.current_fold}"
+    )
+    written = eval_dir_2d(
+        state.model, args.test_path or cfg.test_path, save_path,
+        input_shape=cfg.input_shape, num_classes=cfg.num_classes,
+        channels=cfg.channels, img_key=cfg.keys[0],
+    )
+    print(f"wrote {len(written)} prediction volumes to {save_path}")
+    return written
+
+
 def run_eval(cfg, args) -> list:
     """Offline eval: predicted .npy against the ground truth -> per-case metrics
     in ``<save-path>/eval_results.json``; returns the rows."""
@@ -253,13 +283,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mode == "convert":
         return run_convert(args)
-    if args.mode == "predict-2d":
-        raise NotImplementedError(
-            "-m predict-2d (the 2-D zoo) is not ported yet: ROADMAP.md queue 1 item 3")
     if args.profile is not None:
         raise NotImplementedError("--profile is not ported yet: ROADMAP.md queue 1 item 6")
     cfg = make_config(args)
-    if args.mode in ("train", "train-cross", "inf-sw"):
+    if args.mode in ("train", "train-cross", "inf-sw", "predict-2d"):
         import torch
 
         if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -271,6 +298,8 @@ def main(argv=None):
         return run_train(cfg, [cfg.current_fold], args.device)
     if args.mode == "inf-sw":
         return run_inference(cfg, args)
+    if args.mode == "predict-2d":
+        return run_predict_2d(cfg, args)
     return run_eval(cfg, args)
 
 

@@ -1,10 +1,10 @@
 """Model registry of the port.
 
 ``get_net`` keeps the signature of ``hdenseformer_tpu.models.get_net`` and
-adds ``device``. The port builds the 3-D HDenseFormer, Hecktor20Top1 and the
-3-D zoo (the DAUNet family, TransBTS, UNETR) with JAX's constructor knobs;
-the 2-D names raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+adds ``device``. The port builds every name of JAX's with its constructor
+knobs: HDenseFormer_32/_16 and HDenseFormer_2D_32/_16, Hecktor20Top1, the
+3-D zoo (the DAUNet family, TransBTS, UNETR) and the smp-style 2-D baselines
+(unet, unet++, deeplabv3+ on a ResNet encoder).
 """
 from __future__ import annotations
 
@@ -12,10 +12,10 @@ from typing import Optional, Sequence
 
 import torch
 
-# every other name of hdenseformer_tpu.models.get_net, and where ROADMAP.md ports it
-_NOT_YET = dict.fromkeys((
-    "HDenseFormer_2D_32", "HDenseFormer_2D_16", "unet", "unet++", "deeplabv3+",
-), "queue 1 item 3 (the 2-D zoo)")
+from hdenseformer_tpu_torch.models.unet2d import NETS_2D, get_2d_net
+
+HDENSEFORMER = ("HDenseFormer_32", "HDenseFormer_16", "HDenseFormer_2D_32", "HDenseFormer_2D_16")
+SMP_2D = tuple(NETS_2D)
 DAUNET_FAMILY = ("unet_3d", "da_unet", "se_unet", "da_se_unet", "res_da_se_unet")
 
 
@@ -57,13 +57,19 @@ def get_net(
     ported yet (ROADMAP.md queue 1 item 4). ``remat`` is ignored for the 3-D
     zoo, as JAX's get_net passes it to none of them; a BatchNorm model must
     not be checkpointed anyway, since the recompute would update its running
-    statistics a second time. ``encoder_name`` belongs to the 2-D zoo, not
-    ported yet.
+    statistics a second time.
+
+    The 2-D baselines ``unet``, ``unet++`` and ``deeplabv3+`` take
+    ``encoder_name`` (resnet18, resnet34 or resnet50; None raises
+    ``ValueError``, as in JAX) and return ``[masks, class_logits]``: an aux
+    head of ``num_classes - 1`` classes. ``remat`` and ``s2d`` do not reach
+    them, as in JAX. HDenseFormer_2D_32/_16 take a 2-D ``input_shape`` and
+    run the fine grid: JAX's 2-D default packs its narrow levels, equal
+    math, held against the port by the tests.
 
     The parameters are uninitialised: fill them with
     ``models.layers.init_weights`` or ``weights.load_jax_params``.
     """
-    del encoder_name
     input_shape = tuple(input_shape)
     if device is None:
         if not torch.cuda.is_available():
@@ -72,10 +78,6 @@ def get_net(
                 "passes device='cpu'"
             )
         device = "cuda"
-    if net_name in _NOT_YET:
-        raise NotImplementedError(
-            f"{net_name} is not ported yet: ROADMAP.md {_NOT_YET[net_name]}"
-        )
     use_kernels = True if use_kernels is None else use_kernels
     device = torch.device(device)
     kw = dict(use_kernels=use_kernels, dtype=dtype, device=device)
@@ -111,10 +113,14 @@ def get_net(
 
         return hecktertop1(channels, num_classes, input_shape, s2d=s2d, remat=bool(remat),
                            **kw).eval()
-    if net_name not in ("HDenseFormer_32", "HDenseFormer_16"):
+    if net_name in SMP_2D:
+        if encoder_name is None:
+            raise ValueError("encoder name must not be 'None'!")
+        return get_2d_net(net_name, encoder_name, channels, num_classes,
+                          aux_classes=num_classes - 1, dtype=dtype, device=device).eval()
+    if net_name not in HDENSEFORMER:
         raise ValueError(f"unknown net_name {net_name!r}")
-    from hdenseformer_tpu_torch.models.hdenseformer import HDenseFormer_16, HDenseFormer_32
+    from hdenseformer_tpu_torch.models import hdenseformer
 
-    build = HDenseFormer_32 if net_name == "HDenseFormer_32" else HDenseFormer_16
-    return build(channels, num_classes, input_shape, transformer_depth, remat=remat,
-                 **kw).eval()
+    return getattr(hdenseformer, net_name)(channels, num_classes, input_shape,
+                                           transformer_depth, remat=remat, **kw).eval()

@@ -1,19 +1,24 @@
-"""H-DenseFormer 3-D, fine grid.
+"""H-DenseFormer, 2-D and 3-D, fine grid.
 
 Counterpart of ``hdenseformer_tpu/models/hdenseformer.py``: each input
-modality runs through its own densely connected transformer over 16^3-patch
+modality runs through its own densely connected transformer over 16^d-patch
 tokens, whose upsampled maps are added into a 4-level UNet encoder, with a
 ConvTranspose decoder and four deep-supervision heads. Input
-``(N, D, H, W, C_mod)``, output the channels-last logits list
-``[full, /2, /4, /8]``, fp32.
+``(N, *spatial, C_mod)`` with two or three spatial dims (the rank of
+``image_size``), output the channels-last logits list ``[full, /2, /4,
+/8]``, fp32. ``HDenseFormer_2D_32/_16`` are the same module at a 2-tuple
+``image_size``, as in JAX.
 
 Differences from the JAX module, none of which changes the function:
 
 - The modality paths are a ``ModuleList`` of ``DenseTransformerBlock``s,
   run one after the other, where JAX runs one ``nn.vmap`` over stacked
   parameters; ``weights.from_jax_params`` splits the stacked axis.
-- Every UNet level runs on the fine grid. JAX packs level 0 by default
-  (space-to-depth, ``s2d=None``), and its tests show packed equals fine.
+- Every UNet level runs on the fine grid. JAX packs by default
+  (space-to-depth, ``s2d=None``): in 3-D level 0 over (H, W), in 2-D every
+  level of at most 32 channels at full rank (levels 0-1 of ``_16``, level
+  0 of ``_32``). Its tests hold packed equal to fine in 3-D; the port's
+  tests hold the fine grid against JAX's packed 2-D default too.
 - Dropout (flax semantics, ``layers.dropout``) draws from an explicit
   ``torch.Generator`` passed to ``forward``; in training with p > 0 a
   missing generator raises. JAX splits its dropout key per modality path;
@@ -46,7 +51,7 @@ from hdenseformer_tpu_torch.models.layers import (
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
 from hdenseformer_tpu_torch.ops.resize import max_pool, resize_nearest
 
-PATCH = 16  # tokens are PATCH^3 patches
+PATCH = 16  # tokens are PATCH^d patches
 GROWTH = 32  # width of the transformer's features
 HEADS = 8  # attention heads, of width GROWTH / HEADS = 4
 INNER_DEPTH = 4  # attention layers per dense block; transformer_depth counts them
@@ -174,7 +179,7 @@ class DensePreConvAttentionBlock(nn.Module):
 
 
 class DenseTransformerBlock(nn.Module):
-    """PATCH^3 patch embed + ``depth`` dense blocks + re-gridding of the tokens."""
+    """PATCH^d patch embed + ``depth`` dense blocks + re-gridding of the tokens."""
 
     def __init__(self, out_channels: int, image_size: Sequence[int], depth: int,
                  use_kernels: bool = True, dropout: float = 0.5,
@@ -185,7 +190,8 @@ class DenseTransformerBlock(nn.Module):
         num_patches = 1
         for g in self.grid:
             num_patches *= g
-        self.patch_embed = Conv(1, out_channels, PATCH, PATCH, 0, dtype=dtype, device=device)
+        self.patch_embed = Conv(1, out_channels, PATCH, PATCH, 0, dtype=dtype,
+                                ndim=len(self.grid), device=device)
         self.pos_embed = nn.Parameter(torch.empty(num_patches, out_channels, device=device))
         self.depth = depth
         for i in range(depth):
@@ -210,10 +216,11 @@ class DenseTransformerBlock(nn.Module):
 
 
 class HDenseFormer(nn.Module):
-    """Hybrid densely connected transformer + UNet, 3-D.
+    """Hybrid densely connected transformer + UNet, 2-D or 3-D.
 
-    Input ``(N, D, H, W, in_channels)``; output ``[(N, D, H, W, n_cls), /2,
-    /4, /8]`` logits in fp32. ``dropout`` is the transformer paths' rate
+    Input ``(N, *spatial, in_channels)`` with ``len(image_size)`` spatial
+    dims; output ``[(N, *spatial, n_cls), /2, /4, /8]`` logits in fp32.
+    ``dropout`` is the transformer paths' rate
     (JAX's default, 0.5); in training, ``forward`` draws it from its
     ``generator``. The model is built in eval mode, as flax applies it with
     ``train=False`` unless asked: ``.train()`` turns dropout on. ``remat``
@@ -229,17 +236,19 @@ class HDenseFormer(nn.Module):
         super().__init__()
         nf = n_filters
         image_size = tuple(image_size)
-        if len(image_size) != 3:
-            raise ValueError(f"the port's HDenseFormer is 3-D, got image_size {image_size}")
+        if len(image_size) not in (2, 3):
+            raise ValueError(f"HDenseFormer is 2-D or 3-D, got image_size {image_size}")
+        nd = len(image_size)
         self.remat = remat if isinstance(remat, str) else bool(remat)
         if self.remat not in REMAT_BLOCKS:
             raise ValueError(f"remat must be one of {list(REMAT_BLOCKS)}, got {remat!r}")
         self.remat_blocks = REMAT_BLOCKS[self.remat]
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, ndim=nd, device=device)
         blk = dict(use_kernels=use_kernels, **kw)
         self.attns = nn.ModuleList(
             DenseTransformerBlock(4 * nf, image_size, transformer_depth // INNER_DEPTH,
-                                  use_kernels=use_kernels, dropout=dropout, **kw)
+                                  use_kernels=use_kernels, dropout=dropout, dtype=dtype,
+                                  device=device)
             for _ in range(in_channels)
         )
         self.deep_conv = UpConv(in_channels * 4 * nf, 8 * nf, **blk)
@@ -305,3 +314,18 @@ def HDenseFormer_32(in_channels, n_cls, image_size, transformer_depth, **kw):
 
 def HDenseFormer_16(in_channels, n_cls, image_size, transformer_depth, **kw):
     return HDenseFormer(in_channels, n_cls, 16, tuple(image_size), transformer_depth, **kw)
+
+
+def _plane(image_size) -> tuple:
+    """The ``image_size`` of a 2-D variant, which must have two dims."""
+    if len(tuple(image_size)) != 2:
+        raise ValueError(f"a 2-D HDenseFormer takes a 2-D image_size, got {image_size}")
+    return tuple(image_size)
+
+
+def HDenseFormer_2D_32(in_channels, n_cls, image_size, transformer_depth, **kw):
+    return HDenseFormer_32(in_channels, n_cls, _plane(image_size), transformer_depth, **kw)
+
+
+def HDenseFormer_2D_16(in_channels, n_cls, image_size, transformer_depth, **kw):
+    return HDenseFormer_16(in_channels, n_cls, _plane(image_size), transformer_depth, **kw)

@@ -5,11 +5,13 @@ takes and returns channels-last ``(N, *spatial, C)`` tensors, keeps fp32
 parameters, and computes in ``dtype`` (None: the input's dtype), with
 normalization statistics in fp32.
 
-Inside, ``x.movedim(-1, 1)`` is a free NCDHW view whose memory is
-``torch.channels_last_3d``. Conv weights are cast into that memory format
-too, so cuDNN's convolutions return it whatever their input, and the conv
-output viewed back as ``(N, *spatial, C)`` is contiguous: the layout the
-InstanceNorm kernel takes.
+Inside, ``x.movedim(-1, 1)`` is a free NCHW / NCDHW view whose memory is
+``torch.channels_last`` / ``torch.channels_last_3d``. Conv weights are cast
+into that memory format too, so cuDNN's convolutions return it whatever
+their input, and the conv output viewed back as ``(N, *spatial, C)`` is
+contiguous: the layout the InstanceNorm kernel takes. The convolutions are
+2-D or 3-D by ``ndim`` (the spatial rank; 3 unless given), which sets the
+weight's rank.
 
 Parameters are created uninitialised, as flax modules hold none until
 ``init``: fill them with ``init_weights(model, generator)`` (torch's default
@@ -22,8 +24,7 @@ packed_out=True)`` for k3 s2 p1 op1, and ``InstanceNorm(packed=True)``,
 which is what Hecktor20Top1's level 1 runs. Not ported here: partial-rank
 packing (``packed_dims`` naming fewer dims raises), the shift-free conv pair
 (``packed_shift``/``shift``, HDenseFormer's packed level 0), the packed
-BatchNorm and GroupNorm (ROADMAP.md queue 1 item 4), 1-D and 2-D
-convolutions and dilation (item 3, the 2-D zoo).
+BatchNorm and GroupNorm (ROADMAP.md queue 1 item 4), 1-D convolutions.
 
 ``BatchNorm`` and ``GroupNorm`` hold the parameters that JAX keeps one
 module deeper, under ``BatchNorm_0`` and ``GroupNorm_0``;
@@ -45,7 +46,10 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
 from hdenseformer_tpu_torch.ops.resize import upsample_linear
 from hdenseformer_tpu_torch.ops.s2d import conv1_packed, conv_transpose_packed, convk_packed
 
-_CL = torch.channels_last_3d
+# the memory format of a conv weight of rank 4 / 5, channels last
+_CL = {4: torch.channels_last, 5: torch.channels_last_3d}
+_CONV = {4: F.conv2d, 5: F.conv3d}
+_CONV_T = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
 EPS = 1e-5  # torch's norms' default, as in the JAX modules
 MOMENTUM = 0.1  # torch's BatchNorm momentum (flax's 0.9)
 
@@ -56,7 +60,10 @@ def _uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None
 
 
 class Conv(nn.Module):
-    """Channels-last Conv3d with torch's (out, in, k, k, k) weight.
+    """Channels-last Conv2d / Conv3d (``ndim``) with torch's (out, in, *k) weight.
+
+    ``dilation`` is JAX ``Conv``'s (``rhs_dilation``): the dilated layers
+    of the 2-D ResNet encoders and DeepLabV3+'s ASPP.
 
     The JAX patch embed (``as_matmul=True``) is this conv with kernel =
     stride = 16 and no padding: the same function. ``out_f32`` (the
@@ -75,18 +82,21 @@ class Conv(nn.Module):
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, out_f32: bool = False,
                  packed: bool = False, packed_dims=None, use_kernels: bool = True,
-                 device=None):
+                 dilation: int = 1, ndim: int = 3, device=None):
         super().__init__()
         k = kernel_size
-        if packed and (stride != 1 or k % 2 != 1 or padding != k // 2 or out_f32):
+        if packed and (stride != 1 or k % 2 != 1 or padding != k // 2 or out_f32
+                       or dilation != 1 or ndim != 3):
             raise ValueError(
-                f"a packed conv is SAME and stride 1 with an odd kernel: got k{k}, "
-                f"stride {stride}, padding {padding}, out_f32 {out_f32}"
+                f"a packed conv is 3-D, SAME and stride 1 with an odd, undilated kernel: got "
+                f"k{k}, stride {stride}, padding {padding}, dilation {dilation}, ndim {ndim}, "
+                f"out_f32 {out_f32}"
             )
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.dtype, self.out_f32 = dtype, out_f32
         self.packed, self.packed_dims, self.use_kernels = packed, packed_dims, use_kernels
-        self.weight = nn.Parameter(torch.empty(features, in_features, k, k, k, device=device))
+        self.weight = nn.Parameter(torch.empty(features, in_features, *(k,) * ndim,
+                                               device=device))
         self.bias = (
             nn.Parameter(torch.empty(features, device=device)) if use_bias else None
         )
@@ -104,21 +114,23 @@ class Conv(nn.Module):
                 return conv1_packed(x, self.weight, self.bias, self.packed_dims)
             return convk_packed(x, self.weight, self.bias, dt, self.packed_dims,
                                 self.use_kernels)
-        w = self.weight.to(dt, memory_format=_CL)
+        w = self.weight.to(dt, memory_format=_CL[self.weight.dim()])
+        conv = _CONV[self.weight.dim()]
         if self.out_f32:
-            y = F.conv3d(x.float().movedim(-1, 1), w.float(), self.bias,
-                         self.stride, self.padding)
+            y = conv(x.float().movedim(-1, 1), w.float(), self.bias, self.stride, self.padding,
+                     self.dilation)
         else:
             b = None if self.bias is None else self.bias.to(dt)
-            y = F.conv3d(x.to(dt).movedim(-1, 1), w, b, self.stride, self.padding)
+            y = conv(x.to(dt).movedim(-1, 1), w, b, self.stride, self.padding, self.dilation)
         return y.movedim(1, -1)
 
 
 class ConvTranspose(nn.Module):
-    """Channels-last ConvTranspose3d with torch's (in, out, k, k, k) weight.
+    """Channels-last ConvTranspose2d / 3d (``ndim``) with torch's (in, out, *k)
+    weight.
 
     The JAX module stores the spatially flipped equivalent-conv kernel
-    (k, k, k, in, out); ``weights.from_jax_params`` flips it back.
+    (*k, in, out); ``weights.from_jax_params`` flips it back.
     ``packed_out=True`` (k3, s2, p1, op1 only) emits the s2d packed-plain
     layout of the upsampled grid (``ops.s2d.conv_transpose_packed``).
     """
@@ -126,17 +138,18 @@ class ConvTranspose(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
                  use_bias: bool = True, dtype: Optional[torch.dtype] = None,
-                 packed_out: bool = False, device=None):
+                 packed_out: bool = False, ndim: int = 3, device=None):
         super().__init__()
         k = kernel_size
-        if packed_out and (k, stride, padding, output_padding) != (3, 2, 1, 1):
+        if packed_out and ((k, stride, padding, output_padding) != (3, 2, 1, 1) or ndim != 3):
             raise ValueError(
-                "a packed-output ConvTranspose is k3 s2 p1 op1, got "
-                f"k{k} s{stride} p{padding} op{output_padding}"
+                "a packed-output ConvTranspose is 3-D, k3 s2 p1 op1, got "
+                f"k{k} s{stride} p{padding} op{output_padding} ndim {ndim}"
             )
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
         self.dtype, self.packed_out = dtype, packed_out
-        self.weight = nn.Parameter(torch.empty(in_features, features, k, k, k, device=device))
+        self.weight = nn.Parameter(torch.empty(in_features, features, *(k,) * ndim,
+                                               device=device))
         self.bias = (
             nn.Parameter(torch.empty(features, device=device)) if use_bias else None
         )
@@ -152,10 +165,10 @@ class ConvTranspose(nn.Module):
         dt = self.dtype or x.dtype
         if self.packed_out:
             return conv_transpose_packed(x, self.weight, self.bias, dt)
-        w = self.weight.to(dt, memory_format=_CL)
+        w = self.weight.to(dt, memory_format=_CL[self.weight.dim()])
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv_transpose3d(x.to(dt).movedim(-1, 1), w, b, self.stride,
-                               self.padding, self.output_padding)
+        y = _CONV_T[self.weight.dim()](x.to(dt).movedim(-1, 1), w, b, self.stride,
+                                       self.padding, self.output_padding)
         return y.movedim(1, -1)
 
 
@@ -303,13 +316,14 @@ class LayerNorm(nn.Module):
 
 
 class BasicConv(nn.Module):
-    """Conv3x3 (no bias) + InstanceNorm (affine) + ReLU (JAX ``BasicConv``)."""
+    """Conv3x3 (no bias) + InstanceNorm (affine) + ReLU (JAX ``BasicConv``),
+    2-D or 3-D by ``ndim``."""
 
     def __init__(self, in_features: int, features: int, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 3, device=None):
         super().__init__()
         self.conv = Conv(in_features, features, 3, 1, 1, use_bias=False, dtype=dtype,
-                         device=device)
+                         ndim=ndim, device=device)
         self.norm = InstanceNorm(features, affine=True, fuse_relu=True,
                                  use_kernels=use_kernels, device=device)
 
@@ -318,13 +332,13 @@ class BasicConv(nn.Module):
 
 
 class UpConv(nn.Module):
-    """Conv3x3 + InstanceNorm (no affine) + ReLU + trilinear upsample x2."""
+    """Conv3x3 + InstanceNorm (no affine) + ReLU + bi/trilinear upsample x2."""
 
     def __init__(self, in_features: int, features: int, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 3, device=None):
         super().__init__()
         self.conv = Conv(in_features, features, 3, 1, 1, use_bias=True,
-                         dtype=dtype, device=device)
+                         dtype=dtype, ndim=ndim, device=device)
         self.norm = InstanceNorm(features, affine=False, fuse_relu=True,
                                  use_kernels=use_kernels, device=device)
 

@@ -15,7 +15,8 @@ out torch's index math because JAX has none of it; here it is torch's own:
   ``align_corners=True``. JAX multiplies by an fp32 interpolation matrix,
   which promotes a bf16 input to fp32 wherever an axis is resized; so does
   the port;
-- ``max_pool``: window = stride, VALID (odd remainders dropped);
+- ``max_pool``: window and stride (JAX's signature), VALID (odd remainders
+  dropped), with an optional -inf padding;
 - ``avg_pool`` (VALID, floor) and ``global_avg_pool`` (the mean over every
   spatial dim).
 
@@ -23,7 +24,9 @@ Every function takes and returns ``(N, *spatial, C)`` with 2 or 3 spatial
 dims (``resize_nearest`` any number); the NCHW / NCDHW view that torch's
 functions take is a free permute of that layout. Gradients are
 torch's autograd, which matches JAX's rules: ``max_pool`` routes a tie to
-the first maximum in row-major window order (``_max_pool_ws_bwd``), and
+the first maximum in row-major window order (``_max_pool_ws_bwd``; for
+overlapping windows XLA's select-and-scatter with ``ge`` keeps the first
+too, and each window routes its own gradient), and
 ``resize_nearest`` scatters each output's gradient back to its source.
 """
 from __future__ import annotations
@@ -108,9 +111,13 @@ def upsample_linear_align_corners(x: torch.Tensor, scale=2) -> torch.Tensor:
     return resize_linear_align_corners(x, _scaled(x, scale))
 
 
-def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """MaxPool3d with kernel = stride = ``window`` (torch floor semantics)."""
-    return _ndhwc(F.max_pool3d(_ncdhw(x), window, window))
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2, padding: int = 0
+             ) -> torch.Tensor:
+    """MaxPool2d/3d(window, stride, padding), VALID after the padding (torch
+    floor semantics). ``padding`` pads every spatial side with -inf, as the
+    JAX ResNet stem pads before its ``max_pool(h, 3, 2)``."""
+    pool = {2: F.max_pool2d, 3: F.max_pool3d}[x.dim() - 2]
+    return _ndhwc(pool(_ncdhw(x), window, stride, padding))
 
 
 def avg_pool(x: torch.Tensor, window: int, stride=None) -> torch.Tensor:

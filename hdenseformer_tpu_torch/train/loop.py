@@ -27,6 +27,15 @@ device:
   (seed, optimizer step) before each step (``step_seed``), as JAX's key is
   ``fold_in(PRNGKey(seed), step)``: a resumed run draws the masks of an
   unbroken one;
+- a 2-D ``input_shape`` trains on 2-D slice cases through the 2-D
+  transform table (``transform_list_2d``, JAX's numbering; the validation
+  subset [1, 2, 10]), whose augmentations (``data/augment2d.py``) run on the
+  host;
+- ``ex_pre_trained`` (the smp-style 2-D baselines only) loads a local
+  torchvision-format ResNet state dict (``.pth`` or ``.npz``) into the
+  encoder after the seeded initialisation (``models.unet2d.
+  load_torch_resnet_encoder``); ``True`` would download ImageNet weights in
+  the reference, so it raises, as JAX's does;
 - with ``device_augment`` (3-D only) the loader ships raw channels-last
   cases (``RawChannelsLast``) and ``data/augment_device.augment_batch_3d``
   runs inside the step on the card, drawing from a second generator seeded
@@ -43,10 +52,8 @@ device:
   ``get_net``'s ``use_kernels``; ``norm_barrier`` and ``shift_pack`` are
   XLA knobs, accepted and ignored.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
-the 2-D transform table (queue 1 item 3, with the 2-D zoo),
-``ex_pre_trained`` (the 2-D encoders, item 3) and more than one device
-(item 6).
+Not ported: more than one device (``NotImplementedError``, ROADMAP.md
+queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -60,6 +67,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from hdenseformer_tpu_torch.data.augment2d import (
+    RandomAdjust2D,
+    RandomDistort2D,
+    RandomErase2D,
+    RandomFlip2D,
+    RandomNoise2D,
+    RandomRotate2D,
+    RandomZoom2D,
+)
 from hdenseformer_tpu_torch.data.augment_device import augment_batch_3d
 from hdenseformer_tpu_torch.data.augment3d import (
     RandomCrop3D,
@@ -84,8 +100,9 @@ from hdenseformer_tpu_torch.metrics.running import (
     RunningDice,
     confusion_matrix_device,
 )
-from hdenseformer_tpu_torch.models import get_net
+from hdenseformer_tpu_torch.models import SMP_2D, get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
+from hdenseformer_tpu_torch.models.unet2d import load_torch_resnet_encoder
 from hdenseformer_tpu_torch.train.checkpoint import (
     checkpoint_format,
     dfs_remove_weight,
@@ -132,7 +149,10 @@ def make_train_step(criterion: Callable, num_classes: int,
     (N, *spatial, num_classes) and optionally ``"weight"`` (N,) of 1/0, all
     on the model's device. ``generator`` (on that device) feeds the model's
     dropout and advances with it; None where the model has none. Every model
-    of ``get_net`` takes it. The state is updated in place and returned.
+    of ``get_net`` takes it. The state is updated in place and returned. A
+    parameter that no loss reaches (the 2-D baselines' aux head) gets a zero
+    gradient, as JAX's ``grad`` gives it, so the coupled L2 decay still
+    moves it; torch's optimizers would skip it.
 
     With ``augment_fn(generator, image, int_label) -> (image, onehot_label)``
     the batch holds the raw image and the class volume instead, and the
@@ -155,6 +175,10 @@ def make_train_step(criterion: Callable, num_classes: int,
         outs = model(batch["image"], generator=generator)
         out = _metrics(criterion, outs, batch, num_classes)
         out["loss"].backward()
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:  # no loss reaches it (an aux head): JAX's gradient is 0,
+                    p.grad = torch.zeros_like(p)  # and the coupled decay still moves it
         state.optimizer.step()
         state.step += 1
         out["loss"] = out["loss"].detach()
@@ -307,8 +331,6 @@ class SemanticSeg:
         shift_pack=None,
     ):
         del norm_barrier, shift_pack  # XLA knobs: nothing in the port reads them
-        if ex_pre_trained:
-            raise _not_ported("ex_pre_trained (the 2-D encoders' weights)", 3)
         self.net_name = net_name
         self.encoder_name = encoder_name
         self.lr = lr
@@ -322,6 +344,7 @@ class SemanticSeg:
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.pre_trained = pre_trained
+        self.ex_pre_trained = ex_pre_trained
         self.ckpt_point = ckpt_point
         self.weight_path = weight_path
         self.start_epoch = 0
@@ -359,7 +382,8 @@ class SemanticSeg:
         )
         self.device = next(self.model.parameters()).device
 
-        # the indexed 3-D transform table, numbered as the reference's
+        # the indexed transform tables, numbered as the reference's (the 3-D
+        # table only exists for 3-D patch sizes)
         patch3d = self.patch_size if len(self.patch_size) == 3 else (1, 1, 1)
         self.transform_list_3d = [
             RandomCrop3D(patch3d),  # 1
@@ -371,20 +395,61 @@ class SemanticSeg:
             TruncAndNormalize(scale=self.scale),  # 7
             MRNormalize(),  # 8
         ]
+        self.transform_list_2d = [
+            MRNormalize(),  # 1
+            CropResize(dim=self.input_shape, num_class=num_classes, crop=crop, channel=channels),  # 2
+            RandomErase2D(scale_flag=False),  # 3
+            RandomZoom2D(),  # 4
+            RandomDistort2D(),  # 5
+            RandomRotate2D(),  # 6
+            RandomFlip2D(mode="hv"),  # 7
+            RandomAdjust2D(),  # 8
+            RandomNoise2D(),  # 9
+            ToOneHot(num_class=num_classes, input_channel=channels),  # 10
+            TruncAndNormalize(scale=self.scale),  # 11
+        ]
         transform_3d = transform_3d or []
-        del transform_2d  # the 2-D table: trainer() raises for a 2-D input
+        transform_2d = transform_2d or []
         self.train_transform_3d = [self.transform_list_3d[i - 1] for i in transform_3d]
         self.val_transform_3d = [
             self.transform_list_3d[i - 1] for i in transform_3d if i in [1, 2, 3, 6]
         ]
+        self.train_transform_2d = [self.transform_list_2d[i - 1] for i in transform_2d]
+        self.val_transform_2d = [
+            self.transform_list_2d[i - 1] for i in transform_2d if i in [1, 2, 10]
+        ]
 
     # -- model state ------------------------------------------------------
     def build_state(self, optimizer: str = "Adam") -> TrainState:
-        """Fresh weights from ``seed`` and a fresh optimizer."""
+        """Fresh weights from ``seed`` (the encoder's from ``ex_pre_trained``,
+        where given) and a fresh optimizer."""
         init_weights(self.model, torch.Generator().manual_seed(self.seed))
+        if self.ex_pre_trained:
+            self._load_encoder_pretrained()
         opt = get_optimizer(optimizer, self.lr, weight_decay=self.weight_decay,
                             momentum=self.momentum, params=self.model.parameters())
         return TrainState(self.model, opt)
+
+    def _load_encoder_pretrained(self) -> None:
+        """``ex_pre_trained``: the reference's smp ``encoder_weights='imagenet'``
+        from a local torchvision-format ResNet state dict (``.pth`` through
+        ``torch.load``, or ``.npz``); ``True`` raises instead of training from
+        scratch without saying so."""
+        if self.net_name not in SMP_2D:
+            raise ValueError("ex_pre_trained applies to the smp-style 2D baselines "
+                             "(unet/unet++/deeplabv3+)")
+        if not isinstance(self.ex_pre_trained, str):
+            raise ValueError(
+                "ex_pre_trained=True would download imagenet weights in the reference; this "
+                "offline build needs a local checkpoint: pass "
+                "ex_pre_trained='/path/to/resnet-imagenet.{pth,npz}'")
+        path = self.ex_pre_trained
+        if path.endswith(".npz"):
+            with np.load(path) as f:
+                state_dict = dict(f)
+        else:
+            state_dict = torch.load(path, map_location="cpu")
+        load_torch_resnet_encoder(self.model, state_dict)
 
     def load_pretrained(self, state: TrainState, weight_path: str, ckpt_point=True
                         ) -> TrainState:
@@ -427,10 +492,9 @@ class SemanticSeg:
     ) -> Dict[str, Any]:
         if n_devices not in (None, 1):
             raise _not_ported(f"training on {n_devices} devices", 6)
-        if self.device_augment and len(self.input_shape) != 3:
+        is_3d = len(self.input_shape) > 2
+        if self.device_augment and not is_3d:
             raise ValueError("device_augment currently supports the 3D pipeline")
-        if len(self.input_shape) != 3:
-            raise _not_ported("the 2-D transform table (with the 2-D zoo)", 3)
         output_dir = os.path.join(output_dir, f"fold{cur_fold}")
         log_dir = os.path.join(log_dir, f"fold{cur_fold}")
         for d in (log_dir, output_dir):
@@ -446,7 +510,7 @@ class SemanticSeg:
         print(f"{self.net_name}: {count_params(state.model) / 1e6:.3f} M params")
 
         augment_fn, augment_generator = None, None
-        train_tfm = Compose(self.train_transform_3d)
+        train_tfm = Compose(self.train_transform_3d if is_3d else self.train_transform_2d)
         if self.device_augment:
             patch, ncls = self.patch_size, self.num_classes
 
@@ -466,7 +530,8 @@ class SemanticSeg:
         )
         val_ds = SegDataset(
             val_path, roi_number=self.roi_number, num_class=self.num_classes,
-            transform=Compose(self.val_transform_3d), img_key=self.key_touple[0],
+            transform=Compose(self.val_transform_3d if is_3d else self.val_transform_2d),
+            img_key=self.key_touple[0],
             lab_key=self.key_touple[1], reader=self.reader,
         )
         train_loader = BatchLoader(train_ds, self.batch_size, shuffle=True,

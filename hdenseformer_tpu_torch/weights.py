@@ -11,10 +11,11 @@ of the matching port module. The rules:
   hold their variables one module deeper (``bn1/BatchNorm_0/scale``,
   ``bn1/GroupNorm_0/bias``) than the port's (``bn1.weight``, ``bn1.bias``);
 - Dense kernels ``(in, out)`` become ``Linear`` weights ``(out, in)``;
-- Conv kernels ``(k, k, k, in, out)`` become ``(out, in, k, k, k)``;
+- Conv kernels ``(*k, in, out)`` become ``(out, in, *k)``, 2-D (``k`` of
+  two dims) and 3-D alike;
 - ConvTranspose kernels are the spatially flipped equivalent-conv kernel
-  ``(k, k, k, in, out)``; they are flipped back and become torch's
-  ``(in, out, k, k, k)``. Given the port ``model``, a kernel is a
+  ``(*k, in, out)``; they are flipped back on every spatial axis and become
+  torch's ``(in, out, *k)``. Given the port ``model``, a kernel is a
   ConvTranspose's where the model's module at its path is a
   ``models.layers.ConvTranspose``; without one, where a module of its path
   is named ``upconv*`` (HDenseFormer's and Hecktor20Top1's names). Without
@@ -24,7 +25,9 @@ of the matching port module. The rules:
   its in and out channels are equal a plain conv's layout would load
   silently wrong;
 - the leaves under ``attns`` carry a leading modality axis (JAX runs the
-  modality paths as one ``nn.vmap``); modality ``m`` becomes ``attns.{m}``.
+  modality paths as one ``nn.vmap``); modality ``m`` becomes ``attns.{m}``,
+  and its kernels are converted after the split (a 2-D model's patch embed
+  is a 5-D leaf holding 4-D kernels).
 
 ``prefix`` is the dotted path of ``params`` inside the model when
 converting a single layer's subtree, e.g. ``"upconv_1"``; the returned keys
@@ -80,10 +83,12 @@ def _convert(full_path: tuple, arr: np.ndarray, model: Optional[torch.nn.Module]
         return name, arr
     if arr.ndim == 2:
         return "weight", arr.T
-    if arr.ndim == 5:
+    if arr.ndim in (4, 5):
+        spatial = tuple(range(arr.ndim - 2))
+        i, o = arr.ndim - 2, arr.ndim - 1
         if _is_transposed(full_path[:-1], model):
-            return "weight", np.flip(arr, axis=(0, 1, 2)).transpose(3, 4, 0, 1, 2)
-        return "weight", arr.transpose(4, 3, 0, 1, 2)
+            return "weight", np.flip(arr, axis=spatial).transpose((i, o) + spatial)
+        return "weight", arr.transpose((o, i) + spatial)
     raise ValueError(f"unexpected kernel rank {arr.ndim} at {'.'.join(full_path)}")
 
 

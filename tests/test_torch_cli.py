@@ -129,7 +129,8 @@ def test_no_card_raises_without_device_cpu(h5_cases, mode, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-m", "predict-2d"], "item 3"), (["-m", "train", "--profile", "trace"], "item 6"),
+    (["-m", "inf-sw", "--n-devices", "2"], "item 6"),
+    (["-m", "train", "--profile", "trace"], "item 6"),
 ])
 def test_unported_modes_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):

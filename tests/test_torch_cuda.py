@@ -811,3 +811,88 @@ def test_unetr_train_step_goes_through_the_kernels(cuda):
             ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
     got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
     assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]
+
+
+# HDenseFormer_2D_32 at PI-CAI22 (384^2, batch 24): one modality path's
+# attention and each InstanceNorm shape, (S, C, affine)
+ATTN_2D = (24, 8, 576, 4)
+IN_2D = [(384 ** 2, 32, True), (192 ** 2, 64, True), (96 ** 2, 128, True), (48 ** 2, 256, True),
+         (24 ** 2, 256, False), (48 ** 2, 128, False), (96 ** 2, 64, False),
+         (192 ** 2, 32, False)]
+
+
+def test_attention_kernel_at_the_2d_shape(cuda):
+    g = torch.Generator(device=cuda).manual_seed(90)
+    q, k, v = (torch.randn(ATTN_2D, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    got = dense_attention(q, k, v)
+    ref = attention_ref(q.float(), k.float(), v.float())
+    # bf16: one rounding of the output (test_attention_kernel_matches_fp32_math)
+    torch.testing.assert_close(got.float(), ref, rtol=2**-8, atol=1e-5)
+    assert torch.equal(got, dense_attention(q, k, v))
+
+
+@pytest.mark.parametrize("s,c,affine", IN_2D)
+def test_instance_norm_kernels_at_the_2d_shapes(cuda, s, c, affine):
+    """Forward (one bf16 step of the plain version) and backward (the bars of
+    assert_norm_grads_close) at batch 24, reruns bitwise."""
+    x, dy, scale, bias, stats = _norm_backward_case(cuda, (24, s, c), torch.bfloat16, affine,
+                                                    True, seed=91)
+    got = instance_norm_relu(x, scale, bias)
+    torch.testing.assert_close(got, instance_norm_relu_ref(x, scale, bias), rtol=2**-7, atol=1e-6)
+    assert torch.equal(got, instance_norm_relu(x, scale, bias))
+    grads = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, True)
+    assert_norm_grads_close(grads, ref, torch.bfloat16)
+    again = instance_norm_relu_bwd(dy, x, stats, scale, bias, True)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
+    """One train step of HDenseFormer_2D_16 (64^2, depth 4, 3 modalities,
+    get_net's remat, dropout 0.5 from one seed), fp32 with TF32 off, through
+    the kernels and through the plain versions: 2 x 12 attention, 36 + 18
+    InstanceNorm launches; loss within 1e-5; gradients within 3x the plain
+    path's own difference on the input moved by 1e-6 (worst and median
+    tensor, as test_unetr_train_step_goes_through_the_kernels)."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    nets = [get_net("HDenseFormer_2D_16", 3, 2, (64, 64), transformer_depth=4, use_kernels=use,
+                    device=cuda) for use in (True, False, False)]
+    init_weights(nets[0], torch.Generator().manual_seed(0))
+    for net in nets[1:]:
+        net.load_state_dict(nets[0].state_dict())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 64, 64, 3, generator=g, device=cuda)
+    label = torch.zeros(2, 64, 64, 2, device=cuda)
+    label[..., 0] = 1
+    label[:, 16:40, 20:44] = torch.tensor([0.0, 1.0], device=cuda)
+    inputs = (x, x, x * (1 + 1e-6 * torch.randn(x.shape, generator=g, device=cuda)))
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), 2)
+    losses, counts = [], []
+    for net, inp in zip(nets, inputs):
+        opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
+        dense_attention.launches = instance_norm_relu.launches = 0
+        instance_norm_relu_bwd.launches = 0
+        _, out = step(TrainState(net, opt), {"image": inp, "label": label},
+                      torch.Generator(device=cuda).manual_seed(5))
+        losses.append(float(out["loss"]))
+        counts.append((dense_attention.launches, instance_norm_relu.launches,
+                       instance_norm_relu_bwd.launches))
+    assert counts == [(24, 36, 18), (0, 0, 0), (0, 0, 0)]
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    grads = [dict(net.named_parameters()) for net in nets]
+    ratios = {"kernels": [], "moved": []}
+    for name, p in grads[0].items():
+        if name in ZERO_GRADIENT:
+            continue
+        ref = grads[1][name].grad
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        for key, other in (("kernels", p.grad), ("moved", grads[2][name].grad)):
+            ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
+    got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
+    assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]

@@ -148,7 +148,7 @@ def test_a_batch_of_mixed_case_shapes_says_so(tmp_path):
 
 def test_device_augment_refuses_a_2d_input(tmp_path):
     seg = SemanticSeg(**dict(KNOBS, device_augment=True))
-    seg.input_shape = (16, 16)  # no 2-D model is ported: the shape alone is 2-D
+    seg.input_shape = (16, 16)  # the shape alone makes the input 2-D
     with pytest.raises(ValueError, match="device_augment currently supports the 3D pipeline"):
         seg.trainer([], [], 1, output_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "log"),
                     **SETUP)

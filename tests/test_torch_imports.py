@@ -23,16 +23,19 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.models.daunet",
     "hdenseformer_tpu_torch.models.transbts",
     "hdenseformer_tpu_torch.models.unetr",
+    "hdenseformer_tpu_torch.models.unet2d",
     "hdenseformer_tpu_torch.weights",
     "hdenseformer_tpu_torch.data",
     "hdenseformer_tpu_torch.data.transforms",
     "hdenseformer_tpu_torch.data.io",
     "hdenseformer_tpu_torch.data.augment3d",
+    "hdenseformer_tpu_torch.data.augment2d",
     "hdenseformer_tpu_torch.data.augment_device",
     "hdenseformer_tpu_torch.data.pipeline",
     "hdenseformer_tpu_torch.data.convert",
     "hdenseformer_tpu_torch.infer",
     "hdenseformer_tpu_torch.infer.sliding",
+    "hdenseformer_tpu_torch.infer.slices",
     "hdenseformer_tpu_torch.losses",
     "hdenseformer_tpu_torch.losses.losses",
     "hdenseformer_tpu_torch.metrics",
@@ -86,8 +89,14 @@ def test_get_net_defaults_to_the_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["HDenseFormer_2D_32", "unet", "unet++", "deeplabv3+"])
-def test_2d_names_raise_until_the_2d_zoo_is_ported(name):
+def test_2d_names_build_on_cpu_and_need_a_card(name, monkeypatch):
+    """The 2-D names are ported: each builds on the CPU when asked and, as
+    every name, raises without a card otherwise."""
     from hdenseformer_tpu_torch.models import get_net
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 3 \\(the 2-D zoo\\)"):
-        get_net(name, 2, 2, (64, 64), device="cpu")
+    enc = None if name.startswith("HDenseFormer") else "resnet18"
+    net = get_net(name, 3, 2, (64, 64), transformer_depth=4, encoder_name=enc, device="cpu")
+    assert next(net.parameters()).device.type == "cpu" and not net.training
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_net(name, 3, 2, (64, 64), transformer_depth=4, encoder_name=enc)

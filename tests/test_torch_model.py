@@ -120,7 +120,7 @@ def test_get_net_builds_hdenseformer_and_names_the_rest():
     assert isinstance(net, HDenseFormer) and not net.training
     assert net.block_1_1_left.conv.weight.shape == (16, 2, 3, 3, 3)
     assert len(net.attns) == 2 and net.head.weight.shape == (3, 16, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="encoder name must not be 'None'"):
         get_net("unet", 1, 2, (96, 96), device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         get_net("nope", 1, 2, (32, 32, 32), device="cpu")

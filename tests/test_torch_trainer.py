@@ -141,12 +141,16 @@ def test_trainer_inference_writes_each_case(tmp_path, cases, first_epoch):
     assert np.load(out[0]).shape == (40, 40, 40)
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(ex_pre_trained=True), "item 3"), (dict(ex_pre_trained="x.pth"), "item 3"),
+@pytest.mark.parametrize("knob,match", [
+    (dict(ex_pre_trained=True), "smp-style"), (dict(ex_pre_trained="x.pth"), "smp-style"),
 ])
-def test_unported_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        SemanticSeg(**dict(KNOBS, **knob))
+def test_ex_pre_trained_refused_off_smp(knob, match):
+    """``ex_pre_trained`` loads an ImageNet encoder into the smp-style 2-D
+    baselines only: on HDenseFormer it raises JAX's ValueError when the
+    state is built."""
+    seg = SemanticSeg(**dict(KNOBS, **knob))
+    with pytest.raises(ValueError, match=match):
+        seg.build_state()
 
 
 def test_more_than_one_device_raises(tmp_path, cases):

@@ -44,7 +44,6 @@ largest gradient. Both are held to 1e-4 of it, and their update within
 2 lr.
 """
 import contextlib
-import importlib
 
 import numpy as np
 import pytest
@@ -69,7 +68,12 @@ from hdenseformer_tpu_torch.weights import (  # noqa: E402
     from_jax_params,
     load_jax_params,
 )
-from torch_port_util import random_jax_variables, transbts_channel_keep  # noqa: E402
+from torch_port_util import (  # noqa: E402
+    jax_float64,
+    random_jax_variables,
+    torch_float64,
+    transbts_channel_keep,
+)
 
 N_CLS, LR, WD = 2, 1e-3, 1e-4
 WIDTH = (16, 32, 64, 128, 256)
@@ -115,56 +119,17 @@ def _batch(size):
             "weight": np.array([1.0, 0.0], np.float32)}
 
 
-class _Float64Numpy:
-    """``jax.numpy`` with ``float32`` read as ``float64``."""
-
-    def __getattr__(self, name):
-        return jnp.float64 if name == "float32" else getattr(jnp, name)
-
-
 # the JAX modules of the three steps that cast to jnp.float32
 F64_MODULES = tuple(f"hdenseformer_tpu.{m}" for m in (
     "models.layers", "models.daunet", "models.transbts", "models.unetr", "ops.fused_norm",
     "ops.instance_norm", "losses.losses", "train.loop", "train.state"))
 
 
-@contextlib.contextmanager
-def jax_float64():
-    """JAX in float64: x64 on, the step's ``jnp.float32`` casts read as
-    float64, and TransBTS's channel coin drawn in float32 as an fp32 run
-    draws it (the same mask)."""
-    modules = [importlib.import_module(m) for m in F64_MODULES]
-    numpys = [m.jnp for m in modules]
-    bernoulli = jax.random.bernoulli
-    jax.config.update("jax_enable_x64", True)
-    for m in modules:
-        m.jnp = _Float64Numpy()
-    jax.random.bernoulli = lambda key, p=0.5, shape=None: bernoulli(key, np.float32(p), shape)
-    try:
-        yield
-    finally:
-        jax.random.bernoulli = bernoulli
-        for m, numpy in zip(modules, numpys):
-            m.jnp = numpy
-        jax.config.update("jax_enable_x64", False)
-
-
-@contextlib.contextmanager
-def torch_float64():
-    """The port in float64: its fp32 casts, ``Tensor.float()``, return float64."""
-    cast = torch.Tensor.float
-    torch.Tensor.float = lambda self, *args, **kwargs: self.to(torch.float64)
-    try:
-        yield
-    finally:
-        torch.Tensor.float = cast
-
-
 def _jax_step(jmodel, variables, batch, key, f64=False):
     """JAX's gradients, new state and metrics (in float64 with ``f64``)."""
     as_f64 = (lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
               ) if f64 else (lambda tree: tree)
-    with jax_float64() if f64 else contextlib.nullcontext():
+    with jax_float64(F64_MODULES) if f64 else contextlib.nullcontext():
         criterion = jlosses.get_loss("FocalLoss", use_ds=False)
         stats = as_f64(variables["batch_stats"])
         state = jstate.TrainState.create(apply_fn=jmodel.apply, params=as_f64(variables["params"]),

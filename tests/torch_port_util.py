@@ -1,5 +1,9 @@
 """Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py)."""
+import contextlib
+import importlib
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -70,3 +74,44 @@ def transbts_channel_keep(jmodel, variables, x, rng_key):
 
     h = np.asarray(enblock1_input(variables, x, rng_key), np.float32)
     return (h != 0).any(axis=tuple(range(1, h.ndim - 1)), keepdims=True)
+
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def jax_float64(module_names):
+    """JAX in float64: x64 on, the ``jnp.float32`` casts of the modules named
+    in ``module_names`` read as float64, and ``jax.random.bernoulli`` drawing
+    its coin in float32 as an fp32 run draws it (the same dropout masks)."""
+    modules = [importlib.import_module(m) for m in module_names]
+    numpys = [m.jnp for m in modules]
+    bernoulli = jax.random.bernoulli
+    jax.config.update("jax_enable_x64", True)
+    for m in modules:
+        m.jnp = _Float64Numpy()
+    jax.random.bernoulli = lambda key, p=0.5, shape=None: bernoulli(key, np.float32(p), shape)
+    try:
+        yield
+    finally:
+        jax.random.bernoulli = bernoulli
+        for m, numpy in zip(modules, numpys):
+            m.jnp = numpy
+        jax.config.update("jax_enable_x64", False)
+
+
+@contextlib.contextmanager
+def torch_float64():
+    """The port in float64: its fp32 casts, ``Tensor.float()``, return float64."""
+    import torch
+
+    cast = torch.Tensor.float
+    torch.Tensor.float = lambda self, *args, **kwargs: self.to(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
