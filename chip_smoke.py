@@ -68,6 +68,24 @@ removed at the end):
    generator in one state), and the peak memory and time of one full-width
    step at batch 2 with remat on and off, of HDenseFormer_32 and of
    Hecktor20Top1;
+4p. the packed levels (space-to-depth, ``ops/s2d.py``), which get_net's
+   default ``s2d=None`` runs in every phase, as JAX's does: (a) the shifted
+   InstanceNorm forward and backward kernels against their plain versions
+   at HDenseFormer_32's level 0 in serving (8 windows of 144 x 73 x 73
+   shifted cells of 4 x 32 channels; backward at batch 1) and at
+   HDenseFormer_2D_32's (24 x 193 x 193 cells; backward at batch 24), with
+   garbage in the pad slots, which must come out 0: phase 1's and 1b's
+   bars, timed against their bounds and plain versions; (b)
+   HDenseFormer_32 at 144^3 (level 0 packed over (H, W)) against
+   ``s2d=False`` on the same weights: argmax agreement (phase 2's bars), a
+   forward of 8 windows and a batch-2 remat train step each timed in turns
+   (packed, fine, fine, packed), peak memory, launches; (c) the same for
+   HDenseFormer_2D_32 at 384^2, batch 24 (level 0 at full rank); (d)
+   Hecktor20Top1 with ``s2d={1: True, 2: (2,)}`` (level 2 packed over W)
+   against its default, 2 windows and a batch-2 step; (e) da_unet and
+   TransBTS, packed default against ``s2d=False``, at phase 4b's sizes
+   (agreement bar 0.99: their packed norms keep bf16 where the fine ones
+   return fp32, as JAX's);
 4b. the 3-D zoo: UNETR's InstanceNorm shapes at batch 2 (affine, ReLU off,
    bf16), forward and backward kernels against their plain versions and
    timed, summed over a forward and a step; then each of unet_3d, da_unet,
@@ -120,7 +138,9 @@ removed at the end):
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
-run.
+run. The InstanceNorm kernels' shifted mode counts as two kernels of its own
+(``instance_norm_relu_shifted`` and its backward); HDenseFormer_32's and
+HDenseFormer_2D_32's paths launch it at level 0's first BasicConvs.
 
 Any failed check exits non-zero before the result line, as does a machine
 without a CUDA device. fp32 comparisons run with TF32 off in cuDNN and
@@ -170,9 +190,12 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu_bwd_ref,
     instance_norm_relu_fwd,
     instance_norm_relu_ref,
+    instance_norm_relu_shifted,
+    instance_norm_relu_shifted_bwd,
+    shift_of,
 )
 from hdenseformer_tpu_torch.ops.instance_norm import bwd_plan as norm_bwd_plan
-from hdenseformer_tpu_torch.ops.s2d import conv3_packed
+from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask, conv3_packed
 from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_pack,
     shift_pack_ref,
@@ -216,19 +239,38 @@ KERNELS = {
         source="hdenseformer_tpu_torch/csrc/instance_norm_relu.cu",
         replaces="hdenseformer_tpu/ops/fused_norm.py:271",
     ),
+    # the shifted mode of both (a packed-shifted input, pad slots masked):
+    # fused_norm.instance_norm_relu(shifted=dims) and its VJP, plain XLA in JAX
+    "instance_norm_relu_shifted": dict(
+        wrapper=instance_norm_relu_shifted,
+        source="hdenseformer_tpu_torch/csrc/instance_norm_relu.cu",
+        replaces="hdenseformer_tpu/ops/fused_norm.py:201",
+    ),
+    "instance_norm_relu_shifted_backward": dict(
+        wrapper=instance_norm_relu_shifted_bwd,
+        source="hdenseformer_tpu_torch/csrc/instance_norm_relu.cu",
+        replaces="hdenseformer_tpu/ops/fused_norm.py:271",
+    ),
 }
 # packed-plain grid and channel counts of Hecktor20Top1's four half-shifts in
 # one serving forward (8 windows of 144^3, n_filters 32): the k7 stem (2
 # channels), block_1_2_left (32), block_1_1_right (64), block_1_2_right (32)
 SHIFT_FC = (16, 256, 512, 256)
-# (S, C) and count of HDenseFormer_32's InstanceNorm launches in one serving
-# forward (8 windows of 144^3): the BasicConv/UpConv norms at each level
-IN_FORWARD = (((PATCH ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 5),
+# (S, C) and count of HDenseFormer_32's unshifted InstanceNorm launches in one
+# serving forward (8 windows of 144^3): the BasicConv/UpConv norms at each
+# level. get_net's default (s2d=None) packs level 0 over (H, W): its two
+# second BasicConvs normalise the packed-plain (144 * 72^2 * 4, 32) view, the
+# 144^3 rows of the fine grid, and its two first BasicConvs take the shifted
+# norm (HDF_SHIFTED); the UpConv pyramid's four are counted with the level
+# each feeds
+IN_FORWARD = (((PATCH ** 3, 32), 3), (((PATCH // 2) ** 3, 64), 5),
               (((PATCH // 4) ** 3, 128), 5), (((PATCH // 8) ** 3, 256), 3))
+HDF_NORMS, HDF_SHIFTED = 18, 2  # a forward's InstanceNorms, and its shifted ones
 IN_PASSES = ("partial_stats_kernel", "finalize_kernel", "normalize_kernel")
 IN_BWD_PASSES = ("bwd_persistent_kernel",)
 HECKTOR_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30, "shift_pack": 4,
-                  "shift_pack_backward": 0, "instance_norm_relu_backward": 0}
+                  "shift_pack_backward": 0, "instance_norm_relu_backward": 0,
+                  "instance_norm_relu_shifted": 0, "instance_norm_relu_shifted_backward": 0}
 # (S, C) and count of Hecktor20Top1's InstanceNorms (no affine, no ReLU) in
 # one step at 144^3, n_filters 32, level 1 packed: the (8 * 72^3, 32) view of
 # block_1_1_left (conv1 and res_conv), block_1_2_left and block_1_{1,2}_right;
@@ -244,7 +286,8 @@ IN_HECKTOR_TRAIN = (((8 * (PATCH // 2) ** 3, 32), 5), (((PATCH // 2) ** 3, 64), 
 # blocks), a backward per norm, and 3 backward half-shifts (the stem's
 # input needs no gradient)
 HECKTOR_TRAIN_EXPECT = {"dense_attention": 0, "instance_norm_relu": 30 + 27, "shift_pack": 4 + 4,
-                        "shift_pack_backward": 3, "instance_norm_relu_backward": 30}
+                        "shift_pack_backward": 3, "instance_norm_relu_backward": 30,
+                        "instance_norm_relu_shifted": 0, "instance_norm_relu_shifted_backward": 0}
 # the train step of bench.py: batch 1, Adam with coupled L2, 4 chained
 # windows of 8 steps; a 144^3 patch counts (144 / 128)^3 128^3 patches
 LR, WEIGHT_DECAY = bench.LR, bench.WEIGHT_DECAY
@@ -270,11 +313,13 @@ IN_UNETR = (((PATCH ** 3, 16), 6), (((PATCH // 2) ** 3, 32), 3),
 # phase 4c, the 2-D path at the PI-CAI22 preset: 3 channels, 384^2 slices, 2
 # classes, bf16, full width, 24 slices a batch (the preset's 2-D batch)
 SLICE, SLICE_CH, SLICE_BATCH = 384, 3, 24
-# (S, C), count and affine of HDenseFormer_2D_32's InstanceNorms in one
-# forward at 384^2: the BasicConvs (affine), two a level in the encoder and
-# two in the decoder (level 4: encoder only), and the UpConv pyramid's four
-# (no affine): deep_conv on the 24^2 token grid, up1-up3
-IN_2D = (((SLICE ** 2, 32), 4, True), (((SLICE // 2) ** 2, 64), 4, True),
+# (S, C), count and affine of HDenseFormer_2D_32's unshifted InstanceNorms in
+# one forward at 384^2: the BasicConvs (affine), two a level in the encoder
+# and two in the decoder (level 4: encoder only; level 0, packed at full rank
+# by default, two on the packed-plain view of the 384^2 rows and its first
+# two shifted), and the UpConv pyramid's four (no affine): deep_conv on the
+# 24^2 token grid, up1-up3
+IN_2D = (((SLICE ** 2, 32), 2, True), (((SLICE // 2) ** 2, 64), 4, True),
          (((SLICE // 4) ** 2, 128), 4, True), (((SLICE // 8) ** 2, 256), 2, True),
          (((SLICE // 16) ** 2, 256), 1, False), (((SLICE // 8) ** 2, 128), 1, False),
          (((SLICE // 4) ** 2, 64), 1, False), (((SLICE // 2) ** 2, 32), 1, False))
@@ -285,6 +330,14 @@ SMP_2D_STEPS = 2
 # the 2-D journey: 72 slice cases (fold 1 of 3: 48 train, 2 steps of 24), then
 # per-slice prediction of 2 volumes of 30 slices of 400^2 (chunks of 24 and 6)
 JOURNEY_SLICES, JOURNEY_VOLUME = 72, (30, 400, 400)
+# the packed levels phase: the shifted InstanceNorm at HDenseFormer_32's
+# level 0 in serving (8 windows of 144^3, packed over (H, W): 144 x 73 x 73
+# shifted cells of 4 x 32 channels; its backward at the train step's batch
+# 1) and at HDenseFormer_2D_32's (24 slices of 384^2, full rank: 193 x 193
+# cells of 4 x 32; backward at batch 24): (tag, (N, *cells), dims, backward N)
+SHIFTED_SHAPES = (("3d", (WINDOWS, PATCH, PATCH // 2 + 1, PATCH // 2 + 1), (1, 2), 1),
+                  ("2d", (SLICE_BATCH, SLICE // 2 + 1, SLICE // 2 + 1), (0, 1), SLICE_BATCH))
+HECKTOR_LEVEL2 = {1: True, 2: (2,)}  # level 1 packed at full rank, level 2 over W
 
 
 def fail(msg: str) -> None:
@@ -776,8 +829,7 @@ def phase_shift_grad(gen) -> dict:
         torch.cuda.synchronize()
         grads[use] = (xr.grad, read_counts())
     (got, counts), (ref, plain_counts) = grads[True], grads[False]
-    expect = {"dense_attention": 0, "instance_norm_relu": 0, "shift_pack": 1,
-              "shift_pack_backward": 1, "instance_norm_relu_backward": 0}
+    expect = dict(dict.fromkeys(KERNELS, 0), shift_pack=1, shift_pack_backward=1)
     if counts != expect or any(plain_counts.values()):
         fail(f"autograd path launched {counts} (plain path {plain_counts}), expected {expect}")
     scale = float(ref.abs().max())
@@ -847,10 +899,17 @@ def build_models(args):
     return nets
 
 
-def hdf_expect(args, train: bool = False) -> dict:
-    """Launches of one HDenseFormer_32 forward (or train step) at full width."""
-    return {"dense_attention": 2 * args.depth, "instance_norm_relu": 18, "shift_pack": 0,
-            "shift_pack_backward": 0, "instance_norm_relu_backward": 18 if train else 0}
+def hdf_expect(args, train: bool = False, remat: bool = False, packed: bool = True) -> dict:
+    """Launches of one HDenseFormer_32 forward (or train step) at full width:
+    with ``remat`` the forward's kernels run twice (the recompute); ``packed``
+    (get_net's default) puts HDF_SHIFTED norms in the shifted mode."""
+    shifted, fwd = HDF_SHIFTED if packed else 0, 2 if remat else 1
+    return {"dense_attention": 2 * args.depth * fwd,
+            "instance_norm_relu": (HDF_NORMS - shifted) * fwd, "shift_pack": 0,
+            "shift_pack_backward": 0,
+            "instance_norm_relu_backward": HDF_NORMS - shifted if train else 0,
+            "instance_norm_relu_shifted": shifted * fwd,
+            "instance_norm_relu_shifted_backward": shifted if train else 0}
 
 
 def timed_forward(net, x):
@@ -1241,8 +1300,7 @@ def phase_remat_compare(args) -> None:
                zero_gradient_max_vs_top=max(ratios[n] for n in ZERO_GRADIENT),
                launches_remat=on["counts"], launches_plain=off["counts"])
     emit("remat_vs_plain", **rec)
-    expect_on = dict(hdf_expect(argparse.Namespace(depth=depth), train=True),
-                     dense_attention=4 * depth, instance_norm_relu=36)
+    expect_on = hdf_expect(argparse.Namespace(depth=depth), train=True, remat=True)
     if on["counts"] != expect_on or off["counts"] != hdf_expect(
             argparse.Namespace(depth=depth), train=True):
         fail(f"remat step launched {on['counts']}, plain {off['counts']}")
@@ -1251,6 +1309,253 @@ def phase_remat_compare(args) -> None:
         fail(f"remat vs plain step: {rec}")
     del runs, off, on
     torch.cuda.empty_cache()
+
+
+def shifted_inputs(gen, n, cells, dims, c=32, dtype=torch.bfloat16):
+    """A packed-shifted x of (n, *cells, 2^|dims| c) as a p2s conv writes it:
+    N(1, 3^2) at the valid slots, garbage (N(0, 100^2)) at the pad slots; dy
+    (large at the pads too), and scale of both signs with one zero, bias."""
+    dev = torch.device("cuda")
+    shape = (n, *cells, 2 ** len(dims) * c)
+    x = torch.randn(shape, generator=gen, device=dev) * 3 + 1
+    garbage = 100 * torch.randn(shape, generator=gen, device=dev)
+    valid = apply_shifted_mask(torch.ones(shape[1:], device=dev)[None], dims) > 0
+    x = torch.where(valid, x, garbage).to(dtype)
+    dy = torch.where(valid, torch.randn(shape, generator=gen, device=dev),
+                     1e3 * torch.ones((), device=dev)).to(dtype)
+    scale = torch.randn(c, generator=gen, device=dev)
+    scale[0] = 0.0
+    return x, dy, scale, torch.randn(c, generator=gen, device=dev)
+
+
+def shifted_kernel_checks(gen) -> dict:
+    """Part (a): the shifted InstanceNorm forward and backward kernels against
+    their plain versions at SHIFTED_SHAPES (bf16, affine, ReLU): phase 1's
+    forward bar and phase 1b's backward bars (given the same statistics),
+    exact zeros at every pad slot, reruns bitwise; device times beside the
+    plain versions' and the bound (bytes moved once: forward x read and y
+    written, backward x and dy read and dx written). No single PyTorch call
+    computes the masked norm (library_ms null)."""
+    main = {}
+    for tag, (n, *cells), dims, bwd_n in SHIFTED_SHAPES:
+        x, dy, scale, bias = shifted_inputs(gen, n, cells, dims)
+        c = scale.numel()
+        y, stats = instance_norm_relu_fwd(x, scale, bias, shifted=dims)
+        again, _ = instance_norm_relu_fwd(x, scale, bias, shifted=dims)
+        plain = instance_norm_relu_ref(x, scale, bias, shifted=dims)
+        torch.cuda.synchronize()
+        abs_e, rel_e, over = max_err(y, plain, BF16_STEP, 1e-6)
+        pads_zero = bool(torch.equal(apply_shifted_mask(y, dims), y))
+        if not over <= 1.0 or not pads_zero or not torch.equal(y, again):
+            fail(f"instance_norm_relu_shifted {tuple(x.shape)} {dims}: error {abs_e} "
+                 f"({over} of the bar), pads zero {pads_zero}, rerun equal "
+                 f"{torch.equal(y, again)}")
+        numel = x.numel()
+        fwd = dict(shape=list(x.shape), dims=list(dims), dtype="bfloat16", affine=True,
+                   relu=True, rows_per_sample=numel // (n * c),
+                   valid_rows_per_sample=shift_of(x, dims).m,
+                   vs_plain=dict(max_abs=abs_e, max_rel=rel_e, rtol=BF16_STEP, atol=1e-6),
+                   pads_zero=pads_zero, bitwise_rerun=True)
+        fwd["bound_ms"], fwd["bound_by"] = bound(2 * numel * 2 + 2 * c * 4, 7 * numel,
+                                                 torch.float32)
+        fwd["ms"] = device_ms(lambda: instance_norm_relu_fwd(x, scale, bias, shifted=dims))
+        fwd["plain_ms"] = device_ms(lambda: instance_norm_relu_ref(x, scale, bias, shifted=dims),
+                                    iters=3)
+        fwd["library_ms"] = None
+        emit("kernel_check", kernel="instance_norm_relu_shifted", path=tag, **fwd)
+        del y, again, plain
+        xb, dyb = x[:bwd_n].contiguous(), dy[:bwd_n].contiguous()
+        del x, dy
+        torch.cuda.empty_cache()
+        _, stb = instance_norm_relu_fwd(xb, scale, bias, shifted=dims)
+        got = instance_norm_relu_bwd(dyb, xb, stb, scale, bias, True, shifted=dims)
+        twice = instance_norm_relu_bwd(dyb, xb, stb, scale, bias, True, shifted=dims)
+        mean, inv = absolute_stats(xb, stb, dims)
+        ref = instance_norm_relu_bwd_ref(dyb, xb, mean, inv, scale, bias, True, shifted=dims)
+        torch.cuda.synchronize()
+        view = (got[0].reshape(bwd_n, -1, c),) + got[1:]
+        chk = norm_bwd_check(view, (ref[0].reshape(bwd_n, -1, c),) + ref[1:], torch.bfloat16)
+        pads_zero = bool(torch.equal(apply_shifted_mask(got[0], dims), got[0]))
+        if not chk["over"] <= 1.0 or not pads_zero or not all(
+                torch.equal(a, b) for a, b in zip(got, twice)):
+            fail(f"instance_norm_relu_shifted_bwd {tuple(xb.shape)} {dims}: {chk}, pads zero "
+                 f"{pads_zero}")
+        numel = xb.numel()
+        bwd = dict(shape=list(xb.shape), dims=list(dims), dtype="bfloat16", affine=True,
+                   relu=True, vs_plain=chk, pads_zero=pads_zero, bitwise_rerun=True)
+        bwd["bound_ms"], bwd["bound_by"] = bound(3 * numel * 2, 14 * numel, torch.float32)
+        bwd["ms"] = device_ms(
+            lambda: instance_norm_relu_bwd(dyb, xb, stb, scale, bias, True, shifted=dims))
+        bwd["plain_ms"] = device_ms(lambda: instance_norm_relu_bwd_ref(
+            dyb, xb, mean, inv, scale, bias, True, shifted=dims), iters=3)
+        bwd["library_ms"] = None
+        emit("kernel_check", kernel="instance_norm_relu_shifted_backward", path=tag, **bwd)
+        for name, rec, err in (("instance_norm_relu_shifted", fwd, abs_e),
+                               ("instance_norm_relu_shifted_backward", bwd, chk["dx_max_abs"])):
+            keys = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            if tag == "3d":
+                main[name] = dict(max_abs_err=err, **keys)
+            else:
+                main[name]["at_2d_shape"] = dict(shape=rec["shape"], max_abs_err=err, **keys)
+        del xb, dyb, got, twice, ref
+        torch.cuda.empty_cache()
+    return main
+
+
+def packed_vs_fine(tag: str, nets: dict, x, batch, expect: dict, step_expect: dict,
+                   loss_name: str, use_ds: bool, bar: float, seed: int) -> dict:
+    """One model, packed and fine, on the same weights: the forward's logits
+    (the argmax agreement of phase 2: where fine's top-two margin > 0.1,
+    ``bar``), a forward and a train step each timed in turns (packed, fine,
+    fine, packed), peak memory, and each call's launches against ``expect``
+    and ``step_expect`` (by layout). Returns the launches of the packed
+    model's calls (its forward and its three steps)."""
+    rec, outs, states = {}, {}, {}
+    counts = dict.fromkeys(KERNELS, 0)
+    step = make_train_step(get_loss(loss_name, use_ds=use_ds), N_CLS)
+    for name, net in nets.items():
+        net.eval()
+        with torch.inference_mode():
+            reset_counts()
+            outs[name] = net(x)
+            rec[name] = dict(launches_forward=read_counts())
+        states[name] = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
+                                                     params=net.parameters()))
+        reset_counts()
+        _, out = step(states[name], batch, torch.Generator(device="cuda").manual_seed(seed))
+        rec[name].update(first_loss=float(out["loss"]), launches_step=read_counts())
+        if name == "packed":
+            counts = {k: rec[name]["launches_forward"][k] + rec[name]["launches_step"][k]
+                      for k in KERNELS}
+    cmp = compare_logits(outs["packed"][0] if isinstance(outs["packed"], list) else outs["packed"],
+                         outs["fine"][0] if isinstance(outs["fine"], list) else outs["fine"])
+    if not cmp["decided_fraction"]:  # random weights may leave no margin over 0.1
+        cmp["argmax_agreement_margin_gt_0p1"] = None
+    del outs
+    for name in ("packed", "fine", "fine", "packed"):
+        net = nets[name].eval()  # the step left it in training
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = timed_forward(net, x)
+            rec[name].setdefault("forward_ms", []).append(ms)
+            rec[name]["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, out = step(states[name], batch, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        rec[name].setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+        rec[name]["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+        step_counts = read_counts()
+        if name == "packed":
+            counts = {k: counts[k] + step_counts[k] for k in KERNELS}
+        rec[name].setdefault("losses", []).append(float(out["loss"]))
+    emit("packed_vs_fine", model=tag, input=list(x.shape), batch=list(batch["image"].shape),
+         dtype="bfloat16", packed=rec["packed"], fine=rec["fine"], logits=cmp, bar=bar)
+    for name in ("packed", "fine"):
+        if rec[name]["launches_forward"] != expect[name]:
+            fail(f"{tag} {name} forward launched {rec[name]['launches_forward']}, expected "
+                 f"{expect[name]}")
+        if rec[name]["launches_step"] != step_expect[name]:
+            fail(f"{tag} {name} step launched {rec[name]['launches_step']}, expected "
+                 f"{step_expect[name]}")
+        if not np.isfinite([rec[name]["first_loss"]] + rec[name]["losses"]).all():
+            fail(f"{tag} {name}: losses {rec[name]['first_loss']}, {rec[name]['losses']}")
+    decided = cmp["argmax_agreement_margin_gt_0p1"]
+    if (decided is not None and decided < bar) or cmp["argmax_agreement"] < 0.99:
+        fail(f"{tag} packed vs fine: {cmp}, bar {bar} where the margin > 0.1")
+    del states
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_packed(args, gen) -> tuple:
+    """The packed levels: (a) the shifted kernels alone; (b) HDenseFormer_32 at
+    144^3, depth ``args.depth``, s2d=None (level 0 packed over (H, W)) against
+    s2d=False on the same weights: 8 windows a forward, a batch-2 remat train
+    step; (c) HDenseFormer_2D_32 at 384^2, batch 24 (level 0 at full rank);
+    (d) Hecktor20Top1 with HECKTOR_LEVEL2 against its default (level 1 only),
+    2 windows, a batch-2 remat step; (e) da_unet and TransBTS, their packed
+    default against s2d=False, at the zoo phase's 144^3 and batch 2. Returns
+    (the kernels' main numbers, the packed models' launches by path)."""
+    t0 = time.perf_counter()
+    main = shifted_kernel_checks(gen)
+    by_path = {}
+    bf16 = torch.bfloat16
+
+    def weights_of(nets):
+        init_weights(nets["packed"], torch.Generator().manual_seed(args.seed))
+        nets["fine"].load_state_dict(nets["packed"].state_dict())
+        return nets
+
+    # (b) HDenseFormer_32, 144^3
+    nets = weights_of({layout: get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3,
+                                       transformer_depth=args.depth, dtype=bf16, s2d=s2d,
+                                       device="cuda")
+                       for layout, s2d in (("packed", None), ("fine", False))})
+    if nets["packed"].packed != ((1, 2), None, None) or nets["fine"].packed != (None,) * 3:
+        fail(f"HDenseFormer_32 packs {nets['packed'].packed}, fine {nets['fine'].packed}")
+    x = torch.randn((WINDOWS, PATCH, PATCH, PATCH, 2), generator=gen, device="cuda")
+    case = synthetic_case(args.seed, PATCH)
+    batch = {k: v.repeat(2, 1, 1, 1, 1) for k, v in case.items()}
+    by_path["packed-hdf32"] = packed_vs_fine(
+        "HDenseFormer_32", nets, x, batch,
+        {"packed": hdf_expect(args), "fine": hdf_expect(args, packed=False)},
+        {"packed": hdf_expect(args, train=True, remat=True),
+         "fine": hdf_expect(args, train=True, remat=True, packed=False)},
+        "FocalLoss", True, 0.999, args.seed)
+    del nets, x, case, batch
+    # (c) HDenseFormer_2D_32, 384^2, 24 slices
+    nets = weights_of({layout: get_net("HDenseFormer_2D_32", SLICE_CH, N_CLS, (SLICE, SLICE),
+                                       transformer_depth=args.depth, dtype=bf16, s2d=s2d,
+                                       device="cuda")
+                       for layout, s2d in (("packed", None), ("fine", False))})
+    if nets["packed"].packed != ((0, 1), None, None):
+        fail(f"HDenseFormer_2D_32 packs {nets['packed'].packed}")
+    batch = synthetic_slices(args.seed, SLICE_BATCH)
+    by_path["packed-hdf2d32"] = packed_vs_fine(
+        "HDenseFormer_2D_32", nets, batch["image"], batch,
+        {"packed": hdf2d_expect(args), "fine": hdf2d_expect(args, packed=False)},
+        {"packed": hdf2d_expect(args, train=True),
+         "fine": hdf2d_expect(args, train=True, packed=False)},
+        "FocalLoss", True, 0.999, args.seed)
+    del nets, batch
+    # (d) Hecktor20Top1: level 2 packed over W too, against the default
+    nets = weights_of({layout: get_net("hecktor20top1", 2, N_CLS, (PATCH,) * 3, dtype=bf16,
+                                       s2d=s2d, device="cuda")
+                       for layout, s2d in (("packed", HECKTOR_LEVEL2), ("fine", None))})
+    if nets["packed"].packed2 != (2,) or nets["fine"].packed2 is not None:
+        fail("Hecktor20Top1's dict s2d did not pack level 2 over W")
+    x = torch.randn((ZOO_BATCH, PATCH, PATCH, PATCH, 2), generator=gen, device="cuda")
+    case = synthetic_case(args.seed, PATCH)
+    batch = {k: v.repeat(2, 1, 1, 1, 1) for k, v in case.items()}
+    # level 2's partial-rank convs shift with plain_to_shifted, no kernel: the
+    # launches are the default's
+    by_path["packed-hecktor-level2"] = packed_vs_fine(
+        "Hecktor20Top1 {1: True, 2: (2,)} vs default", nets, x, batch,
+        dict.fromkeys(("packed", "fine"), HECKTOR_EXPECT),
+        dict.fromkeys(("packed", "fine"), HECKTOR_TRAIN_EXPECT),
+        "FocalLoss", False, 0.999, args.seed)
+    del nets
+    # (e) the 3-D zoo's packed defaults: da_unet (level 0), TransBTS (levels 0-1);
+    # their packed BatchNorm and GroupNorm keep bf16 where the fine ones return
+    # fp32 (as JAX's), so the agreement bar is 0.99
+    for name in ("da_unet", "TransBTS"):
+        nets = weights_of({layout: get_net(name, 2, N_CLS, (PATCH,) * 3, dtype=bf16, s2d=s2d,
+                                           device="cuda")
+                           for layout, s2d in (("packed", None), ("fine", False))})
+        by_path[f"packed-{name}"] = packed_vs_fine(
+            name, nets, x, batch,
+            {"packed": zoo_expect(name, False), "fine": zoo_expect(name, False, packed=False)},
+            {"packed": zoo_expect(name, True), "fine": zoo_expect(name, True, packed=False)},
+            "FocalLoss", False, 0.99, args.seed)
+        del nets
+    del x, case, batch
+    torch.cuda.empty_cache()
+    emit("packed_phase", seconds=time.perf_counter() - t0)
+    return main, by_path
 
 
 def phase_unetr_norms(gen) -> dict:
@@ -1284,10 +1589,16 @@ def phase_unetr_norms(gen) -> dict:
     return per
 
 
-def zoo_expect(name: str, train: bool) -> dict:
+def zoo_expect(name: str, train: bool, packed: bool = True) -> dict:
     """Launches of one zoo forward (or train step): UNETR's InstanceNorms
-    (one backward each in a step), none for the others."""
+    (one backward each in a step); packed (the default), TransBTS's InitConv,
+    the one packed conv that is not of the shift-free pair, shifts its packed
+    input once (no backward: the input needs no gradient); none for the
+    others (the DAUNet family's packed level 0 runs the shift-free pair and
+    plain BatchNorms)."""
     expect = dict.fromkeys(KERNELS, 0)
+    if name == "TransBTS" and packed:
+        expect["shift_pack"] = 1
     if name == "unetr":
         norms = sum(n for _, n in IN_UNETR)
         expect.update(instance_norm_relu=norms,
@@ -1444,14 +1755,18 @@ def phase_zoo_journey(args, work: str, case_format: str, device: str = "cuda") -
     return counts
 
 
-def hdf2d_expect(args, train: bool = False) -> dict:
+def hdf2d_expect(args, train: bool = False, packed: bool = True) -> dict:
     """Launches of one HDenseFormer_2D_32 forward at PI-CAI22 (3 modality
     paths of depth attentions, 18 InstanceNorms), or of one train step with
     get_net's remat: the forward and its recompute, a backward per norm."""
     n = 2 if train else 1
-    return {"dense_attention": n * SLICE_CH * args.depth, "instance_norm_relu": n * 18,
+    shifted = HDF_SHIFTED if packed else 0  # level 0's first BasicConvs, at full rank
+    return {"dense_attention": n * SLICE_CH * args.depth,
+            "instance_norm_relu": n * (HDF_NORMS - shifted),
             "shift_pack": 0, "shift_pack_backward": 0,
-            "instance_norm_relu_backward": 18 if train else 0}
+            "instance_norm_relu_backward": HDF_NORMS - shifted if train else 0,
+            "instance_norm_relu_shifted": n * shifted,
+            "instance_norm_relu_shifted_backward": shifted if train else 0}
 
 
 def phase_2d_kernels(args, gen) -> dict:
@@ -1936,8 +2251,7 @@ def phase_trainer(args, work: str, case_format: str, device: str = "cuda") -> di
 def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     on_card = run.device == "cuda"
     forward = hdf_expect(args)
-    train_expect = dict(hdf_expect(args, train=True), dense_attention=4 * args.depth,
-                        instance_norm_relu=36)  # remat: the forward kernels run twice
+    train_expect = hdf_expect(args, train=True, remat=True)  # the forward kernels run twice
     cfg = run.config("HDenseFormer_32", TRAIN_EPOCHS)
     train, val = run.split(cfg, paths)
     n_train, n_val = -(-len(train) // cfg.batch_size), -(-len(val) // cfg.batch_size)
@@ -2103,8 +2417,7 @@ def remat_memory(args, net_name: str = "HDenseFormer_32") -> dict:
                   False: dict(HECKTOR_TRAIN_EXPECT, instance_norm_relu=30, shift_pack=4)}
     else:
         expect = {False: hdf_expect(args, train=True),
-                  True: dict(hdf_expect(args, train=True), dense_attention=4 * args.depth,
-                             instance_norm_relu=36)}
+                  True: hdf_expect(args, train=True, remat=True)}
     emit("remat_memory", net=net_name, batch=2, patch=args.patch, depth=args.depth,
          dtype="bfloat16", remat_on=peaks[True], remat_off=peaks[False])
     for remat in (True, False):
@@ -2152,6 +2465,9 @@ def main() -> int:
     phase_remat_compare(args)
     remat_memory(args)
     remat_memory(args, "hecktor20top1")
+    packed_main, packed_paths = phase_packed(args, gen)
+    main_shapes.update(packed_main)
+    by_path.update(packed_paths)
     t_zoo = time.perf_counter()
     unetr = phase_unetr_norms(gen)
     main_shapes["instance_norm_relu"].update(

@@ -43,6 +43,21 @@
 //      (evict-first) stores so that it does not push x out of L2.
 // There are no atomics and every merge has a fixed order, so reruns agree bit
 // for bit.
+//
+// Shifted mode (kShifted, the same kernels instantiated again). Replaces:
+// hdenseformer_tpu/ops/fused_norm.py::instance_norm_relu with shifted=dims
+// (plain XLA in JAX, not Pallas): the norm after a packed conv that writes the
+// half-shifted layout (ops/s2d.py::conv3_packed_p2s). x is that tensor, (N,
+// *s, f * C) with f = 2^npk, taken as the view (N, S = prod(s) * f, C): row r
+// is cell r >> npk, parity block r & (f - 1). Some rows are pad slots that hold
+// conv garbage: per packed dim j (the leading one the high bit of the block),
+// the cell's coordinate is 0 where the block's bit is 1, or s_j - 1 where it
+// is 0. Each thread decodes that from the row index (Shift, is_pad), so no
+// mask is read. Pad rows are left out of the sums by selection (never
+// multiplied by 0: their values may be anything), each chunk's count of valid
+// rows goes to finalize in place of the chunk's length, and normalize writes 0
+// there: the next conv reads them as the fine conv's zero padding. Row 0 (cell
+// 0, block 0), the shift x0, is valid whenever every s_j >= 2.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -96,6 +111,30 @@ __device__ __forceinline__ void merge(float& n, float& mean, float& m2, float nb
   n = nn;
 }
 
+// The pad slots of a packed-shifted (N, S, C) view: npk packed dims (0 in
+// the unshifted mode), and for each, leading first, its extent in cells and
+// the cells between neighbours along it.
+struct Shift {
+  int npk;
+  int ext[3];
+  int stride[3];
+};
+
+// Is row r of a sample a pad slot? (See the shifted mode above.)
+__device__ __forceinline__ bool is_pad(const Shift& sh, long long r) {
+  const unsigned cell = (unsigned)(r >> sh.npk);
+  const unsigned p = (unsigned)r & ((1u << sh.npk) - 1u);
+  bool pad = false;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (j < sh.npk) {
+      const unsigned co = (cell / (unsigned)sh.stride[j]) % (unsigned)sh.ext[j];
+      pad |= (p >> (sh.npk - 1 - j)) & 1u ? co == 0u : co == (unsigned)sh.ext[j] - 1u;
+    }
+  }
+  return pad;
+}
+
 // Launch geometry shared by kernels 1 and 3.
 struct Geom {
   long long S;  // rows per sample
@@ -106,10 +145,11 @@ struct Geom {
   int K;        // chunks per sample
 };
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 __global__ void __launch_bounds__(kThreads)
 partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
-                     float* __restrict__ part_m2, Geom gm) {
+                     float* __restrict__ part_m2, float* __restrict__ part_cnt, Geom gm,
+                     Shift sh) {
   using V = Vec<T, R>;
   constexpr int CV = kCV<T, R>;
   // last chunk first: the end of x, which its producer wrote last, may
@@ -126,6 +166,7 @@ partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
   float x0[CV], s1[CV], s2[CV];
 #pragma unroll
   for (int j = 0; j < CV; ++j) x0[j] = s1[j] = s2[j] = 0.f;
+  int valid = kShifted ? 0 : mine;  // rows summed
   if (mine > 0) {
     // the shift: row 0 of the sample, the same for every block of (n, c)
     V first;
@@ -141,20 +182,23 @@ partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
         if (i + u < mine) v[u].raw = p[(i + u) * step];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (i + u < mine) {
+        bool use = i + u < mine;
+        if constexpr (kShifted) use = use && !is_pad(sh, r0 + g + (long long)(i + u) * rpb);
+        if (use) {
 #pragma unroll
           for (int j = 0; j < CV; ++j) {
             const float d = Elem<T>::load(v[u].e[j]) - x0[j];
             s1[j] += d;
             s2[j] = fmaf(d, d, s2[j]);
           }
+          if constexpr (kShifted) ++valid;
         }
       }
     }
   }
   // (count, mean, M2) of this thread's rows, then a tree over the row groups
-  float cnt = (float)mine, mean[CV], m2[CV];
-  const float inv = mine > 0 ? 1.f / cnt : 0.f;
+  float cnt = (float)valid, mean[CV], m2[CV];
+  const float inv = valid > 0 ? 1.f / cnt : 0.f;
 #pragma unroll
   for (int j = 0; j < CV; ++j) {
     const float d = s1[j] * inv;
@@ -192,18 +236,21 @@ partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
       part_mean[off] = mean[j];
       part_m2[off] = m2[j];
     }
+    // the chunk's valid rows, the same for every sample and channel
+    if (kShifted && n == 0 && vi == 0) part_cnt[k] = cnt;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 finalize_kernel(const float* __restrict__ part_mean, const float* __restrict__ part_m2,
-                float* __restrict__ stats, long long S, int C, long long chunk, int K,
-                float eps) {
+                const float* __restrict__ part_cnt, float* __restrict__ stats, long long S,
+                int C, long long chunk, int K, float eps) {
   const int c = blockIdx.x, n = blockIdx.y;
   const long long base = ((long long)n * C + c) * K;
   float cn = 0.f, mean = 0.f, m2 = 0.f;
   for (int k = threadIdx.x; k < K; k += kThreads) {
-    const float nb = (float)min(chunk, S - (long long)k * chunk);
+    // rows of chunk k: all of them, or its valid ones in the shifted mode
+    const float nb = part_cnt ? part_cnt[k] : (float)min(chunk, S - (long long)k * chunk);
     merge(cn, mean, m2, nb, part_mean[base + k], part_m2[base + k]);
   }
   __shared__ float s_n[kThreads], s_mean[kThreads], s_m2[kThreads];
@@ -227,11 +274,11 @@ finalize_kernel(const float* __restrict__ part_mean, const float* __restrict__ p
   }
 }
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 __global__ void __launch_bounds__(kThreads)
 normalize_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                  const float* __restrict__ scale, const float* __restrict__ bias,
-                 T* __restrict__ y, Geom gm, int relu) {
+                 T* __restrict__ y, Geom gm, int relu, Shift sh) {
   using V = Vec<T, R>;
   constexpr int CV = kCV<T, R>;
   // reverse order of kernel 1: the chunks it read last come first
@@ -268,11 +315,13 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     for (int u = 0; u < kUnroll; ++u) {
       if (i + u < mine) {
         V o;
+        bool pad = false;
+        if constexpr (kShifted) pad = is_pad(sh, r0 + g + (long long)(i + u) * rpb);
 #pragma unroll
         for (int j = 0; j < CV; ++j) {
           float t = fmaf((Elem<T>::load(v[u].e[j]) - x0[j]) - mean[j], a[j], b[j]);
           if (relu) t = fmaxf(t, 0.f);
-          o.e[j] = Elem<T>::store(t);
+          o.e[j] = Elem<T>::store(pad ? 0.f : t);
         }
         __stcs(q + (i + u) * step, o.raw);
       }
@@ -280,10 +329,10 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   }
 }
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 int launch(const void* x, const float* scale, const float* bias, void* y, float* part,
            float* stats, int N, long long S, int C, int CT, long long chunk, int K,
-           float eps, int relu, cudaStream_t stream) {
+           float eps, int relu, Shift sh, cudaStream_t stream) {
   constexpr int CV = kCV<T, R>;
   Geom gm;
   gm.S = S;
@@ -299,31 +348,46 @@ int launch(const void* x, const float* scale, const float* bias, void* y, float*
   gm.m = (int)(chunk / rpb);
   float* part_mean = part;
   float* part_m2 = part + (long long)N * C * K;
+  float* part_cnt = kShifted ? part + 2LL * N * C * K : nullptr;
   const dim3 grid(K, N, (gm.vpr + gm.tv - 1) / gm.tv);
-  partial_stats_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), part_mean, part_m2, gm);
-  finalize_kernel<<<dim3(C, N), kThreads, 0, stream>>>(part_mean, part_m2, stats, S, C,
-                                                       chunk, K, eps);
-  normalize_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), stats, scale, bias, static_cast<T*>(y), gm, relu);
+  partial_stats_kernel<T, R, kShifted><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), part_mean, part_m2, part_cnt, gm, sh);
+  finalize_kernel<<<dim3(C, N), kThreads, 0, stream>>>(part_mean, part_m2, part_cnt, stats,
+                                                       S, C, chunk, K, eps);
+  normalize_kernel<T, R, kShifted><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), stats, scale, bias, static_cast<T*>(y), gm, relu, sh);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kShifted>
 int launch_vec(int vec_bytes, const void* x, const float* scale, const float* bias,
                void* y, float* part, float* stats, int N, long long S, int C, int CT,
-               long long chunk, int K, float eps, int relu, cudaStream_t s) {
+               long long chunk, int K, float eps, int relu, Shift sh, cudaStream_t s) {
   switch (vec_bytes) {
-    case 16: return launch<T, uint4>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, s);
-    case 8: return launch<T, uint2>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, s);
-    case 4: return launch<T, unsigned>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, s);
+    case 16: return launch<T, uint4, kShifted>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, sh, s);
+    case 8: return launch<T, uint2, kShifted>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, sh, s);
+    case 4: return launch<T, unsigned, kShifted>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, sh, s);
     case 2:
       if constexpr (sizeof(T) == 2)
-        return launch<T, unsigned short>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, s);
+        return launch<T, unsigned short, kShifted>(x, scale, bias, y, part, stats, N, S, C, CT, chunk, K, eps, relu, sh, s);
       else
         return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// A Shift from the C interface's arguments; false if they do not describe
+// npk in 1..3 packed dims of extent >= 2 (row 0, the shift, must be valid)
+// whose cells number S / 2^npk, fewer than 2^31.
+bool make_shift(Shift& sh, long long S, int npk, const int* ext, const int* stride) {
+  sh.npk = npk;
+  if (npk < 1 || npk > 3 || S % (1LL << npk) || (S >> npk) >= (1LL << 31)) return false;
+  for (int j = 0; j < 3; ++j) {
+    sh.ext[j] = j < npk ? ext[j] : 1;
+    sh.stride[j] = j < npk ? stride[j] : 1;
+    if (sh.ext[j] < 1 || sh.stride[j] < 1 || (j < npk && sh.ext[j] < 2)) return false;
+  }
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -381,6 +445,11 @@ int launch_vec(int vec_bytes, const void* x, const float* scale, const float* bi
 // since L2 already serves most of the second read up to ~100 MB and shared
 // memory holds 5 % of x and dy at (1, 144^3, 32). One launch saves the three
 // passes' and the dscale and dbias sums' launches.
+//
+// Shifted mode (kShifted; replaces fused_norm.py::_bwd_rule with shifted=dims):
+// the forward's shifted mode above. Pad rows are skipped by (a), so dy there
+// is ignored and dscale and dbias leave them out; (c) writes dx = 0 there; m
+// is the count of valid rows, which the caller passes.
 
 constexpr int kBwdMinBlocks = 2;  // blocks a multiprocessor holds: <= 128 registers a thread
 constexpr int kMaxTile = 64;      // channels of a tile, at most (128 bytes of bf16)
@@ -463,6 +532,7 @@ struct BwdGeom {
   int tv;           // threads per row in a channel tile (power of two)
   int tiles;        // channel tiles: ceil(vpr / tv)
   int P;            // parts per (n, tile)
+  float m;          // rows in the statistics: S, or the valid ones in the shifted mode
 };
 
 // Item `it` of the plan: sample, channel tile, part, and the count of its
@@ -503,12 +573,12 @@ __device__ __forceinline__ void ring_walk(long long count, Issue issue, Use use)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ stats, const float* __restrict__ scale,
                       const float* __restrict__ bias, T* __restrict__ dx, float2* part,
-                      float2* tsum, float* __restrict__ dsb, BwdGeom gm, int relu) {
+                      float2* tsum, float* __restrict__ dsb, BwdGeom gm, int relu, Shift sh) {
   using V = Vec<T, R>;
   constexpr int CV = kCV<T, R>;
   constexpr int kWarps = kThreads / 32;
@@ -571,7 +641,11 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     ring_walk<D>(
         k.w.count, [&](long long u, int slot) { issue(k, u, slot); },
         [&](long long u, int slot) {
-          if (row(k, u) < 0) return;
+          const long long r = row(k, u);
+          if (r < 0) return;
+          if constexpr (kShifted) {
+            if (is_pad(sh, r)) return;
+          }
           V vx, vd;
           vx.raw = ring[2 * slot][tid];
           vd.raw = ring[2 * slot + 1][tid];
@@ -658,7 +732,7 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     if (k.on) {
       V first_row;
       first_row.raw = xv[k.base];
-      const float m = (float)gm.S;
+      const float m = kShifted ? gm.m : (float)gm.S;
 #pragma unroll
       for (int j = 0; j < CV; ++j) {
         const long long nc = (long long)k.w.n * gm.C + k.vi * CV + j;
@@ -679,23 +753,25 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           V vx, vd, o;
           vx.raw = ring[2 * slot][tid];
           vd.raw = ring[2 * slot + 1][tid];
+          bool pad = false;
+          if constexpr (kShifted) pad = is_pad(sh, r);
 #pragma unroll
           for (int j = 0; j < CV; ++j) {
             const float xf = Elem<T>::load(vx.e[j]);
             const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd.e[j]) : 0.f;
-            o.e[j] = Elem<T>::store(
-                fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j])));
+            const float d = fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j]));
+            o.e[j] = Elem<T>::store(pad ? 0.f : d);
           }
           __stcs(out + k.base + r * gm.vpr, o.raw);
         });
   }
 }
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 int launch_bwd(const void* x, const void* dy, const float* stats, const float* scale,
                const float* bias, void* dx, float* part, long long part_floats, float* tsum,
                float* dsb, int N, long long S, int C, int CT, int P, int grid, int relu,
-               cudaStream_t stream) {
+               float m, Shift sh, cudaStream_t stream) {
   constexpr int CV = kCV<T, R>;
   BwdGeom gm;
   gm.S = S;
@@ -704,6 +780,7 @@ int launch_bwd(const void* x, const void* dy, const float* stats, const float* s
   gm.vpr = C / CV;
   gm.tv = CT / CV;
   gm.P = P;
+  gm.m = m;
   if (C % CV || CT % CV || gm.tv < 1 || gm.tv > 32 || (gm.tv & (gm.tv - 1)) ||
       CT > kMaxTile || P < 1 || N < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
@@ -719,8 +796,9 @@ int launch_bwd(const void* x, const void* dy, const float* stats, const float* s
   float2* pp = reinterpret_cast<float2*>(part);
   float2* tp = reinterpret_cast<float2*>(tsum);
   void* args[] = {(void*)&xp, (void*)&dyp, (void*)&stats, (void*)&scale, (void*)&bias,
-                  (void*)&dxp, (void*)&pp, (void*)&tp, (void*)&dsb, (void*)&gm, (void*)&relu};
-  const int err = (int)cudaLaunchCooperativeKernel((const void*)bwd_persistent_kernel<T, R>,
+                  (void*)&dxp, (void*)&pp, (void*)&tp, (void*)&dsb, (void*)&gm, (void*)&relu,
+                  (void*)&sh};
+  const int err = (int)cudaLaunchCooperativeKernel((const void*)bwd_persistent_kernel<T, R, kShifted>,
                                                    dim3(grid), dim3(kThreads), args, 0, stream);
   // a refused launch also sets the runtime's last error: clear it, so that
   // the next launch's check does not report it again
@@ -728,39 +806,39 @@ int launch_bwd(const void* x, const void* dy, const float* stats, const float* s
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename R>
+template <typename T, typename R, bool kShifted>
 int bwd_blocks_per_sm() {
   int blocks = 0;
   const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, bwd_persistent_kernel<T, R>, kThreads, 0);
+      &blocks, bwd_persistent_kernel<T, R, kShifted>, kThreads, 0);
   return err ? -err : blocks;
 }
 
-template <typename T>
+template <typename T, bool kShifted>
 int bwd_blocks_per_sm_vec(int vec_bytes) {
   switch (vec_bytes) {
-    case 16: return bwd_blocks_per_sm<T, uint4>();
-    case 8: return bwd_blocks_per_sm<T, uint2>();
-    case 4: return bwd_blocks_per_sm<T, unsigned>();
+    case 16: return bwd_blocks_per_sm<T, uint4, kShifted>();
+    case 8: return bwd_blocks_per_sm<T, uint2, kShifted>();
+    case 4: return bwd_blocks_per_sm<T, unsigned, kShifted>();
     case 2:
-      if constexpr (sizeof(T) == 2) return bwd_blocks_per_sm<T, unsigned short>();
+      if constexpr (sizeof(T) == 2) return bwd_blocks_per_sm<T, unsigned short, kShifted>();
       else return -(int)cudaErrorInvalidValue;
     default: return -(int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool kShifted>
 int launch_bwd_vec(int vec_bytes, const void* x, const void* dy, const float* stats,
                    const float* scale, const float* bias, void* dx, float* part,
                    long long part_floats, float* tsum, float* dsb, int N, long long S, int C,
-                   int CT, int P, int grid, int relu, cudaStream_t s) {
+                   int CT, int P, int grid, int relu, float m, Shift sh, cudaStream_t s) {
   switch (vec_bytes) {
-    case 16: return launch_bwd<T, uint4>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
-    case 8: return launch_bwd<T, uint2>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
-    case 4: return launch_bwd<T, unsigned>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
+    case 16: return launch_bwd<T, uint4, kShifted>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m, sh, s);
+    case 8: return launch_bwd<T, uint2, kShifted>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m, sh, s);
+    case 4: return launch_bwd<T, unsigned, kShifted>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m, sh, s);
     case 2:
       if constexpr (sizeof(T) == 2)
-        return launch_bwd<T, unsigned short>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
+        return launch_bwd<T, unsigned short, kShifted>(x, dy, stats, scale, bias, dx, part, part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m, sh, s);
       else
         return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
@@ -784,12 +862,36 @@ extern "C" int hdf_instance_norm_relu(const void* x, const float* scale,
                                       long long S, int C, int CT, int chunk, int K,
                                       float eps, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shift sh{};
   if (dtype == 0)
-    return launch_vec<float>(vec_bytes, x, scale, bias, y, part, stats, N, S, C, CT,
-                             chunk, K, eps, relu, s);
+    return launch_vec<float, false>(vec_bytes, x, scale, bias, y, part, stats, N, S, C, CT,
+                                    chunk, K, eps, relu, sh, s);
   if (dtype == 1)
-    return launch_vec<__nv_bfloat16>(vec_bytes, x, scale, bias, y, part, stats, N, S, C,
-                                     CT, chunk, K, eps, relu, s);
+    return launch_vec<__nv_bfloat16, false>(vec_bytes, x, scale, bias, y, part, stats, N, S,
+                                            C, CT, chunk, K, eps, relu, sh, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// hdf_instance_norm_relu in the shifted mode: x (and y) is the (N, S, C) view
+// of a packed-shifted (N, *s, 2^npk * C) tensor, ext and stride give its npk
+// packed dims, leading first (extent in cells, cells between neighbours), and
+// part holds 2 * N * C * K + K floats (the last K: each chunk's valid rows).
+// Statistics leave the pad rows out; y is 0 there.
+extern "C" int hdf_instance_norm_relu_shifted(const void* x, const float* scale,
+                                              const float* bias, void* y, float* part,
+                                              float* stats, int dtype, int vec_bytes, int N,
+                                              long long S, int C, int CT, int chunk, int K,
+                                              float eps, int relu, int npk, const int* ext,
+                                              const int* stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Shift sh;
+  if (!make_shift(sh, S, npk, ext, stride)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_vec<float, true>(vec_bytes, x, scale, bias, y, part, stats, N, S, C, CT,
+                                   chunk, K, eps, relu, sh, s);
+  if (dtype == 1)
+    return launch_vec<__nv_bfloat16, true>(vec_bytes, x, scale, bias, y, part, stats, N, S,
+                                           C, CT, chunk, K, eps, relu, sh, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -815,19 +917,49 @@ extern "C" int hdf_instance_norm_relu_bwd(const void* x, const void* dy, const f
                                           long long S, int C, int CT, int P, int grid,
                                           int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shift sh{};
   if (dtype == 0)
-    return launch_bwd_vec<float>(vec_bytes, x, dy, stats, scale, bias, dx, part, part_floats,
-                                 tsum, dsb, N, S, C, CT, P, grid, relu, s);
+    return launch_bwd_vec<float, false>(vec_bytes, x, dy, stats, scale, bias, dx, part,
+                                        part_floats, tsum, dsb, N, S, C, CT, P, grid, relu,
+                                        (float)S, sh, s);
   if (dtype == 1)
-    return launch_bwd_vec<__nv_bfloat16>(vec_bytes, x, dy, stats, scale, bias, dx, part,
-                                         part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, s);
+    return launch_bwd_vec<__nv_bfloat16, false>(vec_bytes, x, dy, stats, scale, bias, dx, part,
+                                                part_floats, tsum, dsb, N, S, C, CT, P, grid,
+                                                relu, (float)S, sh, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the backward kernel that one multiprocessor holds at once, or
-// minus the CUDA error.
-extern "C" int hdf_instance_norm_relu_bwd_blocks_per_sm(int dtype, int vec_bytes) {
-  if (dtype == 0) return bwd_blocks_per_sm_vec<float>(vec_bytes);
-  if (dtype == 1) return bwd_blocks_per_sm_vec<__nv_bfloat16>(vec_bytes);
+// hdf_instance_norm_relu_bwd in the shifted mode: x, dy and dx as the
+// forward's shifted mode takes x, stats what it wrote, m its count of valid
+// rows a sample. dy at pad rows is ignored and dx is 0 there. The plan's grid
+// comes from hdf_instance_norm_relu_bwd_blocks_per_sm(dtype, vec_bytes, 1).
+extern "C" int hdf_instance_norm_relu_bwd_shifted(
+    const void* x, const void* dy, const float* stats, const float* scale, const float* bias,
+    void* dx, float* part, long long part_floats, float* tsum, float* dsb, int dtype,
+    int vec_bytes, int N, long long S, int C, int CT, int P, int grid, int relu, float m,
+    int npk, const int* ext, const int* stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Shift sh;
+  if (!make_shift(sh, S, npk, ext, stride) || !(m >= 1.f)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd_vec<float, true>(vec_bytes, x, dy, stats, scale, bias, dx, part,
+                                       part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m,
+                                       sh, s);
+  if (dtype == 1)
+    return launch_bwd_vec<__nv_bfloat16, true>(vec_bytes, x, dy, stats, scale, bias, dx, part,
+                                               part_floats, tsum, dsb, N, S, C, CT, P, grid,
+                                               relu, m, sh, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the backward kernel (the shifted mode's where `shifted`) that
+// one multiprocessor holds at once, or minus the CUDA error.
+extern "C" int hdf_instance_norm_relu_bwd_blocks_per_sm(int dtype, int vec_bytes, int shifted) {
+  if (dtype == 0)
+    return shifted ? bwd_blocks_per_sm_vec<float, true>(vec_bytes)
+                   : bwd_blocks_per_sm_vec<float, false>(vec_bytes);
+  if (dtype == 1)
+    return shifted ? bwd_blocks_per_sm_vec<__nv_bfloat16, true>(vec_bytes)
+                   : bwd_blocks_per_sm_vec<__nv_bfloat16, false>(vec_bytes);
   return -(int)cudaErrorInvalidValue;
 }

@@ -46,26 +46,25 @@ def get_net(
     returned in eval mode; ``train/loop.py``'s step puts it in training,
     where HDenseFormer's dropout (0.5) draws from the generator it is given.
 
-    ``s2d`` is honoured for Hecktor20Top1 as in JAX: None packs level 1 when
-    ``input_shape`` is 3-D with even dims, True forces it (a ``ValueError``
-    at odd dims, as JAX raises, also for the DAUNet family), False keeps the
-    fine grid; the dict form that packs level 2 raises
-    ``NotImplementedError``. For HDenseFormer, the DAUNet family and
-    TransBTS it is otherwise ignored: the port runs the fine grid, equal
-    math (JAX's tests hold packed equal to fine), since their packed levels
-    use the shift-free conv pair and the packed BatchNorm and GroupNorm, not
-    ported yet (ROADMAP.md queue 1 item 4). ``remat`` is ignored for the 3-D
-    zoo, as JAX's get_net passes it to none of them; a BatchNorm model must
-    not be checkpointed anyway, since the recompute would update its running
-    statistics a second time.
+    ``s2d`` means what it means in JAX, for every model that takes it: the
+    space-to-depth packed execution of the narrow full-resolution levels
+    (``ops/s2d.py``), equal math in another layout, decided from
+    ``input_shape``. None applies JAX's rule: HDenseFormer packs its levels
+    of at most 32 channels (in 3-D over (H, W), in 2-D at full rank),
+    Hecktor20Top1 level 1 (3-D, even dims), the DAUNet family level 0 (not
+    the residual builder), TransBTS levels 0 and 1. False keeps the fine
+    grid; True forces packing (a ``ValueError`` at odd dims for the DAUNet
+    family and Hecktor20Top1, as JAX raises); HDenseFormer, Hecktor20Top1
+    and TransBTS also take JAX's dict form {level: True | dims}.
+    ``remat`` is ignored for the 3-D zoo, as JAX's get_net passes it to none
+    of them; a BatchNorm model must not be checkpointed anyway, since the
+    recompute would update its running statistics a second time.
 
     The 2-D baselines ``unet``, ``unet++`` and ``deeplabv3+`` take
     ``encoder_name`` (resnet18, resnet34 or resnet50; None raises
     ``ValueError``, as in JAX) and return ``[masks, class_logits]``: an aux
     head of ``num_classes - 1`` classes. ``remat`` and ``s2d`` do not reach
-    them, as in JAX. HDenseFormer_2D_32/_16 take a 2-D ``input_shape`` and
-    run the fine grid: JAX's 2-D default packs its narrow levels, equal
-    math, held against the port by the tests.
+    them, as in JAX. HDenseFormer_2D_32/_16 take a 2-D ``input_shape``.
 
     The parameters are uninitialised: fill them with
     ``models.layers.init_weights`` or ``weights.load_jax_params``.
@@ -93,16 +92,17 @@ def get_net(
         if net_name == "unet_3d":
             depths = tuple(input_shape[0] // (2 ** k) for k in range(5))
             net = daunet.DAUNet(channels, num_classes, depths=depths, conv_builder="plain",
-                                dtype=dtype, device=device)
+                                dtype=dtype, s2d=s2d, device=device)
         else:
             net = getattr(daunet, net_name)(init_depth=input_shape[0], n_channels=channels,
-                                            n_classes=num_classes, dtype=dtype, device=device)
+                                            n_classes=num_classes, dtype=dtype, s2d=s2d,
+                                            device=device)
         return net.eval()
     if net_name == "TransBTS":
         from hdenseformer_tpu_torch.models.transbts import TransBTS
 
         return TransBTS(n_channels=channels, num_classes=num_classes, img_dim=input_shape,
-                        dtype=dtype, device=device).eval()
+                        dtype=dtype, s2d=s2d, device=device).eval()
     if net_name == "unetr":
         from hdenseformer_tpu_torch.models.unetr import UNETR
 
@@ -123,4 +123,5 @@ def get_net(
     from hdenseformer_tpu_torch.models import hdenseformer
 
     return getattr(hdenseformer, net_name)(channels, num_classes, input_shape,
-                                           transformer_depth, remat=remat, **kw).eval()
+                                           transformer_depth, remat=remat, s2d=s2d,
+                                           **kw).eval()

@@ -1,4 +1,4 @@
-"""H-DenseFormer, 2-D and 3-D, fine grid.
+"""H-DenseFormer, 2-D and 3-D.
 
 Counterpart of ``hdenseformer_tpu/models/hdenseformer.py``: each input
 modality runs through its own densely connected transformer over 16^d-patch
@@ -14,11 +14,19 @@ Differences from the JAX module, none of which changes the function:
 - The modality paths are a ``ModuleList`` of ``DenseTransformerBlock``s,
   run one after the other, where JAX runs one ``nn.vmap`` over stacked
   parameters; ``weights.from_jax_params`` splits the stacked axis.
-- Every UNet level runs on the fine grid. JAX packs by default
-  (space-to-depth, ``s2d=None``): in 3-D level 0 over (H, W), in 2-D every
-  level of at most 32 channels at full rank (levels 0-1 of ``_16``, level
-  0 of ``_32``). Its tests hold packed equal to fine in 3-D; the port's
-  tests hold the fine grid against JAX's packed 2-D default too.
+- ``s2d`` is JAX's: the UNet levels of fewer than 128 channels may run
+  space-to-depth packed (``ops/s2d.py``), each through the shift-free conv
+  pair (the first ``BasicConv`` writes the half-shifted layout, its norm is
+  the shifted InstanceNorm, the second reads it back), with ``up3`` and the
+  level's transposed conv emitting the packed layout directly. None is
+  JAX's default: in 3-D every level of at most 32 channels packs over
+  (H, W) (level 0 of ``_32``, levels 0-1 of ``_16``), in 2-D at full rank;
+  False keeps the fine grid; True, a tuple of levels or a dict {level:
+  True | dims} choose as in JAX (``packed_levels``). Where JAX decides at
+  each call from the input's shape, the port decides once, from
+  ``image_size``; an input whose shape would pack otherwise raises. Block
+  names, and so ``REMAT_BLOCKS`` and the weight bridge, are the same in
+  either layout.
 - Dropout (flax semantics, ``layers.dropout``) draws from an explicit
   ``torch.Generator`` passed to ``forward``; in training with p > 0 a
   missing generator raises. JAX splits its dropout key per modality path;
@@ -50,6 +58,7 @@ from hdenseformer_tpu_torch.models.layers import (
 )
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
 from hdenseformer_tpu_torch.ops.resize import max_pool, resize_nearest
+from hdenseformer_tpu_torch.ops.s2d import concat_packed, max_pool_packed, pack, unpack
 
 PATCH = 16  # tokens are PATCH^d patches
 GROWTH = 32  # width of the transformer's features
@@ -70,6 +79,40 @@ REMAT_BLOCKS = {
                          for side in ("left", "right")} | {"upconv_1", "upconv_2"}),
     False: frozenset(),
 }
+
+
+def packed_levels(s2d, n_filters: int, spatial: Sequence[int], levels: int = 3) -> tuple:
+    """JAX's ``lvl_dims`` for each of the first ``levels`` UNet levels at
+    input shape ``spatial``: None (fine grid) or the tuple of packed dims.
+
+    A level of 2^lvl * n_filters channels packs when it has fewer than 128
+    and its fine grid is even on the packed dims. ``s2d`` None: in 3-D the
+    levels of at most 32 channels over (H, W), in 2-D at full rank; a dict
+    {level: True | dims}; a tuple or list of levels (full rank); else
+    ``bool(s2d)`` for every level (full rank).
+    """
+    nsp = len(spatial)
+    use = True if s2d is None else s2d
+    out = []
+    for lvl in range(levels):
+        ch = 2 ** lvl * n_filters
+        if isinstance(use, dict):
+            spec = use.get(lvl, False)
+        elif isinstance(use, (tuple, list)):
+            spec = lvl in use
+        elif s2d is None:
+            spec = False if ch > 32 else ((1, 2) if nsp == 3 else True)
+        else:
+            spec = bool(use)
+        if spec is False or ch >= 128:
+            out.append(None)
+            continue
+        dims = tuple(range(nsp)) if spec is True else tuple(spec)
+        fine = [s // 2 ** lvl for s in spatial]
+        ok = all(fine[i] > 0 and fine[i] % 2 == 0 and spatial[i] % 2 ** lvl == 0
+                 for i in dims)
+        out.append(dims if ok else None)
+    return tuple(out)
 
 
 def remat_call(fn, *args, generator: Optional[torch.Generator] = None):
@@ -225,14 +268,16 @@ class HDenseFormer(nn.Module):
     ``generator``. The model is built in eval mode, as flax applies it with
     ``train=False`` unless asked: ``.train()`` turns dropout on. ``remat``
     in {True, "encoder", "levels", False} checkpoints JAX's blocks
-    (``REMAT_BLOCKS``) whenever gradients are recorded.
+    (``REMAT_BLOCKS``) whenever gradients are recorded. ``s2d`` packs the
+    narrow levels as JAX's (see the module docstring); ``packed`` holds each
+    level's packed dims or None.
     """
 
     def __init__(self, in_channels: int, n_cls: int, n_filters: int,
                  image_size: Sequence[int] = (144, 144, 144),
                  transformer_depth: int = 12, use_kernels: bool = True,
                  dropout: float = 0.5, remat=False, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 s2d=None, device=None):
         super().__init__()
         nf = n_filters
         image_size = tuple(image_size)
@@ -243,6 +288,8 @@ class HDenseFormer(nn.Module):
         if self.remat not in REMAT_BLOCKS:
             raise ValueError(f"remat must be one of {list(REMAT_BLOCKS)}, got {remat!r}")
         self.remat_blocks = REMAT_BLOCKS[self.remat]
+        self.s2d, self.n_filters = s2d, nf
+        self.packed = pk = packed_levels(s2d, nf, image_size)
         kw = dict(dtype=dtype, ndim=nd, device=device)
         blk = dict(use_kernels=use_kernels, **kw)
         self.attns = nn.ModuleList(
@@ -254,21 +301,31 @@ class HDenseFormer(nn.Module):
         self.deep_conv = UpConv(in_channels * 4 * nf, 8 * nf, **blk)
         self.up1 = UpConv(8 * nf, 4 * nf, **blk)
         self.up2 = UpConv(4 * nf, 2 * nf, **blk)
-        self.up3 = UpConv(2 * nf, nf, **blk)
+        self.up3 = UpConv(2 * nf, nf, packed_out=pk[0] is not None, packed_dims=pk[0], **blk)
         widths = {1: nf, 2: 2 * nf, 3: 4 * nf, 4: 8 * nf}
+
+        def pair(side: str, lvl: int, cin: int, ch: int, dims) -> None:
+            """The level's two BasicConvs: the shift-free pair where packed."""
+            p = dict(packed=True, packed_dims=dims) if dims else {}
+            self.add_module(f"block_{lvl}_1_{side}",
+                            BasicConv(cin, ch, shift="out" if dims else None, **p, **blk))
+            self.add_module(f"block_{lvl}_2_{side}",
+                            BasicConv(ch, ch, shift="in" if dims else None, **p, **blk))
+
         cin = in_channels
         for lvl in (1, 2, 3, 4):
-            ch = widths[lvl]
-            self.add_module(f"block_{lvl}_1_left", BasicConv(cin, ch, **blk))
-            self.add_module(f"block_{lvl}_2_left", BasicConv(ch, ch, **blk))
-            cin = ch
+            pair("left", lvl, cin, widths[lvl], pk[lvl - 1] if lvl < 4 else None)
+            cin = widths[lvl]
         self.head_d3 = Conv(8 * nf, n_cls, 1, out_f32=True, **kw)
         for lvl, head in ((3, "head_d2"), (2, "head_d1"), (1, "head")):
-            ch = widths[lvl]
-            self.add_module(f"upconv_{lvl}", ConvTranspose(2 * ch, ch, 3, 2, 1, 1, **kw))
-            self.add_module(f"block_{lvl}_1_right", BasicConv(2 * ch, ch, **blk))
-            self.add_module(f"block_{lvl}_2_right", BasicConv(ch, ch, **blk))
-            self.add_module(head, Conv(ch, n_cls, 1, out_f32=True, **kw))
+            ch, dims = widths[lvl], pk[lvl - 1]
+            self.add_module(f"upconv_{lvl}", ConvTranspose(
+                2 * ch, ch, 3, 2, 1, 1, packed_out=dims is not None, packed_dims=dims, **kw))
+            pair("right", lvl, 2 * ch, ch, dims)
+            if dims:  # conv1_packed: fp32 out, as the fine head's out_f32
+                self.add_module(head, Conv(ch, n_cls, 1, packed=True, packed_dims=dims, **kw))
+            else:
+                self.add_module(head, Conv(ch, n_cls, 1, out_f32=True, **kw))
         self.eval()
 
     def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -278,6 +335,14 @@ class HDenseFormer(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> list[torch.Tensor]:
+        pk = self.packed
+        if packed_levels(self.s2d, self.n_filters, x.shape[1:-1]) != pk:
+            raise ValueError(
+                f"input {tuple(x.shape)} would pack the levels as "
+                f"{packed_levels(self.s2d, self.n_filters, x.shape[1:-1])}, but this model was "
+                f"built from its image_size to pack them as {pk}: build it at the input's "
+                "spatial shape, or with s2d=False"
+            )
         # modality-major channels, as JAX's moveaxis + reshape of the vmap output
         paths = [x[..., m:m + 1] for m in range(len(self.attns))]
         if "attns" in self.remat_blocks:
@@ -288,23 +353,37 @@ class HDenseFormer(nn.Module):
         attnout = self._block("deep_conv", torch.cat(attnall, dim=-1))  # 1/8
         at1 = self._block("up1", attnout)  # 1/4
         at2 = self._block("up2", at1)  # 1/2
-        at3 = self._block("up3", at2)  # 1/1
+        at3 = self._block("up3", at2)  # 1/1, packed where level 1 packs
 
+        # a packed level runs packed from its input's pack to its max-pool, and
+        # its skip stays packed for the decoder
         skips = []
         h = x
         for lvl, ats in ((1, at3), (2, at2), (3, at1)):
+            dims = pk[lvl - 1]
+            if dims:
+                h = pack(h, dims)
+                if lvl > 1:
+                    ats = pack(ats, dims)
             d = self._block(f"block_{lvl}_1_left", h)
             d = self._block(f"block_{lvl}_2_left", d) + ats
             skips.append(d)
-            h = max_pool(d)
+            h = max_pool_packed(d, dims) if dims else max_pool(d)
         y = self._block("block_4_2_left", self._block("block_4_1_left", h)) + attnout
         outs = [self.head_d3(y)]
         for lvl, head in ((3, "head_d2"), (2, "head_d1"), (1, "head")):
+            dims = pk[lvl - 1]
             up = self._block(f"upconv_{lvl}", y)
-            y = torch.cat([up, skips[lvl - 1]], dim=-1)
+            if dims:
+                y = concat_packed([up, skips[lvl - 1]], dims)
+            else:
+                y = torch.cat([up, skips[lvl - 1]], dim=-1)
             y = self._block(f"block_{lvl}_1_right", y)
             y = self._block(f"block_{lvl}_2_right", y)
-            outs.append(getattr(self, head)(y))
+            out = getattr(self, head)(y)
+            if dims:
+                y, out = unpack(y, dims), unpack(out, dims)
+            outs.append(out)
         return outs[::-1]
 
 

@@ -15,8 +15,13 @@ into the space-to-depth layout of ``ops/s2d.py``, as JAX does: the k7 stem,
 and the 1x1 head run packed, and every k3/k7 conv there goes through the
 half-shift (``ops/shift_pack.py``): 4 launches a forward. ``None`` applies
 JAX's rule to ``image_size`` (pack when 3-D, even dims and ``n_filters`` <=
-32); True and False force it. The packed and fine executions share one
-parameter tree. The dict form that also packs level 2 raises.
+32); True and False force it. The dict form ``{1: bool, 2: True | dims}``
+also packs level 2 over ``dims`` (partial rank, e.g. (2,)) where level 1 is
+packed and level 2's grid is even on those dims: its left and right blocks
+run packed (their convs shift through ``s2d.plain_to_shifted``, not the
+kernel, at partial rank, as in JAX), ``upconv_2`` emits the packed layout
+and ``vision_2`` takes it (``packed_in``). The packed and fine executions
+share one parameter tree.
 
 Where JAX decides the packing at each call from the input's shape, the port
 decides it once, from ``image_size``, when it builds the modules; a packed
@@ -47,8 +52,6 @@ from hdenseformer_tpu_torch.ops.s2d import (
     unpack,
     upsample2x_packed,
 )
-
-LEVEL2_PACKING = "ROADMAP.md queue 1 item 4 (partial-rank s2d packing of level 2)"
 
 
 class SEWeights(nn.Module):
@@ -82,14 +85,15 @@ class FastSmoothSENorm(nn.Module):
 
     def __init__(self, in_channels: int, reduction: int = 2,
                  dtype: Optional[torch.dtype] = None, packed: bool = False,
-                 use_kernels: bool = True, device=None):
+                 use_kernels: bool = True, packed_dims=None, device=None):
         super().__init__()
         self.packed = packed
         kw = dict(dtype=dtype, packed=packed, device=device)
         self.gamma = SEWeights(in_channels, reduction, **kw)
         self.beta = SEWeights(in_channels, reduction, **kw)
         self.norm = InstanceNorm(in_channels, affine=False, fuse_relu=False,
-                                 use_kernels=use_kernels, packed=packed, device=device)
+                                 use_kernels=use_kernels, packed=packed,
+                                 packed_dims=packed_dims, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gamma = torch.sigmoid(self.gamma(x))
@@ -102,17 +106,20 @@ class FastSmoothSENorm(nn.Module):
 
 
 class FastSmoothSeNormConv(nn.Module):
-    """conv -> ReLU -> FastSmoothSENorm; ``packed`` runs it all packed."""
+    """conv -> ReLU -> FastSmoothSENorm; ``packed`` runs it all packed over
+    ``packed_dims``."""
 
     def __init__(self, in_channels: int, out_channels: int, reduction: int = 2,
                  kernel_size: int = 3, padding: int = 1,
                  dtype: Optional[torch.dtype] = None, packed: bool = False,
-                 use_kernels: bool = True, device=None):
+                 use_kernels: bool = True, packed_dims=None, device=None):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel_size, 1, padding, dtype=dtype,
-                         packed=packed, use_kernels=use_kernels, device=device)
+                         packed=packed, packed_dims=packed_dims, use_kernels=use_kernels,
+                         device=device)
         self.norm = FastSmoothSENorm(out_channels, reduction, dtype, packed=packed,
-                                     use_kernels=use_kernels, device=device)
+                                     use_kernels=use_kernels, packed_dims=packed_dims,
+                                     device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(F.relu(self.conv(x)))
@@ -125,9 +132,10 @@ class RESseNormConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, reduction: int = 2,
                  kernel_size: int = 3, padding: int = 1,
                  dtype: Optional[torch.dtype] = None, packed: bool = False,
-                 use_kernels: bool = True, device=None):
+                 use_kernels: bool = True, packed_dims=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, packed=packed, use_kernels=use_kernels, device=device)
+        kw = dict(dtype=dtype, packed=packed, use_kernels=use_kernels, packed_dims=packed_dims,
+                  device=device)
         self.conv1 = FastSmoothSeNormConv(in_channels, out_channels, reduction, kernel_size,
                                           padding, **kw)
         self.res_conv = (
@@ -145,19 +153,24 @@ class VisionUp(nn.Module):
 
     ``packed_out`` emits the packed-plain layout of the upsampled grid:
     ``upsample2x_packed`` at scale 2, the fine upsample then ``pack`` at 4
-    and 8.
+    and 8. ``packed_in`` (a dims tuple) takes an input packed over those
+    dims: the 1x1 conv runs packed, then unpacks before the upsample.
     """
 
     def __init__(self, in_channels: int, out_channels: int, scale: int,
                  reduction: int = 2, dtype: Optional[torch.dtype] = None,
-                 packed_out: bool = False, use_kernels: bool = True, device=None):
+                 packed_out: bool = False, use_kernels: bool = True, packed_in=None,
+                 device=None):
         super().__init__()
-        self.scale, self.packed_out = scale, packed_out
+        self.scale, self.packed_out, self.packed_in = scale, packed_out, packed_in
         self.conv = FastSmoothSeNormConv(in_channels, out_channels, reduction, 1, 0, dtype,
-                                         use_kernels=use_kernels, device=device)
+                                         packed=packed_in is not None, use_kernels=use_kernels,
+                                         packed_dims=packed_in, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        if self.packed_in is not None:
+            x = unpack(x, self.packed_in)
         if self.packed_out:
             if self.scale == 2:
                 return upsample2x_packed(x)
@@ -165,16 +178,23 @@ class VisionUp(nn.Module):
         return upsample_linear(x, self.scale)
 
 
-def packs_level1(s2d, n_filters: int, image_size: Sequence[int]) -> bool:
-    """JAX's level-1 packing rule (``Hecktor20Top1.__call__``) on ``image_size``."""
+def packed_levels(s2d, n_filters: int, image_size: Sequence[int]) -> tuple:
+    """JAX's packing rule (``Hecktor20Top1.__call__``) on ``image_size``:
+    (level 1 packed, level 2's packed dims or None)."""
+    pk2 = None
     if isinstance(s2d, dict):
-        if s2d.get(2):
-            raise NotImplementedError(f"s2d={s2d!r} packs level 2: {LEVEL2_PACKING}")
-        return bool(s2d.get(1, False))
-    if s2d is None:
-        return (n_filters <= 32 and len(image_size) == 3
-                and all(s % 2 == 0 for s in image_size))
-    return bool(s2d)
+        pk = bool(s2d.get(1, False))
+        spec2 = s2d.get(2, None)
+        if spec2:
+            pk2 = tuple(range(len(image_size))) if spec2 is True else tuple(spec2)
+    elif s2d is None:
+        pk = (n_filters <= 32 and len(image_size) == 3
+              and all(s % 2 == 0 for s in image_size))
+    else:
+        pk = bool(s2d)
+    if pk2 is not None and not (pk and all((image_size[d] // 2) % 2 == 0 for d in pk2)):
+        pk2 = None  # level 2's grid must be even on the packed dims
+    return pk, pk2
 
 
 class Hecktor20Top1(nn.Module):
@@ -189,28 +209,34 @@ class Hecktor20Top1(nn.Module):
         image_size = tuple(image_size)
         if len(image_size) != 3:
             raise ValueError(f"the port's Hecktor20Top1 is 3-D, got image_size {image_size}")
-        self.packed = pk = packs_level1(s2d, nf, image_size)
+        self.packed, self.packed2 = pk, pk2 = packed_levels(s2d, nf, image_size)
         kw = dict(dtype=dtype, use_kernels=use_kernels, device=device)
 
-        def res(cin, cout, k=3, packed=False):
-            return RESseNormConv(cin, cout, r, k, k // 2, packed=packed, **kw)
+        def res(cin, cout, k=3, packed=False, dims=None):
+            return RESseNormConv(cin, cout, r, k, k // 2, packed=packed, packed_dims=dims, **kw)
 
-        def sen(cin, cout, packed=False):
-            return FastSmoothSeNormConv(cin, cout, r, 3, 1, packed=packed, **kw)
+        def sen(cin, cout, packed=False, dims=None):
+            return FastSmoothSeNormConv(cin, cout, r, 3, 1, packed=packed, packed_dims=dims,
+                                        **kw)
 
         self.block_1_1_left = res(in_channels, nf, k=7, packed=pk)
         self.block_1_2_left = res(nf, nf, packed=pk)
         cin = nf
         for lvl, width in ((2, 2 * nf), (3, 4 * nf), (4, 8 * nf), (5, 16 * nf)):
+            p2 = dict(packed=True, dims=pk2) if lvl == 2 and pk2 else {}
             for i in range(1, 4):
-                self.add_module(f"block_{lvl}_{i}_left", res(cin, width))
+                self.add_module(f"block_{lvl}_{i}_left", res(cin, width, **p2))
                 cin = width
         up = dict(dtype=dtype, device=device)
         for lvl, width, scale in ((4, 8 * nf, 8), (3, 4 * nf, 4), (2, 2 * nf, 2)):
-            self.add_module(f"upconv_{lvl}", ConvTranspose(2 * width, width, 3, 2, 1, 1, **up))
-            self.add_module(f"block_{lvl}_1_right", sen(2 * width, width))
-            self.add_module(f"block_{lvl}_2_right", sen(width, width))
-            self.add_module(f"vision_{lvl}", VisionUp(width, nf, scale, r, packed_out=pk, **kw))
+            p2 = dict(packed=True, dims=pk2) if lvl == 2 and pk2 else {}
+            self.add_module(f"upconv_{lvl}", ConvTranspose(
+                2 * width, width, 3, 2, 1, 1, packed_out=bool(p2), packed_dims=p2.get("dims"),
+                **up))
+            self.add_module(f"block_{lvl}_1_right", sen(2 * width, width, **p2))
+            self.add_module(f"block_{lvl}_2_right", sen(width, width, **p2))
+            self.add_module(f"vision_{lvl}", VisionUp(width, nf, scale, r, packed_out=pk,
+                                                      packed_in=p2.get("dims"), **kw))
         self.upconv_1 = ConvTranspose(2 * nf, nf, 3, 2, 1, 1, packed_out=pk, **up)
         self.block_1_1_right = sen(2 * nf, nf, packed=pk)
         self.block_1_2_right = sen(nf, nf, packed=pk)
@@ -237,23 +263,34 @@ class Hecktor20Top1(nn.Module):
                 f"this Hecktor20Top1 packs level 1 and takes even spatial dims, got "
                 f"{tuple(x.shape)}; build it with s2d=False for odd dims"
             )
+        pk2 = self.packed2
         h = pack(x) if self.packed else x
         ds0 = self._block("block_1_2_left", self._block("block_1_1_left", h))
         h = max_pool_packed(ds0) if self.packed else max_pool(ds0)
         skips = []
         for lvl in (2, 3, 4, 5):
-            if lvl > 2:
+            if lvl == 3 and pk2:
+                h = max_pool_packed(h, pk2)
+            elif lvl > 2:
                 h = max_pool(h)
+            elif pk2:
+                h = pack(h, pk2)
             for i in range(1, 4):
                 h = self._block(f"block_{lvl}_{i}_left", h)
             skips.append(h)
         h = skips.pop()
         visions = []
         for lvl in (4, 3, 2):
-            h = torch.cat([getattr(self, f"upconv_{lvl}")(h), skips.pop()], dim=-1)
+            up = getattr(self, f"upconv_{lvl}")(h)
+            if lvl == 2 and pk2:
+                h = concat_packed([up, skips.pop()], pk2)
+            else:
+                h = torch.cat([up, skips.pop()], dim=-1)
             h = self._block(f"block_{lvl}_1_right", h)
             h = self._block(f"block_{lvl}_2_right", h)
             visions.append(getattr(self, f"vision_{lvl}")(h))
+        if pk2:
+            h = unpack(h, pk2)  # upconv_1 reads the fine grid
         sv4, sv3, sv2 = visions
         up1 = self.upconv_1(h)
         h = concat_packed([up1, ds0]) if self.packed else torch.cat([up1, ds0], dim=-1)

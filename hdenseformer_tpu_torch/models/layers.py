@@ -1,4 +1,4 @@
-"""Building blocks of the port, fine grid.
+"""Building blocks of the port, on the fine grid and packed.
 
 Counterpart of ``hdenseformer_tpu/models/layers.py``. As there, every module
 takes and returns channels-last ``(N, *spatial, C)`` tensors, keeps fp32
@@ -18,13 +18,15 @@ Parameters are created uninitialised, as flax modules hold none until
 initialisation, drawn on the CPU so that a seed gives the same weights on
 every device) or load them with ``weights.load_jax_params``.
 
-The space-to-depth packed arguments run at full rank (``ops/s2d.py``):
-``Conv(packed=True)`` for odd kernels and for k1, ``ConvTranspose(
-packed_out=True)`` for k3 s2 p1 op1, and ``InstanceNorm(packed=True)``,
-which is what Hecktor20Top1's level 1 runs. Not ported here: partial-rank
-packing (``packed_dims`` naming fewer dims raises), the shift-free conv pair
-(``packed_shift``/``shift``, HDenseFormer's packed level 0), the packed
-BatchNorm and GroupNorm (ROADMAP.md queue 1 item 4), 1-D convolutions.
+The space-to-depth packed arguments are JAX's (``ops/s2d.py``), in 2-D and
+3-D, over ``packed_dims`` (None: every spatial dim): ``Conv(packed=True)``
+for odd SAME kernels, k1 and stride-2 convs, with ``packed_shift`` "out" or
+"in" for the shift-free pair; ``ConvTranspose(packed_out=True)`` for k3 s2
+p1 op1 and k2 s2; ``InstanceNorm(packed=True[, shifted=True])``, and
+``BatchNorm``/``GroupNorm`` called with ``packed_dims`` (and ``shifted``);
+``BasicConv(packed=True, shift=...)`` and ``UpConv(packed_out=True)``. A
+shifted norm follows a ``packed_shift="out"`` conv and zeroes its pad slots
+for the ``"in"`` conv after it. Not ported: 1-D convolutions.
 
 ``BatchNorm`` and ``GroupNorm`` hold the parameters that JAX keeps one
 module deeper, under ``BatchNorm_0`` and ``GroupNorm_0``;
@@ -44,7 +46,20 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu_ref,
 )
 from hdenseformer_tpu_torch.ops.resize import upsample_linear
-from hdenseformer_tpu_torch.ops.s2d import conv1_packed, conv_transpose_packed, convk_packed
+from hdenseformer_tpu_torch.ops.s2d import (
+    _pdims,
+    apply_shifted_mask,
+    conv1_packed,
+    conv3_packed_s2p,
+    conv_s2_packed,
+    conv_transpose2_packed,
+    conv_transpose_packed,
+    convk_packed,
+    convk_packed_p2s,
+    group_norm_relu_packed,
+    shifted_count,
+    upsample2x_packed,
+)
 
 # the memory format of a conv weight of rank 4 / 5, channels last
 _CL = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -71,30 +86,44 @@ class Conv(nn.Module):
     the weight rounded to ``dtype``, as the JAX heads multiply bf16 operands
     with fp32 accumulation; the logits are never rounded to bf16.
 
-    ``packed=True`` takes and returns the s2d packed-plain layout (the same
-    weight): an odd kernel with SAME padding runs ``ops.s2d.convk_packed``
-    (the half-shift through the kernel wrapper, or its plain version when
-    ``use_kernels`` is False), k1 runs ``conv1_packed``, which returns fp32
-    as JAX's does.
+    ``packed=True`` takes the s2d packed-plain layout over ``packed_dims``
+    (the same weight): an odd kernel with SAME padding runs
+    ``ops.s2d.convk_packed`` (at full rank the half-shift through the kernel
+    wrapper, or its plain version when ``use_kernels`` is False), k1 runs
+    ``conv1_packed``, which returns fp32 as JAX's does, and stride 2 runs
+    ``conv_s2_packed``, which returns the unpacked coarse grid.
+    ``packed_shift`` selects the shift-free pair: "out" returns the
+    packed-shifted layout (``convk_packed_p2s``; its pad slots, bias
+    included, are garbage until a shifted norm zeroes them), "in" takes it
+    (``conv3_packed_s2p``, k3).
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, out_f32: bool = False,
                  packed: bool = False, packed_dims=None, use_kernels: bool = True,
-                 dilation: int = 1, ndim: int = 3, device=None):
+                 dilation: int = 1, ndim: int = 3, packed_shift: Optional[str] = None,
+                 device=None):
         super().__init__()
         k = kernel_size
-        if packed and (stride != 1 or k % 2 != 1 or padding != k // 2 or out_f32
-                       or dilation != 1 or ndim != 3):
+        if packed and (stride not in (1, 2) or k % 2 != 1 or padding != k // 2 or out_f32
+                       or dilation != 1 or ndim not in (2, 3)
+                       or packed_shift not in (None, "out", "in")
+                       or (packed_shift and (k < 3 or stride != 1))
+                       or (packed_shift == "in" and k != 3)
+                       or (stride == 2 and k == 1)):
             raise ValueError(
-                f"a packed conv is 3-D, SAME and stride 1 with an odd, undilated kernel: got "
+                "a packed conv is 2-D or 3-D and SAME with an odd, undilated kernel, stride 1 "
+                "(shift 'out': k >= 3, 'in': k3) or 2 (k >= 3, no shift): got "
                 f"k{k}, stride {stride}, padding {padding}, dilation {dilation}, ndim {ndim}, "
-                f"out_f32 {out_f32}"
+                f"out_f32 {out_f32}, packed_shift {packed_shift!r}"
             )
+        if not packed and packed_shift is not None:
+            raise ValueError("packed_shift needs packed=True")
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.dtype, self.out_f32 = dtype, out_f32
         self.packed, self.packed_dims, self.use_kernels = packed, packed_dims, use_kernels
+        self.packed_shift = packed_shift
         self.weight = nn.Parameter(torch.empty(features, in_features, *(k,) * ndim,
                                                device=device))
         self.bias = (
@@ -110,10 +139,16 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         if self.packed:
+            dims = self.packed_dims
+            if self.stride == 2:
+                return conv_s2_packed(x, self.weight, self.bias, dt, dims)
             if self.weight.shape[-1] == 1:
-                return conv1_packed(x, self.weight, self.bias, self.packed_dims)
-            return convk_packed(x, self.weight, self.bias, dt, self.packed_dims,
-                                self.use_kernels)
+                return conv1_packed(x, self.weight, self.bias, dims)
+            if self.packed_shift == "out":
+                return convk_packed_p2s(x, self.weight, self.bias, dt, dims)
+            if self.packed_shift == "in":
+                return conv3_packed_s2p(x, self.weight, self.bias, dt, dims)
+            return convk_packed(x, self.weight, self.bias, dt, dims, self.use_kernels)
         w = self.weight.to(dt, memory_format=_CL[self.weight.dim()])
         conv = _CONV[self.weight.dim()]
         if self.out_f32:
@@ -131,23 +166,28 @@ class ConvTranspose(nn.Module):
 
     The JAX module stores the spatially flipped equivalent-conv kernel
     (*k, in, out); ``weights.from_jax_params`` flips it back.
-    ``packed_out=True`` (k3, s2, p1, op1 only) emits the s2d packed-plain
-    layout of the upsampled grid (``ops.s2d.conv_transpose_packed``).
+    ``packed_out=True`` emits the s2d packed-plain layout of the upsampled
+    grid over ``packed_dims``: k3 s2 p1 op1 through
+    ``ops.s2d.conv_transpose_packed``, k2 s2 (full rank) through
+    ``conv_transpose2_packed``.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
                  use_bias: bool = True, dtype: Optional[torch.dtype] = None,
-                 packed_out: bool = False, ndim: int = 3, device=None):
+                 packed_out: bool = False, packed_dims=None, ndim: int = 3, device=None):
         super().__init__()
         k = kernel_size
-        if packed_out and ((k, stride, padding, output_padding) != (3, 2, 1, 1) or ndim != 3):
+        if packed_out and ((k, stride, padding, output_padding) not in ((3, 2, 1, 1), (2, 2, 0, 0))
+                           or ndim not in (2, 3)
+                           or (k == 2 and len(_pdims(ndim, packed_dims)) != ndim)):
             raise ValueError(
-                "a packed-output ConvTranspose is 3-D, k3 s2 p1 op1, got "
-                f"k{k} s{stride} p{padding} op{output_padding} ndim {ndim}"
+                "a packed-output ConvTranspose is 2-D or 3-D, k3 s2 p1 op1 or k2 s2 (full "
+                f"rank), got k{k} s{stride} p{padding} op{output_padding} ndim {ndim} "
+                f"packed_dims {packed_dims}"
             )
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
-        self.dtype, self.packed_out = dtype, packed_out
+        self.dtype, self.packed_out, self.packed_dims = dtype, packed_out, packed_dims
         self.weight = nn.Parameter(torch.empty(in_features, features, *(k,) * ndim,
                                                device=device))
         self.bias = (
@@ -164,7 +204,8 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         if self.packed_out:
-            return conv_transpose_packed(x, self.weight, self.bias, dt)
+            up = conv_transpose2_packed if self.weight.shape[-1] == 2 else conv_transpose_packed
+            return up(x, self.weight, self.bias, dt, self.packed_dims)
         w = self.weight.to(dt, memory_format=_CL[self.weight.dim()])
         b = None if self.bias is None else self.bias.to(dt)
         y = _CONV_T[self.weight.dim()](x.to(dt).movedim(-1, 1), w, b, self.stride,
@@ -204,17 +245,24 @@ class InstanceNorm(nn.Module):
     selects the kernel wrapper (the CUDA kernel for a CUDA tensor) or the
     plain version.
 
-    ``packed=True`` takes an s2d packed tensor (N, *g, f*features) and pools
-    each channel's statistics over (spatial, parity): with parity-major
-    channels that is the plain per-channel norm of the free view
-    (N, g*f, features), so the same kernel runs on it.
+    ``packed=True`` takes an s2d packed tensor (N, *g, f*features) over
+    ``packed_dims`` and pools each channel's statistics over (spatial,
+    parity): with parity-major channels that is the plain per-channel norm of
+    the free view (N, g*f, features), so the same kernel runs on it.
+    ``shifted=True`` takes the packed-shifted output of a ``packed_shift=
+    "out"`` conv: the kernel's shifted mode leaves the pad slots out of the
+    statistics and writes 0 there.
     """
 
     def __init__(self, features: int, affine: bool = True, fuse_relu: bool = False,
-                 use_kernels: bool = True, packed: bool = False, device=None):
+                 use_kernels: bool = True, packed: bool = False, packed_dims=None,
+                 shifted: bool = False, device=None):
         super().__init__()
+        if shifted and not packed:
+            raise ValueError("a shifted InstanceNorm is packed")
         self.features = features
         self.fuse_relu, self.use_kernels, self.packed = fuse_relu, use_kernels, packed
+        self.packed_dims, self.shifted = packed_dims, shifted
         if affine:
             self.weight = nn.Parameter(torch.empty(features, device=device))
             self.bias = nn.Parameter(torch.empty(features, device=device))
@@ -228,6 +276,9 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = instance_norm_relu if self.use_kernels else instance_norm_relu_ref
+        if self.shifted:
+            dims = _pdims(x.dim() - 2, self.packed_dims)
+            return fn(x, self.weight, self.bias, EPS, self.fuse_relu, shifted=dims)
         if self.packed:
             y = fn(x.reshape(x.shape[0], -1, self.features), self.weight, self.bias, EPS,
                    self.fuse_relu)
@@ -248,6 +299,14 @@ class BatchNorm(nn.Module):
     normalisation and the output are fp32 whatever the input's dtype; the
     next conv casts back. The state is the buffers ``mean`` and ``var``
     (initially 0 and 1), JAX's ``batch_stats`` leaves.
+
+    ``forward(x, packed_dims=...)`` takes an s2d packed x over those dims
+    (JAX ``_PackedBatchNorm``, plain torch): the statistics of each channel
+    pool over (batch, space, parity blocks), with ``shifted`` less the pad
+    slots of a packed-shifted x (zero in the output), ``fuse_relu`` applies
+    the ReLU, and the output keeps x's dtype, as JAX's packed path does. The
+    running statistics follow the same bookkeeping from the pooled set, so
+    one state serves both layouts.
     """
 
     def __init__(self, features: int, device=None):
@@ -264,7 +323,10 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, packed_dims=None, shifted: bool = False,
+                fuse_relu: bool = False) -> torch.Tensor:
+        if packed_dims is not None:
+            return self._packed(x, packed_dims, shifted, fuse_relu)
         x32 = x.float()
         if self.training and x.numel() == x.shape[-1]:  # m = 1
             with torch.no_grad():
@@ -276,11 +338,47 @@ class BatchNorm(nn.Module):
                          self.training, MOMENTUM, EPS)
         return y.movedim(1, -1)
 
+    def _packed(self, x: torch.Tensor, dims, shifted: bool, relu: bool) -> torch.Tensor:
+        nsp = x.dim() - 2
+        pd = _pdims(nsp, dims)
+        f = 2 ** len(pd)
+        c = x.shape[-1] // f
+
+        def per_channel(v):  # (.., f*C) summed over batch, space and parity -> (C,)
+            v = apply_shifted_mask(v, pd) if shifted else v
+            return v.sum(tuple(range(x.dim() - 1))).reshape(f, c).sum(0)
+
+        x32 = x.float()
+        if self.training:
+            m = x.shape[0] * (shifted_count(x.shape[1:-1], pd) if shifted
+                              else f * math.prod(x.shape[1:-1]))
+            mean = per_channel(x32) / m
+            d = x32 - mean.repeat(f)
+            var = per_channel(d.square()) / m
+            y = d * torch.rsqrt(var + EPS).repeat(f) * self.weight.repeat(f) + self.bias.repeat(f)
+            with torch.no_grad():
+                self.mean.mul_(1.0 - MOMENTUM).add_(MOMENTUM * mean)
+                self.var.mul_(1.0 - MOMENTUM).add_(MOMENTUM * var * (m / (m - 1)))
+        else:
+            inv = torch.rsqrt(self.var + EPS)
+            g = (inv * self.weight).repeat(f)
+            y = x32 * g + (self.bias - self.mean * inv * self.weight).repeat(f)
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        if shifted:
+            y = apply_shifted_mask(y, pd)
+        return y.to(x.dtype)
+
 
 class GroupNorm(nn.Module):
     """``flax.linen.GroupNorm(num_groups, dtype=float32)`` (TransBTS's
     GroupNorm(8)): consecutive channels form a group; fp32 statistics and an
-    fp32 output; affine."""
+    fp32 output; affine.
+
+    ``forward(x, packed_dims=...)`` takes an s2d packed x (JAX
+    ``_PackedGroupNorm``: ``s2d.group_norm_relu_packed``, the groups pooled
+    over the parity blocks, with ``shifted`` less the pad slots), with
+    ``fuse_relu`` the ReLU, and returns x's dtype, as JAX's packed path."""
 
     def __init__(self, features: int, num_groups: int = 8, device=None):
         super().__init__()
@@ -292,7 +390,11 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, packed_dims=None, shifted: bool = False,
+                fuse_relu: bool = False) -> torch.Tensor:
+        if packed_dims is not None:
+            return group_norm_relu_packed(x, self.weight, self.bias, self.num_groups, EPS,
+                                          fuse_relu, packed_dims, shifted)
         y = F.group_norm(x.float().movedim(-1, 1), self.num_groups, self.weight, self.bias,
                          EPS)
         return y.movedim(1, -1)
@@ -317,33 +419,49 @@ class LayerNorm(nn.Module):
 
 class BasicConv(nn.Module):
     """Conv3x3 (no bias) + InstanceNorm (affine) + ReLU (JAX ``BasicConv``),
-    2-D or 3-D by ``ndim``."""
+    2-D or 3-D by ``ndim``.
+
+    ``packed``: packed-plain over ``packed_dims``; ``shift`` "out" returns
+    the packed-shifted layout (its norm is the shifted one), "in" takes it:
+    chained, the two run two fine SAME convs with no shift copy.
+    """
 
     def __init__(self, in_features: int, features: int, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, ndim: int = 3, device=None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 3, packed: bool = False,
+                 packed_dims=None, shift: Optional[str] = None, device=None):
         super().__init__()
         self.conv = Conv(in_features, features, 3, 1, 1, use_bias=False, dtype=dtype,
-                         ndim=ndim, device=device)
+                         packed=packed, packed_dims=packed_dims, use_kernels=use_kernels,
+                         ndim=ndim, packed_shift=shift, device=device)
         self.norm = InstanceNorm(features, affine=True, fuse_relu=True,
-                                 use_kernels=use_kernels, device=device)
+                                 use_kernels=use_kernels, packed=packed,
+                                 packed_dims=packed_dims, shifted=shift == "out", device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.conv(x))
 
 
 class UpConv(nn.Module):
-    """Conv3x3 + InstanceNorm (no affine) + ReLU + bi/trilinear upsample x2."""
+    """Conv3x3 + InstanceNorm (no affine) + ReLU + bi/trilinear upsample x2.
+
+    ``packed_out`` emits the upsampled grid packed-plain over ``packed_dims``
+    (``ops.s2d.upsample2x_packed``)."""
 
     def __init__(self, in_features: int, features: int, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None, ndim: int = 3, device=None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 3, packed_out: bool = False,
+                 packed_dims=None, device=None):
         super().__init__()
+        self.packed_out, self.packed_dims = packed_out, packed_dims
         self.conv = Conv(in_features, features, 3, 1, 1, use_bias=True,
                          dtype=dtype, ndim=ndim, device=device)
         self.norm = InstanceNorm(features, affine=False, fuse_relu=True,
                                  use_kernels=use_kernels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_linear(self.norm(self.conv(x)), 2)
+        y = self.norm(self.conv(x))
+        if self.packed_out:
+            return upsample2x_packed(y, self.packed_dims)
+        return upsample_linear(y, 2)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -30,11 +30,21 @@ replay a mask drawn elsewhere.
 embedding has a row per token of the 1/8 grid, which the port fixes when
 it builds the model (JAX sizes it from the input at ``init``).
 
-The port runs the fine grid. JAX's default (``s2d=None``) packs levels 0
-and 1; its tests hold packed equal to fine in fp32, and in bf16 its packed
-GroupNorm and BatchNorm keep the input dtype. The packed path waits for
-ROADMAP.md queue 1 item 4. The token grid is the input's 1/8 by
-construction (JAX's ``patch_dim`` of 8).
+``s2d`` is JAX's: levels 0 and 1 (16 and 32 channels) may run
+space-to-depth packed (``ops/s2d.py``). None packs both at full rank where
+their grids are even, False keeps the fine grid, True forces full rank, and
+a dict {level: True | dims} chooses the rank per level. Where JAX decides at
+each call from the input's shape, the port decides once, from ``img_dim``
+(``packed``), and raises on an input that would pack otherwise. A packed
+level runs its GroupNorm-ReLU-conv chain packed (the shift-free pair inside
+each ``EnBlock``, the packed GroupNorm of ``layers.GroupNorm``, which keeps
+the input's dtype), its ``EnDown`` reads packed-plain and writes the next
+level's fine grid (``s2d.conv_s2_packed``), and its skip stays packed. A
+full-rank packed level's ``DeUp`` emits the packed layout from the k2
+transposed conv (one matmul), its 1x1 convs run packed (fp32 out, as JAX's
+``conv1_packed``), and its ``DeBlock`` is the shift-free pair with packed
+BatchNorms; a partial-rank skip is unpacked for a fine decoder. The token
+grid is the input's 1/8 by construction (JAX's ``patch_dim`` of 8).
 """
 from __future__ import annotations
 
@@ -55,42 +65,79 @@ from hdenseformer_tpu_torch.models.layers import (
     gelu_exact,
     self_attention,
 )
+from hdenseformer_tpu_torch.ops.s2d import concat_packed, pack, unpack
 
 CHANNEL_DROPOUT = 0.2  # the encoder's, fixed where TransBTSModel builds it, as in JAX
 
 
-class EnBlock(nn.Module):
-    """GN-ReLU-conv x2 plus the input."""
+def packed_levels(s2d, spatial) -> tuple:
+    """JAX's ``TransBTSModel._lvl_dims`` of levels 0 and 1 at input shape
+    ``spatial``: None (fine grid) or the tuple of packed dims each."""
+    nsp = len(spatial)
+    use = True if s2d is None else s2d
+    out = []
+    for lvl in (0, 1):
+        if isinstance(use, dict):
+            spec = use.get(lvl, False)
+        elif isinstance(use, (tuple, list)):
+            spec = lvl in use
+        else:
+            spec = bool(use)
+        if spec is False:
+            out.append(None)
+            continue
+        dims = tuple(range(nsp)) if spec is True else tuple(spec)
+        fine = [s // 2 ** lvl for s in spatial]
+        ok = all(fine[i] > 0 and fine[i] % 2 == 0 and spatial[i] % 2 ** lvl == 0
+                 for i in dims)
+        out.append(dims if ok else None)
+    return tuple(out)
 
-    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None, device=None):
+
+class EnBlock(nn.Module):
+    """GN-ReLU-conv x2 plus the input; packed-plain over ``packed_dims``
+    where given, the convs the shift-free pair."""
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None, packed_dims=None,
+                 device=None):
         super().__init__()
+        self.dims = packed_dims
+        p = dict(packed=True, packed_dims=packed_dims) if packed_dims else {}
         kw = dict(dtype=dtype, device=device)
         self.bn1 = GroupNorm(channels, device=device)
-        self.conv1 = Conv(channels, channels, 3, 1, 1, **kw)
+        self.conv1 = Conv(channels, channels, 3, 1, 1, packed_shift="out" if p else None,
+                          **p, **kw)
         self.bn2 = GroupNorm(channels, device=device)
-        self.conv2 = Conv(channels, channels, 3, 1, 1, **kw)
+        self.conv2 = Conv(channels, channels, 3, 1, 1, packed_shift="in" if p else None,
+                          **p, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dims:
+            h = self.conv1(self.bn1(x, packed_dims=self.dims, fuse_relu=True))
+            h = self.bn2(h, packed_dims=self.dims, shifted=True, fuse_relu=True)
+            return self.conv2(h) + x
         h = self.conv1(F.relu(self.bn1(x)))
         return self.conv2(F.relu(self.bn2(h))) + x
 
 
 class UnetEncoder(nn.Module):
     """The 4-level encoder to the 1/8 grid; returns the three skips and the
-    bottom feature map."""
+    bottom feature map. ``pk`` holds levels 0 and 1's packed dims or None;
+    a packed level's skip is returned packed."""
 
     def __init__(self, in_channels: int, base_channels: int = 16,
                  dropout: float = CHANNEL_DROPOUT, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 pk: tuple = (None, None), device=None):
         super().__init__()
-        bc, self.p = base_channels, dropout
+        bc, self.p, self.pk = base_channels, dropout, tuple(pk)
         kw = dict(dtype=dtype, device=device)
-        self.InitConv = Conv(in_channels, bc, 3, 1, 1, **kw)
-        self.EnBlock1 = EnBlock(bc, **kw)
-        self.EnDown1 = Conv(bc, 2 * bc, 3, 2, 1, **kw)
-        self.EnBlock2_1 = EnBlock(2 * bc, **kw)
-        self.EnBlock2_2 = EnBlock(2 * bc, **kw)
-        self.EnDown2 = Conv(2 * bc, 4 * bc, 3, 2, 1, **kw)
+        p0, p1 = (dict(packed=True, packed_dims=d) if d else {} for d in self.pk)
+        self.InitConv = Conv(in_channels, bc, 3, 1, 1, **p0, **kw)
+        self.EnBlock1 = EnBlock(bc, packed_dims=self.pk[0], **kw)
+        self.EnDown1 = Conv(bc, 2 * bc, 3, 2, 1, **p0, **kw)
+        self.EnBlock2_1 = EnBlock(2 * bc, packed_dims=self.pk[1], **kw)
+        self.EnBlock2_2 = EnBlock(2 * bc, packed_dims=self.pk[1], **kw)
+        self.EnDown2 = Conv(2 * bc, 4 * bc, 3, 2, 1, **p1, **kw)
         self.EnBlock3_1 = EnBlock(4 * bc, **kw)
         self.EnBlock3_2 = EnBlock(4 * bc, **kw)
         self.EnDown3 = Conv(4 * bc, 8 * bc, 3, 2, 1, **kw)
@@ -99,21 +146,26 @@ class UnetEncoder(nn.Module):
 
     def channel_keep(self, x: torch.Tensor, generator: Optional[torch.Generator]
                      ) -> torch.Tensor:
-        """The draw of the channel dropout: a (N, 1, 1, 1, C) keep mask, each
-        coin kept with probability 1 - p, from ``generator`` (on x's device)."""
+        """The draw of the channel dropout: a (N, 1, 1, 1, C) keep mask of the
+        C = base_channels channels, each coin kept with probability 1 - p,
+        from ``generator`` (on x's device)."""
         if generator is None:
             raise ValueError("dropout in training needs an explicit torch.Generator")
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.InitConv.weight.shape[0],)
         return torch.rand(shape, generator=generator, device=x.device) >= self.p
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        x = self.InitConv(x)
+        pk0, pk1 = self.pk
+        x = self.InitConv(pack(x, pk0) if pk0 else x)
         if self.training and self.p > 0:
             keep = self.channel_keep(x, generator)
+            if pk0:  # one coin a channel, over its parity blocks
+                keep = keep.repeat((1,) * (x.dim() - 1) + (x.shape[-1] // keep.shape[-1],))
             x = torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))
         x1_1 = self.EnBlock1(x)
-        h = self.EnBlock2_1(self.EnDown1(x1_1))
+        h = self.EnDown1(x1_1)  # the fine grid of level 1
+        h = self.EnBlock2_1(pack(h, pk1) if pk1 else h)
         x2_1 = self.EnBlock2_2(h)
         h = self.EnBlock3_1(self.EnDown2(x2_1))
         x3_1 = self.EnBlock3_2(h)
@@ -154,13 +206,16 @@ class TransBTSModel(nn.Module):
                  embedding_dim: int = 512, num_heads: int = 8, num_layers: int = 4,
                  hidden_dim: int = 4096, dropout_rate: float = 0.1,
                  attn_dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 s2d=None, device=None):
         super().__init__()
         ed = embedding_dim
         dims = (img_dim,) * 3 if isinstance(img_dim, int) else tuple(img_dim)
-        self.num_layers, self.p = num_layers, dropout_rate
+        self.num_layers, self.p, self.s2d = num_layers, dropout_rate, s2d
+        self.packed = pk = packed_levels(s2d, dims)
+        # the DeUp's k2 transposed conv packs at full rank only
+        self.packed_up = pk_up = tuple(d if d and len(d) == len(dims) else None for d in pk)
         kw = dict(dtype=dtype, device=device)
-        self.Unet = UnetEncoder(n_channels, 16, CHANNEL_DROPOUT, **kw)
+        self.Unet = UnetEncoder(n_channels, 16, CHANNEL_DROPOUT, pk=pk, **kw)
         self.bn = BatchNorm(128, device=device)
         self.conv_x = Conv(128, ed, 3, 1, 1, **kw)
         tokens = 1
@@ -179,15 +234,20 @@ class TransBTSModel(nn.Module):
             self.add_module(name, Conv(cin, q, 3, 1, 1, **kw))
             self.add_module(name.replace("conv", "bn"), BatchNorm(q, device=device))
         cin = q
-        for lvl, out, skip in ((4, ed // 8, 64), (3, ed // 16, 32), (2, ed // 32, 16)):
+        for lvl, out, skip, up in ((4, ed // 8, 64, None), (3, ed // 16, 32, pk_up[1]),
+                                   (2, ed // 32, 16, pk_up[0])):
+            p = dict(packed=True, packed_dims=up) if up else {}
             self.add_module(f"DeUp{lvl}_conv1", Conv(cin, out, 1, **kw))
-            self.add_module(f"DeUp{lvl}_conv2", ConvTranspose(out, out, 2, 2, **kw))
-            self.add_module(f"DeUp{lvl}_conv3", Conv(skip + out, out, 1, **kw))
-            for j in (1, 2):
-                self.add_module(f"DeBlock{lvl}_conv{j}", Conv(out, out, 3, 1, 1, **kw))
+            self.add_module(f"DeUp{lvl}_conv2", ConvTranspose(
+                out, out, 2, 2, packed_out=bool(up), packed_dims=up, **kw))
+            self.add_module(f"DeUp{lvl}_conv3", Conv(skip + out, out, 1, **p, **kw))
+            for j, shift in ((1, "out"), (2, "in")):
+                self.add_module(f"DeBlock{lvl}_conv{j}", Conv(
+                    out, out, 3, 1, 1, packed_shift=shift if up else None, **p, **kw))
                 self.add_module(f"DeBlock{lvl}_bn{j}", BatchNorm(out, device=device))
             cin = out
-        self.endconv = Conv(cin, num_classes, 1, device=device)
+        self.endconv = Conv(cin, num_classes, 1, **(
+            dict(packed=True, packed_dims=pk_up[0]) if pk_up[0] else {}), device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.position_embeddings)
@@ -198,15 +258,30 @@ class TransBTSModel(nn.Module):
             x = F.relu(getattr(self, f"{name}bn{j}")(getattr(self, f"{name}conv{j}")(x)))
         return x
 
-    def _deup(self, lvl: int, h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        """``DeUp{lvl}``, then the residual ``DeBlock{lvl}``."""
+    def _deup(self, lvl: int, h: torch.Tensor, skip: torch.Tensor, dims=None) -> torch.Tensor:
+        """``DeUp{lvl}``, then the residual ``DeBlock{lvl}``; packed over
+        ``dims`` where the level's decoder is."""
         h = getattr(self, f"DeUp{lvl}_conv2")(getattr(self, f"DeUp{lvl}_conv1")(h))
+        if dims:
+            h = getattr(self, f"DeUp{lvl}_conv3")(concat_packed([skip, h], dims))
+            h1 = getattr(self, f"DeBlock{lvl}_conv1")(h)
+            h1 = getattr(self, f"DeBlock{lvl}_bn1")(h1, packed_dims=dims, shifted=True,
+                                                    fuse_relu=True)
+            h1 = getattr(self, f"DeBlock{lvl}_conv2")(h1)
+            return getattr(self, f"DeBlock{lvl}_bn2")(h1, packed_dims=dims, fuse_relu=True) + h
         h = getattr(self, f"DeUp{lvl}_conv3")(torch.cat([skip, h.to(skip.dtype)], dim=-1))
         return self._pair(f"DeBlock{lvl}_", h) + h
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         train, p = self.training, self.p
+        pk, pk_up = self.packed, self.packed_up
+        if packed_levels(self.s2d, x.shape[1:-1]) != pk:
+            raise ValueError(
+                f"input {tuple(x.shape)} would pack levels 0-1 as "
+                f"{packed_levels(self.s2d, x.shape[1:-1])}, but this model was built from its "
+                f"img_dim to pack them as {pk}: build it at the input's shape, or with s2d=False"
+            )
         x1_1, x2_1, x3_1, h = self.Unet(x, generator)
         h = self.conv_x(F.relu(self.bn(h)))
         b, grid, ed = h.shape[0], h.shape[1:-1], h.shape[-1]
@@ -222,12 +297,20 @@ class TransBTSModel(nn.Module):
         y = self._pair("Enblock8_1_", y)
         y = self._pair("Enblock8_2_", y) + y
         y = self._deup(4, y, x3_1)
-        y = self._deup(3, y, x2_1)
-        y = self._deup(2, y, x1_1)
+        if pk[1] and not pk_up[1]:
+            x2_1 = unpack(x2_1, pk[1])  # a partial-rank skip: the decoder reads it fine
+        y = self._deup(3, y, x2_1, pk_up[1])
+        if pk_up[1]:
+            y = unpack(y, pk_up[1])  # DeUp2's transposed conv reads the fine grid
+        if pk[0] and not pk_up[0]:
+            x1_1 = unpack(x1_1, pk[0])
+        y = self._deup(2, y, x1_1, pk_up[0])
+        if pk_up[0]:
+            return unpack(self.endconv(y.float()), pk_up[0])
         return self.endconv(y.float())
 
 
-def TransBTS(n_channels=2, num_classes=2, img_dim=144, dtype=None, device=None):
+def TransBTS(n_channels=2, num_classes=2, img_dim=144, dtype=None, s2d=None, device=None):
     """The factory of the JAX package's signature, and ``device``."""
     return TransBTSModel(n_channels=n_channels, num_classes=num_classes, img_dim=img_dim,
-                         dtype=dtype, device=device)
+                         dtype=dtype, s2d=s2d, device=device)

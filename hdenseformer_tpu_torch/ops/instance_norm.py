@@ -22,17 +22,30 @@ positions, biased variance, ``eps``, batch statistics in eval as in train
 - ``launch_plan`` cuts the forward's grid, ``bwd_launch_plan`` the
   backward's: one persistent, co-resident grid that reduces, waits at a
   grid barrier and then writes dx.
+
+``shifted`` (None, or the packed dims of ``ops/s2d.py``, True for all) is
+``fused_norm``'s argument of the same name: x is then a packed-shifted
+tensor (N, *s, f*C), the output of a ``conv3_packed_p2s``, normalised per
+(sample, channel c) over space and the f parity blocks, less the pad slots
+(``s2d.shifted_mask_factors``), which hold conv garbage: they are left out
+of the statistics, their dy is ignored, and y and dx are 0 there. The
+kernels take it as the (N, S*f, C) view whose row r is cell r / f, block r
+% f, and decode each row's pad status from its index. Their launches count
+under ``instance_norm_relu_shifted`` and ``instance_norm_relu_shifted_bwd``.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 from math import prod
 from typing import Optional
 
+import numpy as np
 import torch
 
 from hdenseformer_tpu_torch.ops._build import check, load_library
+from hdenseformer_tpu_torch.ops.s2d import _pdims, shifted_count, shifted_mask_factors
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # kThreads in csrc/instance_norm_relu.cu
@@ -177,16 +190,78 @@ def _bc(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], *(1,) * (x.dim() - 2), v.shape[-1])
 
 
-def instance_norm_stats_ref(x: torch.Tensor, eps: float = 1e-5):
-    """Plain per-(n, c) fp32 mean and rsqrt(var + eps) of (N, *spatial, C)."""
+@dataclass(frozen=True)
+class Shift:
+    """A packed-shifted input: its packed ``dims``, spatial shape ``sshape``,
+    parity blocks ``f`` and the valid rows ``m`` of its (N, S*f, C) view, a
+    sample (``fused_norm._count``)."""
+
+    dims: tuple
+    sshape: tuple
+    f: int
+    m: int
+
+    def args(self) -> tuple:
+        """The C interface's npk, ext and stride: each packed dim's extent in
+        cells and the cells between neighbours along it, leading dim first."""
+        ext = (ctypes.c_int * 3)(*(self.sshape[i] for i in self.dims))
+        stride = (ctypes.c_int * 3)(*(prod(self.sshape[i + 1:]) for i in self.dims))
+        return len(self.dims), ext, stride
+
+
+def shift_of(x: torch.Tensor, shifted) -> Optional[Shift]:
+    """The ``Shift`` of a packed-shifted x (``shifted``: its packed dims, or
+    True for all), or None for None or False. Raises where a packed dim has
+    fewer than 2 cells: row 0 would be a pad, and the kernels shift by it."""
+    if shifted is None or shifted is False:
+        return None
+    nsp = x.dim() - 2
+    dims = _pdims(nsp, None if shifted is True else shifted)
+    sshape = tuple(x.shape[1:-1])
+    f = 2 ** len(dims)
+    if x.shape[-1] % f or any(sshape[i] < 2 for i in dims):
+        raise ValueError(f"{tuple(x.shape)} is not a packed-shifted tensor over dims {dims}")
+    return Shift(dims, sshape, f, shifted_count(sshape, dims))
+
+
+def _rows(x: torch.Tensor, sh: Optional[Shift]):
+    """(the (N, S*f, C) view of a shifted x, its valid rows as a (1, S*f, 1)
+    bool mask) or (x, None) unshifted."""
+    if sh is None:
+        return x, None
+    return x.reshape(x.shape[0], -1, x.shape[-1] // sh.f), _valid_rows(sh, x.device)
+
+
+@lru_cache(maxsize=64)
+def _valid_rows(sh: Shift, device: torch.device) -> torch.Tensor:
+    nsp = len(sh.sshape)
+    valid = np.ones(sh.sshape + (sh.f,), bool)
+    for i, m in shifted_mask_factors(sh.sshape, sh.f, 1, sh.dims):  # (s_i, f) factors
+        valid &= m.reshape((1,) * i + (m.shape[0],) + (1,) * (nsp - 1 - i) + (sh.f,))
+    with torch.inference_mode(False):
+        return torch.from_numpy(valid.reshape(1, -1, 1)).to(device)
+
+
+def _where(valid: Optional[torch.Tensor], v: torch.Tensor) -> torch.Tensor:
+    """v at valid rows, 0 at pad rows (a select: pads may hold anything)."""
+    return v if valid is None else torch.where(valid, v, torch.zeros((), dtype=v.dtype))
+
+
+def instance_norm_stats_ref(x: torch.Tensor, eps: float = 1e-5, shifted=None):
+    """Plain per-(n, c) fp32 mean and rsqrt(var + eps) of (N, *spatial, C),
+    or with ``shifted`` of the valid slots of a packed-shifted (N, *s, f*C),
+    two-pass as ``fused_norm._stats``."""
+    sh = shift_of(x, shifted)
+    x, valid = _rows(x, sh)
     axes = tuple(range(1, x.dim() - 1))
+    m = prod(x.shape[1:-1]) if sh is None else sh.m
     x32 = x.float()
-    mean = x32.mean(axes)
-    var = (x32 - _bc(mean, x)).square().mean(axes)
+    mean = _where(valid, x32).sum(axes) / m
+    var = _where(valid, (x32 - _bc(mean, x)).square()).sum(axes) / m
     return mean, torch.rsqrt(var + eps)
 
 
-def _normalize_ref(x, mean, inv, scale, bias, relu):
+def _normalize_ref(x, mean, inv, scale, bias, relu, valid=None):
     y = (x.float() - _bc(mean, x)) * _bc(inv, x)
     if scale is not None:
         y = y * scale.float()
@@ -194,7 +269,7 @@ def _normalize_ref(x, mean, inv, scale, bias, relu):
         y = y + bias.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return y.to(x.dtype)
+    return _where(valid, y).to(x.dtype)
 
 
 def instance_norm_relu_ref(
@@ -203,13 +278,17 @@ def instance_norm_relu_ref(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
     relu: bool = True,
+    shifted=None,
 ) -> torch.Tensor:
     """Plain fp32-statistics instance norm + optional affine + ReLU.
 
-    x: (N, *spatial, C).
+    x: (N, *spatial, C), or with ``shifted`` a packed-shifted (N, *s, f*C)
+    (``fused_norm.instance_norm_relu(shifted=...)``: pad slots out of the
+    statistics and 0 in the output).
     """
-    mean, inv = instance_norm_stats_ref(x, eps)
-    return _normalize_ref(x, mean, inv, scale, bias, relu)
+    mean, inv = instance_norm_stats_ref(x, eps, shifted)
+    xv, valid = _rows(x, shift_of(x, shifted))
+    return _normalize_ref(xv, mean, inv, scale, bias, relu, valid).reshape(x.shape)
 
 
 def _relu_mask_ref(x, mean, inv, scale, bias):
@@ -233,36 +312,44 @@ def instance_norm_relu_bwd_ref(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     relu: bool = True,
+    shifted=None,
 ):
     """Plain backward of ``instance_norm_relu`` given its forward's statistics.
 
     ``mean`` and ``inv`` are the (N, C) fp32 mean and rsqrt(var + eps).
-    Returns dx in ``x.dtype`` and fp32 dscale and dbias (None without affine).
+    Returns dx in ``x.dtype`` and shape and fp32 dscale and dbias (None
+    without affine). With ``shifted`` (``fused_norm._bwd_rule``'s mask), dy
+    at pad slots is ignored and dx is 0 there.
     """
-    m = prod(x.shape[1:-1])
+    shape, sh = x.shape, shift_of(x, shifted)
+    x, valid = _rows(x, sh)
+    dy = dy.reshape(x.shape)
+    m = prod(x.shape[1:-1]) if sh is None else sh.m
     axes = tuple(range(1, x.dim() - 1))
     dy_eff = dy
     if relu:
         dy_eff = torch.where(_relu_mask_ref(x, mean, inv, scale, bias), dy,
                              torch.zeros((), dtype=dy.dtype))
+    dy_eff = _where(valid, dy_eff)  # pad slots carry no gradient
     dy32 = dy_eff.float()
     t1 = dy32.sum(axes)
-    t2 = (dy32 * (x.float() - _bc(mean, x))).sum(axes)
+    t2 = _where(valid, dy32 * (x.float() - _bc(mean, x))).sum(axes)
     s1, s2 = t1, inv * t2
     gamma = torch.ones_like(inv) if scale is None else scale.float()[None]
     coef = gamma * inv
     # dx = coef * (dy_eff - s1 / m - xhat * s2 / m) in fma form
     b = -(coef * inv) * (s2 / m)
     a = -(coef * (s1 / m)) - mean * b
-    dx = _bc(coef, x) * dy32 + _bc(a, x) + x.float() * _bc(b, x)
+    dx = _where(valid, _bc(coef, x) * dy32 + _bc(a, x) + x.float() * _bc(b, x))
     dscale = s2.sum(0) if scale is not None else None
     dbias = s1.sum(0) if bias is not None else None
-    return dx.to(x.dtype), dscale, dbias
+    return dx.to(x.dtype).reshape(shape), dscale, dbias
 
 
-def absolute_stats(x: torch.Tensor, stats: torch.Tensor):
+def absolute_stats(x: torch.Tensor, stats: torch.Tensor, shifted=None):
     """``instance_norm_relu_fwd``'s ``stats`` as the (N, C) mean and inv of
     the plain versions, the mean rounded as the backward kernel rounds it."""
+    x, _ = _rows(x, shift_of(x, shifted))
     n, c = x.shape[0], x.shape[-1]
     st = stats.view(n, c, 2)
     return x.reshape(n, -1, c)[:, 0].float() + st[..., 0], st[..., 1]
@@ -305,35 +392,46 @@ def _plan(what: str, x: torch.Tensor, *tensors: torch.Tensor) -> LaunchPlan:
     return plan
 
 
-def instance_norm_relu_fwd(x, scale=None, bias=None, eps: float = 1e-5, relu: bool = True):
+def instance_norm_relu_fwd(x, scale=None, bias=None, eps: float = 1e-5, relu: bool = True,
+                          shifted=None):
     """The forward and its statistics: y and the float32 ``stats`` buffer
     (per (n, c): the mean relative to row 0 of x, then rsqrt(var + eps)),
     which ``instance_norm_relu_bwd`` takes. A CUDA tensor launches the
-    forward kernel, which writes both; a CPU tensor takes the plain versions."""
+    forward kernel (its shifted mode with ``shifted``), which writes both; a
+    CPU tensor takes the plain versions."""
+    sh = shift_of(x, shifted)
+    xv, valid = _rows(x, sh)
     if x.device.type == "cpu":
-        mean, inv = instance_norm_stats_ref(x, eps)
-        n, c = x.shape[0], x.shape[-1]
-        rel = mean - x.reshape(n, -1, c)[:, 0].float()
-        return (_normalize_ref(x, mean, inv, scale, bias, relu),
-                torch.stack([rel, inv], -1).reshape(-1))
-    n, s, c = _check_cuda(x, scale, bias, "instance_norm_relu")
+        mean, inv = instance_norm_stats_ref(x, eps, shifted)
+        n, c = xv.shape[0], xv.shape[-1]
+        rel = mean - xv.reshape(n, -1, c)[:, 0].float()
+        y = _normalize_ref(xv, mean, inv, scale, bias, relu, valid)
+        return y.reshape(x.shape), torch.stack([rel, inv], -1).reshape(-1)
+    what = "instance_norm_relu" if sh is None else "instance_norm_relu_shifted"
+    n, s, c = _check_cuda(xv, scale, bias, what)
     y = torch.empty_like(x)
-    plan = _plan("instance_norm_relu", x, y)
-    part = torch.empty(plan.part_floats, dtype=torch.float32, device=x.device)
+    plan = _plan(what, xv, y)
+    # the shifted mode's partials end with each chunk's count of valid rows
+    part = torch.empty(plan.part_floats + (0 if sh is None else plan.k), dtype=torch.float32,
+                       device=x.device)
     stats = torch.empty(plan.stats_floats, dtype=torch.float32, device=x.device)
     lib = load_library()
+    args = (
+        x.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        y.data_ptr(), part.data_ptr(), stats.data_ptr(),
+        _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.chunk,
+        plan.k, eps, int(relu),
+    )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.hdf_instance_norm_relu(
-            x.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            y.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.chunk,
-            plan.k, eps, int(relu), stream,
-        )
-    check(err, "instance_norm_relu")
-    instance_norm_relu.launches += 1
+        if sh is None:
+            err = lib.hdf_instance_norm_relu(*args, stream)
+        else:
+            err = lib.hdf_instance_norm_relu_shifted(*args, *sh.args(), stream)
+    check(err, what)
+    (instance_norm_relu if sh is None else instance_norm_relu_shifted).launches += 1
     return y, stats
 
 
@@ -344,16 +442,20 @@ def instance_norm_relu_bwd(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     relu: bool = True,
+    shifted=None,
 ):
     """Gradients (dx, dscale, dbias) of ``instance_norm_relu`` at x.
 
-    ``stats`` is ``instance_norm_relu_fwd``'s statistics buffer for this x.
-    A CUDA tensor launches the backward kernel; dy must match x in shape,
-    dtype and contiguity. A CPU tensor takes ``instance_norm_relu_bwd_ref``.
+    ``stats`` is ``instance_norm_relu_fwd``'s statistics buffer for this x
+    (and this ``shifted``). A CUDA tensor launches the backward kernel; dy
+    must match x in shape, dtype and contiguity. A CPU tensor takes
+    ``instance_norm_relu_bwd_ref``.
     """
     if x.device.type == "cpu":
-        return instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats), scale, bias, relu)
-    n, _, c = _check_cuda(x, scale, bias, "instance_norm_relu_bwd")
+        return instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats, shifted), scale,
+                                          bias, relu, shifted)
+    sh = shift_of(x, shifted)
+    n, _, c = _check_cuda(_rows(x, sh)[0], scale, bias, "instance_norm_relu_bwd")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(
             f"instance_norm_relu_bwd: dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does "
@@ -364,53 +466,63 @@ def instance_norm_relu_bwd(
     if stats.dtype != torch.float32 or stats.numel() != 2 * n * c or not stats.is_contiguous():
         raise ValueError(f"instance_norm_relu_bwd: stats must be float32 of {2 * n * c}")
     dx = torch.empty_like(x)
-    return launch_bwd(bwd_plan(x, dy, dx), dx, dy, x, stats, scale, bias, relu)
+    return launch_bwd(bwd_plan(x, dy, dx, shift=sh), dx, dy, x, stats, scale, bias, relu, sh)
 
 
-def launch_bwd(plan: BwdPlan, dx, dy, x, stats, scale, bias, relu: bool):
-    """One launch of the backward kernel with ``plan``, writing ``dx``; the
-    arguments as ``instance_norm_relu_bwd`` checked them. Returns (dx,
-    dscale, dbias)."""
-    n, c = x.shape[0], x.shape[-1]
+def launch_bwd(plan: BwdPlan, dx, dy, x, stats, scale, bias, relu: bool,
+               shift: Optional[Shift] = None):
+    """One launch of the backward kernel with ``plan`` (its shifted mode with
+    a ``shift``), writing ``dx``; the arguments as ``instance_norm_relu_bwd``
+    checked them. Returns (dx, dscale, dbias)."""
+    n = x.shape[0]
+    c = x.shape[-1] // (1 if shift is None else shift.f)
     s = x.numel() // (n * c)
     lib = load_library()
     part = torch.empty(plan.part_floats, dtype=torch.float32, device=x.device)
     tsum = torch.empty(plan.tsum_floats, dtype=torch.float32, device=x.device)
     # dscale then dbias, summed by the kernel
     dsb = None if scale is None else torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    args = (
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), part.numel(), tsum.data_ptr(),
+        None if dsb is None else dsb.data_ptr(),
+        _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.parts,
+        plan.grid, int(relu),
+    )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.hdf_instance_norm_relu_bwd(
-            x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), part.numel(), tsum.data_ptr(),
-            None if dsb is None else dsb.data_ptr(),
-            _DTYPES[x.dtype], plan.vec_bytes, n, s, c, plan.channel_tile, plan.parts,
-            plan.grid, int(relu), stream,
-        )
-    check(err, "instance_norm_relu_bwd")
-    instance_norm_relu_bwd.launches += 1
+        if shift is None:
+            err = lib.hdf_instance_norm_relu_bwd(*args, stream)
+        else:
+            err = lib.hdf_instance_norm_relu_bwd_shifted(*args, float(shift.m), *shift.args(),
+                                                         stream)
+    check(err, "instance_norm_relu_bwd" if shift is None else "instance_norm_relu_shifted_bwd")
+    (instance_norm_relu_bwd if shift is None else instance_norm_relu_shifted_bwd).launches += 1
     if dsb is None:
         return dx, None, None
     return dx, dsb[:c], dsb[c:]
 
 
-def bwd_plan(x: torch.Tensor, *others: torch.Tensor) -> BwdPlan:
-    """The backward's plan for x (N, *spatial, C) on its card, vectors
-    aligned to x and ``others`` (dy, dx): the card's multiprocessors and the
-    blocks each holds, as the kernel's occupancy query reports them."""
-    n, c = x.shape[0], x.shape[-1]
+def bwd_plan(x: torch.Tensor, *others: torch.Tensor, shift: Optional[Shift] = None) -> BwdPlan:
+    """The backward's plan for x (N, *spatial, C), or a packed-shifted x with
+    its ``shift``, on its card, vectors aligned to x and ``others`` (dy, dx):
+    the card's multiprocessors and the blocks each holds, as the (shifted)
+    kernel's occupancy query reports them."""
+    n = x.shape[0]
+    c = x.shape[-1] // (1 if shift is None else shift.f)
     vec = _vector_bytes(c, x.element_size(), tuple(t.data_ptr() for t in (x, *others)))
     return _bwd_plan(n, x.numel() // (n * c), c, x.element_size(), vec,
-                     *_bwd_residency(load_library(), x.device, x.dtype, vec))
+                     *_bwd_residency(load_library(), x.device, x.dtype, vec, shift is not None))
 
 
 @lru_cache(maxsize=None)
-def _bwd_residency(lib, device: torch.device, dtype: torch.dtype, vec: int) -> tuple[int, int]:
+def _bwd_residency(lib, device: torch.device, dtype: torch.dtype, vec: int,
+                   shifted: bool = False) -> tuple[int, int]:
     """(multiprocessors, backward blocks each holds at once) of the card."""
     with torch.cuda.device(device):
-        blocks = lib.hdf_instance_norm_relu_bwd_blocks_per_sm(_DTYPES[dtype], vec)
+        blocks = lib.hdf_instance_norm_relu_bwd_blocks_per_sm(_DTYPES[dtype], vec, int(shifted))
     if blocks < 1:
         raise RuntimeError("instance_norm_relu_bwd: no block of the backward fits a "
                            f"multiprocessor (CUDA error {-blocks})")
@@ -421,18 +533,18 @@ class _InstanceNormReLU(torch.autograd.Function):
     """Keeps x (its own dtype) and the per-(n, c) statistics for the backward."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, relu):
-        y, stats = instance_norm_relu_fwd(x, scale, bias, eps, relu)
+    def forward(ctx, x, scale, bias, eps, relu, shifted):
+        y, stats = instance_norm_relu_fwd(x, scale, bias, eps, relu, shifted)
         ctx.save_for_backward(x, scale, bias, stats)
-        ctx.relu = relu
+        ctx.relu, ctx.shifted = relu, shifted
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, scale, bias, stats = ctx.saved_tensors
         dx, dscale, dbias = instance_norm_relu_bwd(dy.to(x.dtype).contiguous(), x, stats,
-                                                   scale, bias, ctx.relu)
-        return dx, dscale, dbias, None, None
+                                                   scale, bias, ctx.relu, ctx.shifted)
+        return dx, dscale, dbias, None, None, None
 
 
 def instance_norm_relu(
@@ -441,6 +553,7 @@ def instance_norm_relu(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
     relu: bool = True,
+    shifted=None,
 ) -> torch.Tensor:
     """Instance norm + optional affine + ReLU of a channels-last (N, *spatial, C).
 
@@ -450,14 +563,29 @@ def instance_norm_relu(
     (C,) tensor on x's device. Nothing is copied to make it so.
     Differentiable in x, scale and bias; where there is nothing to
     differentiate (serving under ``torch.inference_mode``) the forward runs
-    without the autograd function and its host cost.
+    without the autograd function and its host cost. ``shifted``: x is a
+    packed-shifted (N, *s, f*C) (see the module docstring).
     """
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, scale, bias))):
-        return instance_norm_relu_fwd(x, scale, bias, eps, relu)[0]
-    return _InstanceNormReLU.apply(x, scale, bias, eps, relu)
+        return instance_norm_relu_fwd(x, scale, bias, eps, relu, shifted)[0]
+    return _InstanceNormReLU.apply(x, scale, bias, eps, relu, shifted)
 
 
-# kernel launches since the last reset, per direction; chip_smoke.py reads them
+def instance_norm_relu_shifted(x: torch.Tensor, dims, scale=None, bias=None, eps: float = 1e-5,
+                               relu: bool = True) -> torch.Tensor:
+    """``instance_norm_relu`` of a packed-shifted x over packed ``dims``."""
+    return instance_norm_relu(x, scale, bias, eps, relu, shifted=dims)
+
+
+def instance_norm_relu_shifted_bwd(dy, x, stats, dims, scale=None, bias=None,
+                                   relu: bool = True):
+    """``instance_norm_relu_bwd`` of a packed-shifted x over packed ``dims``."""
+    return instance_norm_relu_bwd(dy, x, stats, scale, bias, relu, shifted=dims)
+
+
+# kernel launches since the last reset, per kernel and mode; chip_smoke.py reads them
 instance_norm_relu.launches = 0
 instance_norm_relu_bwd.launches = 0
+instance_norm_relu_shifted.launches = 0
+instance_norm_relu_shifted_bwd.launches = 0

@@ -11,7 +11,7 @@ twice to warm up (patch 144^3, step 72^3, window_batch 8: one model call of
 8 windows), times unprofiled calls, then runs one more under torch.profiler
 and prints JSON lines. With --train it does the same with steps of bench.py's
 train step (HDenseFormer_32, 144^3, batch 1, bf16, FocalLoss deep supervision,
-Adam; chip_smoke.build_train) on a synthetic case:
+Adam; hdenseformer_tpu_torch.bench.build) on its zero case:
 
 - "call": host wall time of the profiled call (or step), device busy time
   (the union of its kernels' intervals), and the device's idle share; and,
@@ -50,9 +50,9 @@ from chip_smoke import (
     WINDOWS,
     build_hecktor,
     build_models,
-    build_train,
     synthetic_volume,
 )
+from hdenseformer_tpu_torch import bench
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.infer.sliding import predict_volume
 
@@ -101,7 +101,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
-        state, step, batch, gen = build_train(args)
+        state, step, batch, gen = bench.build("cuda", PATCH, args.depth, args.seed)
         net = state.model
 
         def serve():

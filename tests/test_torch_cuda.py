@@ -26,6 +26,8 @@ from hdenseformer_tpu_torch.ops.instance_norm import (  # noqa: E402
     instance_norm_relu_bwd_ref,
     instance_norm_relu_fwd,
     instance_norm_relu_ref,
+    instance_norm_relu_shifted,
+    instance_norm_relu_shifted_bwd,
 )
 from hdenseformer_tpu_torch.ops.shift_pack import (  # noqa: E402
     shift_pack,
@@ -38,6 +40,18 @@ pytestmark = pytest.mark.needs_cuda
 
 # the conv biases under an InstanceNorm without affine: true gradient zero
 ZERO_GRADIENT = ("deep_conv.conv.bias", "up1.conv.bias", "up2.conv.bias", "up3.conv.bias")
+NORM_WRAPPERS = (instance_norm_relu, instance_norm_relu_bwd, instance_norm_relu_shifted,
+                 instance_norm_relu_shifted_bwd)
+
+
+def reset_norm_counts() -> None:
+    for fn in NORM_WRAPPERS:
+        fn.launches = 0
+
+
+def norm_counts() -> tuple:
+    """InstanceNorm launches: forward, backward, shifted forward, shifted backward."""
+    return tuple(fn.launches for fn in NORM_WRAPPERS)
 
 
 @pytest.fixture
@@ -226,12 +240,16 @@ def test_model_goes_through_the_kernels(cuda):
     x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(3),
                     device=cuda)
     dense_attention.launches = instance_norm_relu.launches = 0
+    instance_norm_relu_shifted.launches = 0
     with torch.inference_mode():
         got = nets[0](x)
-        counts = dense_attention.launches, instance_norm_relu.launches
+        counts = (dense_attention.launches, instance_norm_relu.launches,
+                  instance_norm_relu_shifted.launches)
         ref = nets[1](x)
     torch.cuda.synchronize()
-    assert counts == (2 * 4, 18)
+    # s2d=None packs levels 0-1 over (H, W): each level's first BasicConv,
+    # left and right, is the shifted norm's
+    assert counts == (2 * 4, 14, 4)
     for g_, r in zip(got, ref):
         torch.testing.assert_close(g_, r, rtol=1e-3, atol=1e-3)
 
@@ -581,15 +599,14 @@ def test_model_gradients_through_the_kernels(cuda):
     criterion = get_loss("FocalLoss", use_ds=True)
     losses, counts = [], []
     for net, inp in zip(nets, (x, x, moved)):
-        dense_attention.launches = instance_norm_relu.launches = 0
-        instance_norm_relu_bwd.launches = 0
+        reset_norm_counts()
+        dense_attention.launches = 0
         loss = criterion(net(inp, generator=torch.Generator(device=cuda).manual_seed(4)), label)
         loss.backward()
         losses.append(float(loss.detach()))
-        counts.append((dense_attention.launches, instance_norm_relu.launches,
-                       instance_norm_relu_bwd.launches))
+        counts.append((dense_attention.launches,) + norm_counts())
     torch.cuda.synchronize()
-    assert counts == [(8, 18, 18), (0, 0, 0), (0, 0, 0)]
+    assert counts == [(8, 14, 14, 4, 4), (0,) * 5, (0,) * 5]
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     grads = [dict(net.named_parameters()) for net in nets]
     assert set(ZERO_GRADIENT) <= set(grads[0])
@@ -665,19 +682,18 @@ def test_remat_step_equals_the_plain_step_on_the_card(cuda):
                           remat=remat, device=cuda).train()
             init_weights(net, torch.Generator().manual_seed(0))
             gen = torch.Generator(device=cuda).manual_seed(9)
-            dense_attention.launches = instance_norm_relu.launches = 0
-            instance_norm_relu_bwd.launches = 0
+            dense_attention.launches = 0
+            reset_norm_counts()
             loss = get_loss("FocalLoss", use_ds=True)(net(x, generator=gen), label)
             loss.backward()
             torch.cuda.synchronize()
             runs[remat] = (float(loss.detach()), {n: p.grad for n, p in net.named_parameters()},
-                           gen.get_state(), (dense_attention.launches,
-                                             instance_norm_relu.launches,
-                                             instance_norm_relu_bwd.launches))
+                           gen.get_state(), (dense_attention.launches,) + norm_counts())
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
     (loss0, grads0, state0, counts0), (loss1, grads1, state1, counts1) = runs[False], runs[True]
-    assert counts0 == (8, 18, 18) and counts1 == (16, 36, 18)
+    # level 0 packed over (H, W): block_1_1_left and block_1_1_right shifted
+    assert counts0 == (8, 16, 16, 2, 2) and counts1 == (16, 32, 16, 4, 2)
     assert loss1 == loss0 and torch.equal(state1, state0)
     top = max(float(g.abs().max()) for g in grads0.values())
     for name, ref in grads0.items():
@@ -876,14 +892,15 @@ def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
     losses, counts = [], []
     for net, inp in zip(nets, inputs):
         opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
-        dense_attention.launches = instance_norm_relu.launches = 0
-        instance_norm_relu_bwd.launches = 0
+        dense_attention.launches = 0
+        reset_norm_counts()
         _, out = step(TrainState(net, opt), {"image": inp, "label": label},
                       torch.Generator(device=cuda).manual_seed(5))
         losses.append(float(out["loss"]))
-        counts.append((dense_attention.launches, instance_norm_relu.launches,
-                       instance_norm_relu_bwd.launches))
-    assert counts == [(24, 36, 18), (0, 0, 0), (0, 0, 0)]
+        counts.append((dense_attention.launches,) + norm_counts())
+    # levels 0-1 packed at full rank: 4 of the 18 norms shifted, each twice
+    # with the recompute
+    assert counts == [(24, 28, 14, 8, 4), (0,) * 5, (0,) * 5]
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     grads = [dict(net.named_parameters()) for net in nets]
     ratios = {"kernels": [], "moved": []}
@@ -896,3 +913,105 @@ def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
             ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
     got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
     assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]
+
+
+# --- the shifted InstanceNorm (packed-shifted input, pad slots masked) -----
+
+
+def _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, seed):
+    """A packed-shifted x whose pad slots hold large garbage, dy, scale, bias."""
+    from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    f = 2 ** len(dims)
+    x = torch.randn((n, *sshape, f * c), generator=g, device=cuda) * 3 + 1
+    garbage = 1e4 * torch.randn(x.shape, generator=g, device=cuda)
+    x = torch.where(apply_shifted_mask(torch.ones_like(x), dims) > 0, x, garbage).to(dtype)
+    dy = (torch.randn(x.shape, generator=g, device=cuda) * 1e3).to(dtype)  # large at pads too
+    scale = bias = None
+    if affine:
+        scale = torch.randn(c, generator=g, device=cuda)
+        scale[0] = 0.0
+        bias = torch.randn(c, generator=g, device=cuda)
+    return x, dy, scale, bias
+
+
+SHIFTED_CASES = [((2, (5, 6, 7), (1, 2), 16)), ((1, (4, 9, 5), (2,), 64)),
+                 ((2, (3, 5, 6), (0, 2), 32)), ((1, (5, 4, 6), (0, 1, 2), 2)),
+                 ((3, (9, 10), (0, 1), 32)), ((1, (33, 17), (1,), 256))]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(SHIFTED_CASES)))
+def test_shifted_instance_norm_kernels_match_plain(cuda, case, dtype, affine, relu):
+    """Forward (the bars of test_instance_norm_kernel_ragged_rows) and
+    backward (assert_norm_grads_close, given the same statistics) of the
+    shifted mode against its plain versions; 0 at every pad slot, whatever
+    x and dy hold there; reruns bitwise; one launch each, counted under the
+    shifted wrappers."""
+    n, sshape, dims, c = SHIFTED_CASES[case]
+    x, dy, scale, bias = _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, 90 + case)
+    reset_norm_counts()
+    y, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu, shifted=dims)
+    got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu, shifted=dims)
+    again = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu, shifted=dims)
+    torch.cuda.synchronize()
+    assert norm_counts() == (0, 0, 1, 2)
+    ref_y = instance_norm_relu_ref(x, scale, bias, relu=relu, shifted=dims)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-6)
+    torch.testing.assert_close(y, ref_y, **tol)
+    ref = instance_norm_relu_bwd_ref(dy, x, *absolute_stats(x, stats, dims), scale, bias, relu,
+                                     shifted=dims)
+    f = 2 ** len(dims)
+    view = lambda t: t.reshape(n, -1, c)  # noqa: E731
+    assert_norm_grads_close((view(got[0]),) + got[1:], (view(ref[0]),) + ref[1:], dtype)
+    from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask
+
+    pads = apply_shifted_mask(torch.ones(x.shape, device=cuda), dims) == 0
+    assert pads.any() and not y[pads].any() and not got[0][pads].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    assert y.shape == x.shape and f * c == x.shape[-1]
+
+
+def test_shifted_instance_norm_kernel_mean_far_from_zero(cuda):
+    """The centred sums' guard in the shifted mode: 1000 + N(0, 1) at the
+    valid slots (the shift x0, row 0, is one of them), garbage at the pads.
+    The plain version runs on x - 1000 at the valid slots, exact in fp32
+    there, as test_instance_norm_kernel_mean_far_from_zero's."""
+    from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask
+
+    x, _, scale, bias = _shifted_case(cuda, 2, (6, 9, 9), (1, 2), 32, torch.float32, True,
+                                      True, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    valid = apply_shifted_mask(torch.ones(x.shape, device=cuda), (1, 2)) > 0
+    far = torch.where(valid, 1000 + torch.randn(x.shape, generator=g, device=cuda), x)
+    got = instance_norm_relu(far, scale, bias, shifted=(1, 2))
+    ref = instance_norm_relu_ref(torch.where(valid, far - 1000, x), scale, bias, shifted=(1, 2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_packed_models_go_through_the_shifted_kernels(cuda):
+    """HDenseFormer_2D_16 (levels 0-1 packed at full rank) through the
+    kernels against the plain versions in fp32: the same logits to 1e-4, and
+    the launches the code gives (4 of its 18 norms shifted)."""
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    nets = [get_net("HDenseFormer_2D_16", 3, 2, (64, 64), transformer_depth=4, use_kernels=use,
+                    device=cuda) for use in (True, False)]
+    init_weights(nets[0], torch.Generator().manual_seed(0))
+    nets[1].load_state_dict(nets[0].state_dict())
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    reset_norm_counts()
+    with torch.inference_mode():
+        got = nets[0](x)
+        counts = norm_counts()
+        ref = nets[1](x)
+    torch.cuda.synchronize()
+    assert counts == (14, 0, 4, 0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

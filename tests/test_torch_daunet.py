@@ -21,13 +21,15 @@ one (unet_3d at 16^3, batch 2, against a float64 run: JAX's logits 1.6e-4
 off, the port's 2.0e-5): the training logits are held to the larger of that
 bar and 3x JAX's own difference on the input moved by 1e-6 (relative).
 
-The port runs the fine grid: JAX's ``s2d=False`` is the reference; against
-JAX's default ``s2d=None`` (level 0 packed at 16^3) the fp32 logits are held
-to the same bars. In bf16 the port is held against
+Both frameworks run the same ``s2d``: the fine grid (``s2d=False``) in the
+cases above; JAX's default ``s2d=None`` (level 0 packed at 16^3) against the
+port's default, in fp32 to the same bars. In bf16 the port is held against
 ``s2d=False`` (JAX's packed BatchNorm keeps bf16 where the fine one returns
 fp32): both round each conv's output to bf16, and a rounding step there
 (2^-8) carried through the network's nine double convs moves the logits by
-a few percent of their scale: within 5e-2 max|ref|.
+a few percent of their scale: within 5e-2 max|ref|. The packed path in
+bf16, the weight bridge of a packed tree and the running statistics after
+a packed train step are tests/test_torch_packed_zoo.py's.
 """
 import numpy as np
 import pytest
@@ -64,7 +66,7 @@ def build(name, init_depth, dtype=None, s2d=False):
     jmodel = jdaunet.DAUNet(n_classes=2, width=WIDTH, depths=depths, conv_builder=builder,
                             dropout_flag=False, dtype=jax_dtype, s2d=s2d)
     model = daunet.DAUNet(2, 2, width=WIDTH, depths=depths, conv_builder=builder,
-                          dropout_flag=False, dtype=dtype, device="cpu")
+                          dropout_flag=False, dtype=dtype, s2d=s2d, device="cpu")
     return jmodel, model
 
 
@@ -127,9 +129,10 @@ def test_depth_attention_pools_its_depth_bins_as_jax():
 
 def test_fp32_matches_jax_default_packed_level0():
     """JAX's default packs level 0 at 16^3 (width 16, not residual, even
-    dims); the port's fine grid is the same function."""
+    dims), and so does the port's."""
     jmodel, model = build("da_unet", 16, s2d=None)
     x = _image(16, 2, seed=2)
+    assert model.packs(torch.from_numpy(x))
     variables = random_jax_variables(jmodel, jnp.asarray(x), np.random.RandomState(3))
     ref_eval, ref_train, ref_stats, spread = jax_eval_and_train(jmodel, variables, x)
     load_jax_params(model, variables["params"], variables["batch_stats"])
@@ -177,4 +180,9 @@ def test_s2d_true_at_odd_dims_raises_as_jax():
             jax_get_net(name, 2, 2, (20, 20, 21), s2d=True)
         with pytest.raises(ValueError, match="even spatial dims"):
             get_net(name, 2, 2, (20, 20, 21), s2d=True, device="cpu")
-        get_net(name, 2, 2, (20, 20, 21), device="cpu")  # s2d=None: the fine grid
+        # s2d=None: the fine grid at odd dims; level 0 packed at even ones,
+        # except for the residual builder, as JAX's rule
+        assert not get_net(name, 2, 2, (20, 20, 21), device="cpu").packs(
+            torch.zeros(1, 20, 20, 21, 2))
+        net = get_net(name, 2, 2, (20, 20, 20), device="cpu")
+        assert net.packs(torch.zeros(1, 20, 20, 20, 2)) == (name != "res_da_se_unet")

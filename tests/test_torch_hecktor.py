@@ -149,8 +149,16 @@ def test_get_net_builds_hecktor_with_jax_packing_rule():
     assert get_net("hecktor20top1", 2, 2, (32, 32, 32), s2d={1: True}, device="cpu").packed
     with pytest.raises(ValueError, match="even spatial dims"):
         get_net("hecktor20top1", 2, 2, (31, 31, 31), s2d=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        get_net("hecktor20top1", 2, 2, (32, 32, 32), s2d={1: True, 2: (2,)}, device="cpu")
+    # the dict that also packs level 2 (once unported): JAX's parameter tree
+    # of that configuration loads, every name and shape
+    spec = {1: True, 2: (2,)}
+    net2 = get_net("hecktor20top1", 2, 2, (32, 32, 32), s2d=spec, device="cpu")
+    assert net2.packed and net2.packed2 == (2,)
+    jmodel = jh.Hecktor20Top1(in_channels=2, n_cls=2, n_filters=32, s2d=spec)
+    load_jax_params(net2, random_jax_params(jmodel, jnp.zeros((1, 32, 32, 32, 2)),
+                                            np.random.RandomState(0)))
+    # JAX drops level 2's packing where its grid is odd on the packed dims
+    assert get_net("hecktor20top1", 2, 2, (20, 20, 18), s2d=spec, device="cpu").packed2 is None
     with pytest.raises(ValueError, match="even spatial dims"):
         net(torch.zeros(1, 6, 6, 5, 2))
 

@@ -234,15 +234,19 @@ def test_packed_ops_take_2d(rng):
 
 
 def test_partial_rank_is_not_ported(rng):
-    x = torch.zeros(1, 4, 4, 4, 6)
-    w = torch.zeros(3, 3, 3, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        ts.conv3_packed(x, w, dims=(2,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.max_pool_packed(x, dims=(0, 1))
+    """Partial-rank packing (once unported, now JAX's): the packed conv and
+    max-pool over (2,) and (0, 1) equal JAX's; the guards that remain raise."""
+    x = rng.randn(1, 4, 6, 8, 6).astype(np.float32)
+    w, wt = _conv_weight(rng, 3, 3, 4)
+    for dims in ((2,), (0, 1)):
+        xp = np.asarray(js.pack(jnp.asarray(x[..., :3]), dims))
+        ref = np.asarray(js.conv3_packed(jnp.asarray(xp), jnp.asarray(w), dims=dims))
+        np.testing.assert_allclose(ts.conv3_packed(_t(xp), wt, dims=dims).numpy(), ref, **TOL)
+        np.testing.assert_array_equal(ts.max_pool_packed(_t(xp), dims).numpy(),
+                                      np.asarray(js.max_pool_packed(jnp.asarray(xp), dims)))
     with pytest.raises(ValueError, match="odd"):
         ts.convk_packed(ts.pack(torch.zeros(1, 4, 4, 4, 3)), torch.zeros(3, 3, 4, 4, 4))
     with pytest.raises(ValueError, match="packed conv"):
         tl.Conv(3, 3, 3, 1, 0, packed=True)
     with pytest.raises(ValueError, match="k3 s2 p1 op1"):
-        tl.ConvTranspose(3, 3, 2, 2, 0, 0, packed_out=True)
+        tl.ConvTranspose(3, 3, 2, 2, 0, 0, packed_out=True, packed_dims=(2,))

@@ -6,8 +6,9 @@ grid of 2^3 and 3^3 tokens), JAX's weights and non-trivial running
 statistics:
 
 - eval forwards in fp32 against JAX's fine grid (``s2d=False``) and its
-  default (``s2d=None``: levels 0 and 1 packed), within 1e-5 max|ref| +
-  1e-5;
+  default (``s2d=None``: levels 0 and 1 packed), the port run with the same
+  ``s2d``, within 1e-5 max|ref| + 1e-5 (the packed path in training and in
+  bf16 is tests/test_torch_packed_zoo.py's);
 - bf16 against ``s2d=False`` (JAX's packed norms keep bf16 where the fine
   ones return fp32), within 5e-2 max|ref|: each conv's output is rounded to
   bf16 on both sides, and a rounding step (2^-8) carried through the 20
@@ -48,7 +49,7 @@ def build(size, dtype=None, s2d=False, rate=0.1):
                                      dtype=None if dtype is None else jnp.bfloat16, s2d=s2d,
                                      **SMALL)
     model = transbts.TransBTSModel(2, 2, size, dropout_rate=rate, attn_dropout_rate=rate,
-                                   dtype=dtype, device="cpu", **SMALL)
+                                   dtype=dtype, s2d=s2d, device="cpu", **SMALL)
     return jmodel, model
 
 

@@ -56,9 +56,9 @@ def test_da_unet_train_inf_sw_eval(tmp_path, monkeypatch):
     calls = {True: 0, False: 0}
     forward = BatchNorm.forward
 
-    def counted(self, x):
+    def counted(self, x, *args, **kwargs):  # packed levels pass the layout
         calls[self.training] += 1
-        return forward(self, x)
+        return forward(self, x, *args, **kwargs)
 
     monkeypatch.setattr(BatchNorm, "forward", counted)
     hist = cli.main(["-m", "train", "--data-path", str(h5), "--epochs", "2", "--fold", "1"]
