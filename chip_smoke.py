@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--depth 24]
 
+(``--dp-worker gloo|nccl`` runs one rank of phase 4d; the phase starts
+those processes itself.)
+
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
 HDenseFormer_32 and Hecktor20Top1, the train step of HDenseFormer_32, the
@@ -68,6 +71,20 @@ removed at the end):
    generator in one state), and the peak memory and time of one full-width
    step at batch 2 with remat on and off, of HDenseFormer_32 and of
    Hecktor20Top1;
+4g. the captured step (``train.loop.make_multi_train_step``): bench.py's
+   model and optimizer (made capturable) on 8 synthetic cases, 8 steps
+   captured once as a CUDA graph and replayed, against 8 eager steps from
+   the same weights and dropout seeds: the launches at capture (one step's),
+   the losses step by step (bars from eager steps on an input moved by one
+   bf16 step, and a control step with another dropout seed), ms a step in
+   turns, and a profile of the replays (the port's kernels by name, the
+   card's idle share);
+4d. data parallel (``parallel/mesh.py``) on the one card: two gloo
+   processes of this script (the JAX package's env contract), bench.py's
+   model at batch 1 a rank, two steps against one process's batch-2 steps;
+   the same two steps under torchrun's env with NCCL at world size 1; a
+   200^3 volume's windows split over the two ranks against one process;
+   launches checked on each rank;
 4p. the packed levels (space-to-depth, ``ops/s2d.py``), which get_net's
    default ``s2d=None`` runs in every phase, as JAX's does: (a) the shifted
    InstanceNorm forward and backward kernels against their plain versions
@@ -127,7 +144,11 @@ removed at the end):
    8) and is evaluated (dice, HD95); then one epoch of Hecktor20Top1 (with
    the preset's remat, as JAX). Per epoch: losses, dice, seconds, step time
    and the share spent waiting on the loader; launches per train step,
-   checked against the counts the models' code gives;
+   checked against the counts the models' code gives. The resumed epoch
+   runs under ``utils.profiling.profiler_trace`` (the CLI's ``--profile``):
+   the trace must name the attention, InstanceNorm forward and backward
+   kernels and their shifted instantiations; its size and the epoch's step
+   time beside the unprofiled epochs';
 5b. the same 2 epochs of HDenseFormer_32 with ``device_augment=True``
    (through ``SemanticSeg``: the CLI has no flag for it, as JAX's has
    none): the loader ships raw cases and the augmentation runs in the step
@@ -150,10 +171,13 @@ runs in TF32 on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
+import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -203,8 +227,17 @@ from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_unpack_ref,
 )
 from hdenseformer_tpu_torch.train.checkpoint import get_weight_path, load_checkpoint
-from hdenseformer_tpu_torch.train.loop import SemanticSeg, TrainState, make_train_step
-from hdenseformer_tpu_torch.train.state import get_optimizer
+from hdenseformer_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init
+from hdenseformer_tpu_torch.train.loop import (
+    SemanticSeg,
+    TrainState,
+    make_multi_train_step,
+    make_train_step,
+    pad_and_mask_batch,
+    step_seed,
+)
+from hdenseformer_tpu_torch.utils import profiler_trace
+from hdenseformer_tpu_torch.train.state import get_optimizer, make_capturable
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -256,15 +289,19 @@ KERNELS = {
 # one serving forward (8 windows of 144^3, n_filters 32): the k7 stem (2
 # channels), block_1_2_left (32), block_1_1_right (64), block_1_2_right (32)
 SHIFT_FC = (16, 256, 512, 256)
-# (S, C) and count of HDenseFormer_32's unshifted InstanceNorm launches in one
-# serving forward (8 windows of 144^3): the BasicConv/UpConv norms at each
-# level. get_net's default (s2d=None) packs level 0 over (H, W): its two
-# second BasicConvs normalise the packed-plain (144 * 72^2 * 4, 32) view, the
-# 144^3 rows of the fine grid, and its two first BasicConvs take the shifted
-# norm (HDF_SHIFTED); the UpConv pyramid's four are counted with the level
-# each feeds
-IN_FORWARD = (((PATCH ** 3, 32), 3), (((PATCH // 2) ** 3, 64), 5),
-              (((PATCH // 4) ** 3, 128), 5), (((PATCH // 8) ** 3, 256), 3))
+# (S, C), count and affine of HDenseFormer_32's unshifted InstanceNorm
+# launches in one forward at 144^3 (a serving call's 8 windows, a train
+# step's batch 1), each at its own shape, as IN_2D: the BasicConvs (affine),
+# two a level in the encoder and two in the decoder (level 3: encoder only;
+# level 0, packed over (H, W) by get_net's default s2d=None, two on the
+# packed-plain (144 * 72^2 * 4, 32) view of the 144^3 rows and its first two
+# shifted, HDF_SHIFTED), and the UpConv pyramid's four (no affine), each on
+# the grid it reads before its upsample: deep_conv on the 9^3 token grid,
+# up1-up3
+IN_FORWARD = (((PATCH ** 3, 32), 2, True), (((PATCH // 2) ** 3, 64), 4, True),
+              (((PATCH // 4) ** 3, 128), 4, True), (((PATCH // 8) ** 3, 256), 2, True),
+              (((PATCH // 16) ** 3, 256), 1, False), (((PATCH // 8) ** 3, 128), 1, False),
+              (((PATCH // 4) ** 3, 64), 1, False), (((PATCH // 2) ** 3, 32), 1, False))
 HDF_NORMS, HDF_SHIFTED = 18, 2  # a forward's InstanceNorms, and its shifted ones
 IN_PASSES = ("partial_stats_kernel", "finalize_kernel", "normalize_kernel")
 IN_BWD_PASSES = ("bwd_persistent_kernel",)
@@ -579,18 +616,19 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
     # the serving forward's InstanceNorm launches, timed shape by shape
     per_forward = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for (s, c), count in IN_FORWARD:
+    for (s, c), count, affine in IN_FORWARD:
         x = (torch.randn((WINDOWS, s, c), generator=gen, device=dev) * 3 + 1).to(torch.bfloat16)
-        scale, bias = torch.rand(c, generator=gen, device=dev), torch.randn(c, generator=gen,
-                                                                             device=dev)
-        rec = dict(shape=[WINDOWS, s, c], dtype="bfloat16", launches_per_serving_forward=count,
+        scale, bias = (torch.rand(c, generator=gen, device=dev),
+                       torch.randn(c, generator=gen, device=dev)) if affine else (None, None)
+        rec = dict(shape=[WINDOWS, s, c], dtype="bfloat16", affine=affine,
+                   launches_per_serving_forward=count,
                    **instance_norm_times(x, scale, bias, library=False))
         emit("instance_norm_serving_shape", **rec)
         for key in per_forward:
             per_forward[key] += rec[key] * count
         del x
         torch.cuda.empty_cache()
-    launches = sum(count for _, count in IN_FORWARD)
+    launches = sum(count for _, count, _ in IN_FORWARD)
     emit("instance_norm_per_serving_forward", launches=launches,
          **{f"per_forward_{k}": v for k, v in per_forward.items()})
     main["instance_norm_relu"].update({f"per_forward_{k}": v for k, v in per_forward.items()})
@@ -773,12 +811,12 @@ def phase_norm_backward(gen) -> dict:
     # a train step's InstanceNorms (batch 1, bf16), forward and backward, each
     # shape's backward held against its plain version (the launch plan moves with C)
     per_step = dict(fwd_ms=0.0, fwd_bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
-    for (s, c), count in IN_FORWARD:
-        x, dy, scale, bias = norm_bwd_inputs(gen, (1, s, c), torch.bfloat16, True)
+    for (s, c), count, affine in IN_FORWARD:
+        x, dy, scale, bias = norm_bwd_inputs(gen, (1, s, c), torch.bfloat16, affine)
         vs_plain = norm_bwd_compare(x, dy, scale, bias, True, f"(1, {s}, {c}) bfloat16")
         fwd = instance_norm_times(x, scale, bias, library=False)
         bwd = norm_backward_times(x, dy, scale, bias, True, library=False)
-        emit("instance_norm_train_shape", shape=[1, s, c], dtype="bfloat16",
+        emit("instance_norm_train_shape", shape=[1, s, c], dtype="bfloat16", affine=affine,
              launches_per_train_step=count, vs_plain=vs_plain, bitwise_rerun=True,
              fwd_ms=fwd["ms"], fwd_bound_ms=fwd["bound_ms"], bwd_ms=bwd["ms"],
              bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"], plan=bwd["plan"])
@@ -788,7 +826,7 @@ def phase_norm_backward(gen) -> dict:
             per_step[key] += val * count
         del x, dy
         torch.cuda.empty_cache()
-    emit("instance_norm_per_train_step", launches=sum(count for _, count in IN_FORWARD),
+    emit("instance_norm_per_train_step", launches=sum(count for _, count, _ in IN_FORWARD),
          **per_step)
 
     # a Hecktor20Top1 trainer step's backward InstanceNorms (batch 2, bf16, no
@@ -930,7 +968,7 @@ def phase_forward(args, net, plain, gen) -> None:
         counts = read_counts()
         if counts != expect:
             fail(f"forward launched {counts}, expected {expect}")
-        if counts["instance_norm_relu"] != sum(count for _, count in IN_FORWARD):
+        if counts["instance_norm_relu"] != sum(count for _, count, _ in IN_FORWARD):
             fail(f"forward launched {counts['instance_norm_relu']} InstanceNorms, but phase 1 "
                  f"timed {IN_FORWARD} as one forward's")
         outs, warm_ms = timed_forward(net, x)
@@ -1254,6 +1292,389 @@ def phase_train(args) -> dict:
     del state, batch
     torch.cuda.empty_cache()
     return expect
+
+
+GRAPH_STEPS = 8  # K: the chained steps of the graph phase
+
+
+def graph_state(args):
+    """bench.py's model and optimizer (HDenseFormer_32, 144^3, depth 24,
+    bf16, dropout 0.5, Adam with coupled L2), the optimizer capturable."""
+    state, _, _, _ = bench.build("cuda", PATCH, args.depth, args.seed)
+    make_capturable(state.optimizer, "cuda")
+    return state
+
+
+def eager_steps(state, batches: dict, seed: int) -> tuple:
+    """The K single steps the trainer would run: dropout seeded
+    ``step_seed(seed, step)`` before each. Returns the losses and the wall
+    ms a step (synchronised)."""
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+    gen = torch.Generator(device="cuda")
+    k = batches["image"].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(k):
+        gen.manual_seed(step_seed(seed, state.step))
+        _, out = step(state, {n: v[i] for n, v in batches.items()}, gen)
+        losses.append(out["loss"])
+    losses = torch.stack(losses).tolist()
+    return losses, (time.perf_counter() - t0) * 1e3 / k
+
+
+def captured_steps(multi, state, batches: dict, seed: int) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = multi(state, batches, seed)
+    losses = out["loss"].tolist()
+    return losses, (time.perf_counter() - t0) * 1e3 / batches["image"].shape[0]
+
+
+def busy_union_ms(prof) -> float:
+    """The device's busy time in a profile: the union of its kernels'
+    intervals (kernels of one graph may overlap)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return busy / 1e3
+
+
+def phase_graph(args) -> dict:
+    """K = 8 train steps of bench.py's model captured as one CUDA graph and
+    replayed (``train.loop.make_multi_train_step``), against 8 eager steps
+    from the same weights and dropout seeds, on 8 synthetic cases (144^3,
+    batch 1). The captured launches of every kernel (the wrappers count at
+    capture: one step's), the losses step by step: the first within phase
+    4's bf16 bar (1e-3 relative; a control step with another dropout seed
+    must move the loss more than the capture does), each later one within
+    that bar or 3x the largest spread of eager steps on the input moved by
+    one bf16 step (phase 4's method: Adam turns the rounding of cuDNN's
+    backward into whole-lr moves, so the runs drift apart step by step as two
+    correct runs do), wall ms a step in turns
+    (captured, eager, eager, captured), and a profile of 8 replays: the
+    port's kernels by name in it, and the card's idle share, 1 - busy /
+    wall, the busy time the kernels' device time under the profiler and the
+    wall time the unprofiled captured calls' (busy: the union of the
+    kernels' intervals, which a graph may run side by side). Returns the
+    captured launches."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cases = [synthetic_case(args.seed + i, PATCH) for i in range(GRAPH_STEPS)]
+    batches = {n: torch.stack([c[n] for c in cases]) for n in ("image", "label")}
+    del cases
+    expect = hdf_expect(args, train=True)
+    multi = make_multi_train_step(get_loss("FocalLoss", use_ds=True), N_CLS)
+    captured = graph_state(args)
+    multi.warmup(captured, batches)
+    reset_counts()
+    t_capture = time.perf_counter()
+    cap_losses, _ = captured_steps(multi, captured, batches, args.seed)
+    first_call_s = time.perf_counter() - t_capture
+    capture_counts = read_counts()
+    eager = graph_state(args)
+    reset_counts()
+    eager_losses, eager_ms = eager_steps(eager, batches, args.seed)
+    eager_counts = read_counts()
+    control = graph_state(args)
+    control_loss = eager_steps(control, {n: v[:1] for n, v in batches.items()},
+                               args.seed + 1)[0][0]
+    del control
+    moved_state = graph_state(args)
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    moved = dict(batches, image=batches["image"] * (1 + 2.0 ** -8 * torch.randn(
+        batches["image"].shape, generator=g, device="cuda")))
+    moved_losses = eager_steps(moved_state, moved, args.seed)[0]
+    del moved_state, moved
+    torch.cuda.empty_cache()
+    turns = dict(captured=[], eager=[eager_ms])
+    turns["captured"].append(captured_steps(multi, captured, batches, args.seed)[1])
+    turns["eager"].append(eager_steps(eager, batches, args.seed)[1])
+    turns["eager"].append(eager_steps(eager, batches, args.seed)[1])
+    turns["captured"].append(captured_steps(multi, captured, batches, args.seed)[1])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        multi(captured, batches, args.seed)
+        torch.cuda.synchronize()
+    busy, names = 0.0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            names[e.name] = names.get(e.name, 0) + 1
+    busy_per_step = busy / GRAPH_STEPS
+    wall = min(turns["captured"])
+    union = busy_union_ms(prof) / GRAPH_STEPS
+    port_kernels = {n: c // GRAPH_STEPS for n, c in names.items() if any(
+        k in n for k in ("dense_attention_kernel", "partial_stats_kernel", "finalize_kernel",
+                         "normalize_kernel", "bwd_persistent_kernel", "shift_kernel"))}
+    rel = [abs(a - b) / abs(b) for a, b in zip(cap_losses, eager_losses)]
+    spread = [abs(a - b) / abs(b) for a, b in zip(moved_losses, eager_losses)]
+    bars = [1e-3] + [max(1e-3, 3 * max(spread))] * (GRAPH_STEPS - 1)
+    control_rel = abs(control_loss - eager_losses[0]) / abs(eager_losses[0])
+    rec = dict(net="HDenseFormer_32", patch=PATCH, depth=args.depth, batch=1, dtype="bfloat16",
+               dropout=0.5, steps=GRAPH_STEPS, first_call_s=first_call_s,
+               launches_captured=capture_counts, launches_eager_8_steps=eager_counts,
+               captured_losses=cap_losses, eager_losses=eager_losses, loss_rel=rel,
+               moved_input_loss_rel=spread, loss_bars=bars,
+               control_seed_loss_rel=control_rel,
+               ms_per_step_in_turns=[["captured", turns["captured"][0]],
+                                     ["eager", turns["eager"][1]],
+                                     ["eager", turns["eager"][2]],
+                                     ["captured", turns["captured"][1]]],
+               eager_ms_first_run=turns["eager"][0], replay_kernel_ms_per_step=busy_per_step,
+               replay_busy_ms_per_step=union, replay_idle_share=1 - union / wall,
+               port_kernels_per_replay=port_kernels, seconds=time.perf_counter() - t0)
+    emit("graph", **rec)
+    if capture_counts != expect:
+        fail(f"the captured step launched {capture_counts}, expected one step's {expect}")
+    if eager_counts != {k: v * GRAPH_STEPS for k, v in expect.items()}:
+        fail(f"the eager steps launched {eager_counts}, expected {GRAPH_STEPS} x {expect}")
+    if not all(np.isfinite(cap_losses)) or any(r > b for r, b in zip(rel, bars)) or (
+            control_rel <= rel[0]):
+        fail(f"captured against eager losses: {rel}, bars {bars} (control {control_rel})")
+    seen = {k: any(k in n for n in port_kernels) for k in (
+        "dense_attention_kernel", "partial_stats_kernel", "normalize_kernel",
+        "bwd_persistent_kernel")}
+    if not all(seen.values()):
+        fail(f"the replays' profile lacks the port's kernels: {seen}, names {sorted(names)[:40]}")
+    del multi, captured, eager, batches
+    torch.cuda.empty_cache()
+    return capture_counts
+
+
+DP_WORK = os.path.join(WORK, "dp")
+
+
+def dp_case(seed: int) -> dict:
+    """A synthetic case as a host batch of one (numpy), the data-parallel
+    phase's global batch being two of them."""
+    image = PETandCTNormalize()({"image": synthetic_volume(seed, PATCH)})["image"]
+    return {"image": np.moveaxis(image, 0, -1)[None].astype(np.float32),
+            "label": np.eye(N_CLS, dtype=np.float32)[sphere(PATCH).astype(np.int64)][None]}
+
+
+def dp_global_batch(args, nudge: float = 0.0) -> dict:
+    cases = [dp_case(args.seed + i) for i in range(2)]
+    batch = {n: np.concatenate([c[n] for c in cases]) for n in ("image", "label")}
+    if nudge:  # the input moved by one rounding step: the bars' reference spread
+        rng = np.random.RandomState(args.seed + 7)
+        batch["image"] = batch["image"] * (1 + nudge * rng.randn(*batch["image"].shape)
+                                           ).astype(np.float32)
+    return batch
+
+
+def dp_steps(args, device, mesh=None, nudge: float = 0.0) -> dict:
+    """Two train steps of bench.py's model on the global batch of two cases
+    (this rank's share under ``mesh``), dropout seeded per step as the
+    trainer seeds it: the losses, launches and the parameters after."""
+    state, step, _, _ = bench.build(device, PATCH, args.depth, args.seed)
+    host = dp_global_batch(args, nudge)
+    batch = pad_and_mask_batch(host, 2, mesh or device)
+    gen = torch.Generator(device=device)
+    losses = []
+    reset_counts()
+    with mesh or contextlib.nullcontext():
+        for _ in range(2):
+            gen.manual_seed(step_seed(args.seed, state.step))
+            _, out = step(state, batch, gen)
+            losses.append(float(out["loss"]))
+    return dict(losses=losses, launches=read_counts(),
+                params={n: p.detach().float().cpu() for n, p in state.model.named_parameters()})
+
+
+def dp_worker(args) -> int:
+    """One rank of the data-parallel phase, started by ``phase_data_parallel``
+    (``--dp-worker gloo`` under the JAX package's env contract, or ``nccl``
+    under torchrun's at world size 1). Prints one JSON line."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_worker == "nccl":
+        if not maybe_distributed_init("cuda"):
+            fail("no launch contract in the environment")
+        mesh = make_mesh(1)
+        run = dp_steps(args, mesh.device, mesh)
+        t = torch.ones(3, device=mesh.device) * (mesh.rank + 1)
+        torch.distributed.all_reduce(t)
+        print(json.dumps(dict(rank=mesh.rank, world=mesh.world_size,
+                              backend=torch.distributed.get_backend(), losses=run["losses"],
+                              launches=run["launches"], all_reduce=t.tolist())), flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
+    if not maybe_distributed_init("cuda", backend="gloo"):
+        fail("no launch contract in the environment")
+    mesh = make_mesh(2, "cuda:0")  # both ranks on the one card
+    run = dp_steps(args, mesh.device, mesh)
+    if mesh.rank == 0:
+        torch.save(run["params"], os.path.join(DP_WORK, "params.pt"))
+    net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
+                  dtype=torch.bfloat16, device=mesh.device)
+    init_weights(net, torch.Generator().manual_seed(args.seed))
+    image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
+    reset_counts()
+    labels = predict_volume(net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
+                            window_batch=WINDOWS, mesh=mesh)
+    serve_counts = read_counts()
+    if mesh.rank == 0:
+        np.save(os.path.join(DP_WORK, "labels.npy"), labels)
+    print(json.dumps(dict(rank=mesh.rank, world=mesh.world_size,
+                          backend=torch.distributed.get_backend(), losses=run["losses"],
+                          launches=run["launches"], serve_launches=serve_counts)), flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_workers(args, kind: str, envs: list, timeout: int = 600) -> list:
+    """Run this script as ``--dp-worker kind`` once a given env; returns
+    each process's JSON line, failing the run if one fails."""
+    script = os.path.abspath(__file__)
+    root = os.path.dirname(script)
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--dp-worker", kind, "--depth", str(args.depth),
+         "--seed", str(args.seed)],
+        env=dict(os.environ, PYTHONPATH=root, GLOO_SOCKET_IFNAME="lo", **env), cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for env in envs]
+    lines = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                fail(f"data-parallel worker ({kind}) exited {p.returncode}: {out[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return lines
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def update_errors(run: dict, ref: dict, start: dict) -> list:
+    """Per tensor |d_run - d_ref| / |d_ref| of the updates (after - start)."""
+    out = []
+    for n, p0 in start.items():
+        d_ref = ref["params"][n] - p0
+        out.append(float((run["params"][n] - p0 - d_ref).norm())
+                   / max(float(d_ref.norm()), 1e-30))
+    return sorted(out)
+
+
+def phase_data_parallel(args) -> dict:
+    """Data parallel on the one card (parallel/mesh.py): two gloo processes,
+    each bench.py's model (144^3, depth 24, bf16, dropout 0.5) at batch 1 a
+    rank, two steps of a global batch of 2 against one process's two
+    batch-2 steps (losses within phase 4's bf16 bar, 1e-3 relative, or 3x
+    the spread of one process on an input moved by one bf16 step; the
+    parameter updates, worst and median tensor, within 3x that spread's);
+    then the same two steps through ``maybe_distributed_init`` under
+    torchrun's env, NCCL at world size 1, and an NCCL all-reduce; then ``predict_volume(mesh=...)`` of a 200^3
+    volume over the two ranks against one process (argmax agreement
+    >= 0.99999 where the single run's accumulated top-two margin > 0.1).
+    Each rank's launches are checked. Returns the launches by path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    os.makedirs(DP_WORK)
+    port = free_port()
+    ranks = spawn_workers(args, "gloo", [dict(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                                        JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r))
+                                   for r in range(2)])
+    gloo_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    (nccl,) = spawn_workers(args, "nccl", [dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))])
+    nccl_s = time.perf_counter() - t1
+    one = dp_steps(args, "cuda")
+    moved = dp_steps(args, "cuda", nudge=2.0 ** -8)  # one bf16 step, as phase 4
+    start = {n: p.detach().float().cpu() for n, p in bench.build(
+        "cuda", PATCH, args.depth, args.seed)[0].model.named_parameters()}
+    dp = dict(params=torch.load(os.path.join(DP_WORK, "params.pt")), losses=ranks[0]["losses"])
+    errs, spread = update_errors(dp, one, start), update_errors(moved, one, start)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(dp["losses"], one["losses"])]
+    moved_rel = [abs(a - b) / abs(b) for a, b in zip(moved["losses"], one["losses"])]
+
+    net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
+                  dtype=torch.bfloat16, device="cuda")
+    init_weights(net, torch.Generator().manual_seed(args.seed))
+    image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
+    single = predict_volume(net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS, window_batch=WINDOWS)
+    acc = single_accumulator(net, image)
+    top = acc.topk(2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1] > 0.1).cpu().numpy()
+    sharded = np.load(os.path.join(DP_WORK, "labels.npy"))
+    same = sharded == single
+    expect_step = {k: 2 * v for k, v in hdf_expect(args, train=True).items()}
+    expect_serve = hdf_expect(args)
+    rec = dict(net="HDenseFormer_32", patch=PATCH, depth=args.depth, dtype="bfloat16",
+               batch_per_rank=1, ranks=[{k: r[k] for k in ("rank", "world", "backend", "losses")}
+                                        for r in ranks],
+               one_process_losses=one["losses"], loss_rel=loss_rel, moved_loss_rel=moved_rel,
+               update_rel_worst=errs[-1], update_rel_median=errs[len(errs) // 2],
+               moved_update_rel_worst=spread[-1], moved_update_rel_median=spread[len(spread) // 2],
+               launches_by_rank=[r["launches"] for r in ranks],
+               serve_launches_by_rank=[r["serve_launches"] for r in ranks],
+               nccl_world_1=nccl, sharded_200_agreement=float(same.mean()),
+               sharded_200_agreement_margin_gt_0p1=float(same[decided].mean()),
+               decided_fraction=float(decided.mean()), gloo_s=gloo_s, nccl_s=nccl_s,
+               seconds=time.perf_counter() - t0)
+    emit("data_parallel", **rec)
+    loss_bar = max(1e-3, 3 * max(moved_rel))
+    if max(loss_rel) > loss_bar or ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"two ranks against one process: losses {loss_rel} (bar {loss_bar}), ranks "
+             f"{ranks[0]['losses']} / {ranks[1]['losses']}")
+    if errs[-1] > 3 * spread[-1] or errs[len(errs) // 2] > 3 * spread[len(spread) // 2]:
+        fail(f"two ranks against one process: updates {errs[-1]}, {errs[len(errs) // 2]} "
+             f"against 3x {spread[-1]}, {spread[len(spread) // 2]}")
+    if any(c != expect_step for c in [r["launches"] for r in ranks] + [
+            nccl["launches"], one["launches"]]):
+        fail(f"data-parallel steps launched {[r['launches'] for r in ranks]}, NCCL "
+             f"{nccl['launches']}, one process {one['launches']}; expected {expect_step}")
+    if any(r["serve_launches"] != expect_serve for r in ranks):
+        fail(f"sharded serving launched {[r['serve_launches'] for r in ranks]}, expected "
+             f"{expect_serve} a rank (its 4 windows in one call)")
+    if nccl["backend"] != "nccl" or nccl["all_reduce"] != [1.0, 1.0, 1.0] or not np.isfinite(
+            nccl["losses"]).all():
+        fail(f"NCCL world of one: {nccl}")
+    if rec["sharded_200_agreement_margin_gt_0p1"] < 0.99999:
+        fail(f"sharded 200^3 labels agree with one process on {same[decided].mean()} of the "
+             "decided voxels")
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    del net, acc
+    torch.cuda.empty_cache()
+    by_rank = {k: sum(r["launches"][k] + r["serve_launches"][k] for r in ranks)
+               for k in KERNELS}
+    return {"data-parallel-2-ranks": by_rank, "data-parallel-nccl-1": nccl["launches"]}
+
+
+def single_accumulator(net, image) -> torch.Tensor:
+    """One process's fp32 window accumulator of ``predict_volume`` (the
+    labels are its argmax), to read each voxel's top-two margin."""
+    from hdenseformer_tpu_torch.infer.sliding import (
+        _lattice_pad_targets,
+        _origins_array,
+        accumulate_windows,
+    )
+
+    image_cl = np.moveaxis(np.asarray(image, np.float32), 0, -1)
+    spatial = image_cl.shape[:-1]
+    tgt = _lattice_pad_targets(spatial, (PATCH,) * 3, (STEP,) * 3)
+    device = next(net.parameters()).device
+    volume = torch.zeros(tuple(tgt) + image_cl.shape[-1:], device=device)
+    volume[tuple(slice(0, s) for s in spatial)] = torch.from_numpy(image_cl).to(device)
+    origins = _origins_array(cal_steps(spatial, (PATCH,) * 3, (STEP,) * 3))
+    acc = accumulate_windows(net, volume, origins, np.ones(len(origins), np.float32),
+                             (PATCH,) * 3, N_CLS, None, len(origins))
+    return acc[tuple(slice(0, s) for s in spatial)]
 
 
 def phase_remat_compare(args) -> None:
@@ -1616,9 +2037,11 @@ def phase_zoo(args, gen) -> dict:
     2 (FocalLoss, Adam with coupled L2 1e-4, lr 1e-3, dropout from a seeded
     generator): finite loss, ms a step, peak memory, parameters, launches
     against the model's count; a BatchNorm model's running statistics must
-    not move in the eval forward and must move in the step. UNETR's eval
-    forward also runs through the plain versions from the same weights
-    (phase 2's bars). Returns UNETR's launches (its forward and steps)."""
+    not move in the eval forward and must move in the step. UNETR's and
+    TransBTS's eval forwards also run through the plain versions
+    (``use_kernels=False``: no kernel may launch, TransBTS's packed InitConv
+    takes the half-shift's plain version) from the same weights (phase 2's
+    bars). Returns UNETR's launches (its forward and steps)."""
     t0 = time.perf_counter()
     case = synthetic_case(args.seed, PATCH)
     batch = {k: v.repeat(ZOO_BATCH, 1, 1, 1, 1) for k, v in case.items()}
@@ -1641,7 +2064,7 @@ def phase_zoo(args, gen) -> dict:
         if name in ("TransBTS", "unetr"):
             # layers.self_attention: SDPA would draw its dropout from the global RNG
             rec["attention"] = "plain math, fp32 scores (layers.self_attention)"
-        if name == "unetr":
+        if name in ("TransBTS", "unetr"):
             plain = get_net(name, 2, N_CLS, (PATCH,) * 3, dtype=torch.bfloat16,
                             use_kernels=False, device="cuda")
             plain.load_state_dict(net.state_dict())
@@ -1684,12 +2107,13 @@ def phase_zoo(args, gen) -> dict:
             fail(f"{name} train losses {rec['losses']}")
         if len(moved) != len(fresh):
             fail(f"{name}: {len(fresh) - len(moved)} running statistics did not move in training")
-        if name == "unetr":
+        if name in ("TransBTS", "unetr"):
             cmp = rec["kernels_vs_plain"]
             if any(rec["launches_plain_forward"].values()) or cmp["argmax_agreement"] < 0.99 or (
                     cmp["argmax_agreement_margin_gt_0p1"] < 0.999):
-                fail(f"UNETR kernels vs plain path: {cmp}, plain launched "
+                fail(f"{name} kernels vs plain path: {cmp}, plain launched "
                      f"{rec['launches_plain_forward']}")
+        if name == "unetr":
             for counts in [fwd_counts] + [st["launches"] for st in steps]:
                 for k, v in counts.items():
                     unetr_counts[k] += v
@@ -2166,12 +2590,16 @@ class TrainerRun:
         train, val = self.split(cfg, paths)
         seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
 
-    def resume(self, cfg, paths, ckpt: str, epochs: int):
+    def resume(self, cfg, paths, ckpt: str, epochs: int, profile_dir=None):
+        """The resumed run, traced by ``profiler_trace(profile_dir)`` as the
+        CLI's ``--profile`` traces a fold's training; returns the trainer and
+        the trace's path."""
         seg = self.seg_cls(**dict(cfg.init_trainer_kwargs(), n_epoch=epochs, pre_trained=True,
                                   ckpt_point=True, weight_path=ckpt), device=self.device)
         train, val = self.split(cfg, paths)
-        seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
-        return seg
+        with profiler_trace(profile_dir) as trace:
+            seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+        return seg, trace
 
     def infer(self, cfg, tests, ckpt: str, save: str) -> None:
         if self.case_format == "hdf5":
@@ -2229,6 +2657,36 @@ def per_train_step(counts: dict, n_train: int, n_forward: int, forward: dict) ->
     return out
 
 
+# the port's kernels by the names the profiler gives them
+TRACE_KERNELS = {"dense_attention": "dense_attention_kernel",
+                 "instance_norm_relu": "normalize_kernel",
+                 "instance_norm_relu_backward": "bwd_persistent_kernel"}
+
+
+def profile_check(trace: str, epochs: list, resume_s: float) -> None:
+    """Phase 5's resumed epoch ran under ``profiler_trace``: the trace file
+    exists and names the attention, InstanceNorm forward and backward
+    kernels, each also in its shifted instantiation (``kShifted`` true), and
+    the epoch's step time beside the unprofiled epochs'."""
+    if not trace or not os.path.exists(trace):
+        fail(f"the profiled resume wrote no trace ({trace})")
+    with open(trace) as f:
+        names = set(re.findall(r'"name":\s*"([^"]*)"', f.read()))
+    kernels = sorted(n for n in names if any(k in n for k in TRACE_KERNELS.values()))
+    named = {k: any(sub in n for n in kernels) for k, sub in TRACE_KERNELS.items()}
+    # a template's bool argument, demangled
+    shifted = {k: any(sub in n and re.search(r"(true|\(bool\)1|, 1)>", n) for n in kernels)
+               for k, sub in (("instance_norm_relu_shifted", "normalize_kernel"),
+                              ("instance_norm_relu_shifted_backward", "bwd_persistent_kernel"))}
+    emit("profile", trace=os.path.basename(trace), trace_mb=os.path.getsize(trace) / 1e6,
+         kernels_named=named, shifted_named=shifted, kernel_names=kernels[:12],
+         profiled_epoch_step_s=epochs[-1]["step_s"],
+         unprofiled_epoch_step_s=[r["step_s"] for r in epochs[:-1]],
+         profiled_resume_wall_s=resume_s)
+    if not all(named.values()) or not all(shifted.values()):
+        fail(f"the trace lacks a kernel of the port: {named}, shifted {shifted}, {kernels}")
+
+
 def phase_trainer(args, work: str, case_format: str, device: str = "cuda") -> dict:
     """The trainer journey at full width: train 2 epochs of fold 1 of 3, resume
     one more from the best checkpoint, sliding-window inference of two
@@ -2272,7 +2730,10 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     best_epoch = int(os.path.basename(best).split("-")[0].split("=")[1])
 
     reset_counts()
-    seg = run.resume(cfg, paths, best, best_epoch + 2)  # one epoch after the best
+    t_resume = time.perf_counter()
+    seg, trace = run.resume(cfg, paths, best, best_epoch + 2,  # one epoch after the best
+                            profile_dir=os.path.join("trace", cfg.version))
+    resume_s = time.perf_counter() - t_resume
     resume_counts = read_counts()
     resume_step = per_train_step(resume_counts, n_train, n_val, forward) if on_card else None
     kept = sorted(os.listdir(ckpt_dir))
@@ -2291,6 +2752,8 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
          start_epoch_after_resume=seg.start_epoch, checkpoints_kept=len(kept))
     if on_card and (step != train_expect or resume_step != train_expect):
         fail(f"trainer step launched {step} (resumed {resume_step}), expected {train_expect}")
+    if on_card:
+        profile_check(trace, epochs, resume_s)
     if len(kept) > 3 or seg.start_epoch != best_epoch + 1 or len(epochs) != TRAIN_EPOCHS + 1:
         fail(f"checkpoints {kept}, start_epoch {seg.start_epoch}, epochs {epochs}")
     if not all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in epochs):
@@ -2435,12 +2898,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=24, help="transformer_depth (24 = full)")
+    ap.add_argument("--dp-worker", choices=["gloo", "nccl"], default=None,
+                    help="run one rank of the data-parallel phase (the phase starts them)")
     args = ap.parse_args()
     args.patch, args.case, args.volume = PATCH, CASE, VOLUME
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.dp_worker:
+        return dp_worker(args)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2462,6 +2929,8 @@ def main() -> int:
     del nets
     phase_train_compare(args)
     by_path["train"] = phase_train(args)
+    by_path["graph-captured-step"] = phase_graph(args)
+    by_path.update(phase_data_parallel(args))
     phase_remat_compare(args)
     remat_memory(args)
     remat_memory(args, "hecktor20top1")

@@ -16,8 +16,16 @@ deeplabv3+ (with ``--encoder resnet18|resnet34|resnet50``) in 2-D. A 2-D net
 trains on 2-D slice cases (the PI-CAI22 preset) and ``-m predict-2d`` runs
 it slice by slice over the volumes of ``--test-path`` (``infer/slices.py``).
 
-Not ported: ``--profile`` and inference over several devices, each raising
-``NotImplementedError`` with its ROADMAP.md item (queue 1 item 6).
+``--profile DIR`` writes a ``torch.profiler`` trace of each fold's
+``trainer()`` call under DIR (``utils.profiling.profiler_trace``; JAX's help
+text says the first epoch, but its code traces the whole call, as here).
+``--n-devices N`` above 1 runs train and inf-sw data-parallel over N
+processes of ``torch.distributed``, one a card, launched by
+``torchrun --nproc-per-node N -m hdenseformer_tpu_torch.cli ... --n-devices
+N`` or under the JAX package's env contract (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``; ``parallel/mesh.py``): each
+process takes ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the host) and
+only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--folds", type=int, default=None, help="number of CV folds")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="a profiler trace of the first training epoch (not ported)")
+                   help="write a torch.profiler trace of each fold's training into DIR")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (default cuda; cpu for the plain versions)")
     # inf-sw mode
@@ -132,11 +140,16 @@ def _report_params_flops(seg, cfg) -> None:
         print("(flop report skipped: the counter could not trace the forward)")
 
 
-def run_train(cfg, folds, device) -> list:
-    """Train each fold of ``folds``; returns each fold's history."""
+def run_train(cfg, folds, device, profile_dir=None) -> list:
+    """Train each fold of ``folds`` (under ``profile_dir``'s profiler trace
+    where given); returns each fold's history."""
     from hdenseformer_tpu_torch.data.pipeline import get_cross_validation_by_sample
+    from hdenseformer_tpu_torch.parallel.mesh import local_device, maybe_distributed_init
     from hdenseformer_tpu_torch.train.loop import SemanticSeg
+    from hdenseformer_tpu_torch.utils import profiler_trace
 
+    if maybe_distributed_init(device):
+        device = local_device(device)
     path_list = cfg.path_list
     if not path_list:
         raise FileNotFoundError(f"no .hdf5 cases under {cfg.data_path}")
@@ -153,12 +166,15 @@ def run_train(cfg, folds, device) -> list:
         )
         print("Train set length", len(train_path), "Val set length", len(val_path))
         t0 = time.time()
-        histories.append(seg.trainer(
-            train_path=train_path,
-            val_path=val_path,
-            cur_fold=current_fold,
-            **cfg.setup_trainer_kwargs(),
-        ))
+        with profiler_trace(profile_dir) as trace:
+            histories.append(seg.trainer(
+                train_path=train_path,
+                val_path=val_path,
+                cur_fold=current_fold,
+                **cfg.setup_trainer_kwargs(),
+            ))
+        if trace:
+            print(f"profiler trace: {trace}")
         print(f"run time:{time.time() - t0:.4f}")
     return histories
 
@@ -166,12 +182,15 @@ def run_train(cfg, folds, device) -> list:
 def run_inference(cfg, args) -> list:
     """Sliding-window inference with each fold's newest checkpoint; returns
     the paths written."""
+    from hdenseformer_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init
     from hdenseformer_tpu_torch.train.checkpoint import get_weight_path
     from hdenseformer_tpu_torch.train.loop import SemanticSeg
 
+    mesh, device = None, args.device
     if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "inference over several devices is not ported yet: ROADMAP.md queue 1 item 6")
+        maybe_distributed_init(device)
+        mesh = make_mesh(cfg.n_devices, device)
+        device = mesh.device
     test_path = args.test_path or cfg.test_path
     written = []
     for current_fold in range(1, cfg.fold_num + 1):
@@ -184,16 +203,15 @@ def run_inference(cfg, args) -> list:
         kwargs = cfg.init_trainer_kwargs()
         kwargs["weight_path"] = weight_path
         kwargs["pre_trained"] = True
-        seg = SemanticSeg(**kwargs, device=args.device)
+        seg = SemanticSeg(**kwargs, device=device)
         save_path = args.save_path or os.path.join(
             cfg.save_root, "3d", cfg.version, f"fold{current_fold}"
         )
-        os.makedirs(save_path, exist_ok=True)
         t0 = time.time()
         written += seg.inference_slidingwindow(
             test_path, save_path,
             window_batch=args.window_batch, use_gaussian=args.use_gaussian,
-            save_nii=args.save_nii,
+            mesh=mesh, save_nii=args.save_nii,
         )
         print(f"run time:{time.time() - t0:.4f}")
     return written
@@ -283,8 +301,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mode == "convert":
         return run_convert(args)
-    if args.profile is not None:
-        raise NotImplementedError("--profile is not ported yet: ROADMAP.md queue 1 item 6")
     cfg = make_config(args)
     if args.mode in ("train", "train-cross", "inf-sw", "predict-2d"):
         import torch
@@ -293,9 +309,9 @@ def main(argv=None):
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU unless --device cpu is given")
     if args.mode == "train-cross":
-        return run_train(cfg, range(1, cfg.fold_num + 1), args.device)
+        return run_train(cfg, range(1, cfg.fold_num + 1), args.device, args.profile)
     if args.mode == "train":
-        return run_train(cfg, [cfg.current_fold], args.device)
+        return run_train(cfg, [cfg.current_fold], args.device, args.profile)
     if args.mode == "inf-sw":
         return run_inference(cfg, args)
     if args.mode == "predict-2d":

@@ -6,7 +6,9 @@ float or integer volume of class indices). Each random function is split
 in two:
 
 - a *draw* (``draw_*``) from an explicit ``torch.Generator``, on the
-  generator's device, with the per-sample values drawn as batch tensors;
+  generator's device, with the per-sample values drawn as batch tensors
+  (under a data-parallel mesh, a rank's rows of the global batch's draw:
+  ``parallel.mesh.sharded_draw``);
 - a deterministic *apply* that takes the drawn values.
 
 ``random_*`` is the draw followed by the apply. The split lets a test
@@ -41,9 +43,12 @@ from typing import Sequence, Tuple
 
 import torch
 
+from hdenseformer_tpu_torch.parallel.mesh import sharded_draw
+
 
 def _uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = sharded_draw(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                     shape)
     return lo + (hi - lo) * u
 
 
@@ -89,7 +94,8 @@ def draw_crop(generator: torch.Generator, shape: Sequence[int], patch: Sequence[
             raise ValueError(f"a batch of shape {tuple(shape)} is smaller than the patch "
                              f"{tuple(patch)}")
         if hi > 0:
-            cols.append(torch.randint(0, hi + 1, (b,), generator=generator, device=dev))
+            cols.append(sharded_draw(lambda s: torch.randint(
+                0, hi + 1, s, generator=generator, device=dev), (b,)))
         else:
             cols.append(torch.zeros((b,), dtype=torch.int64, device=dev))
     return torch.stack(cols, dim=1)
@@ -117,7 +123,8 @@ def random_crop(generator, image, label, patch):
 
 def draw_flip(generator: torch.Generator, batch: int) -> torch.Tensor:
     """(B,) bool: True flips spatial axis −2 (H), False axis −1 (W)."""
-    return torch.rand((batch,), generator=generator, device=generator.device) > 0.5
+    return sharded_draw(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                        (batch,)) > 0.5
 
 
 def flip(image: torch.Tensor, label: torch.Tensor, coins: torch.Tensor
@@ -258,8 +265,10 @@ def draw_noise(generator: torch.Generator, shape: Sequence[int], p: float = 0.1,
     """(B,) bool: the samples that get noise (U > 1 − p); N(0, sigma²) noise
     of ``shape``."""
     dev = generator.device
-    apply = torch.rand((shape[0],), generator=generator, device=dev) > (1.0 - p)
-    noise = torch.randn(tuple(shape), generator=generator, device=dev) * sigma
+    apply = sharded_draw(lambda s: torch.rand(s, generator=generator, device=dev),
+                         (shape[0],)) > (1.0 - p)
+    noise = sharded_draw(lambda s: torch.randn(s, generator=generator, device=dev),
+                         shape) * sigma
     return apply, noise
 
 

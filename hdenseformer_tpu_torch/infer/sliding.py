@@ -15,8 +15,11 @@ Counterpart of ``hdenseformer_tpu/infer/sliding.py``:
 - the argmax is taken on the device and shipped to the host as uint8.
 
 Where JAX scans the windows inside one executable, the port runs them as a
-Python loop of eager calls. Sharding the window origins over several
-devices (``mesh``) is not ported yet (ROADMAP.md queue 1 item 6).
+Python loop of eager calls. With a data-parallel ``mesh``
+(``parallel/mesh.py``: one process a card) the origin list is padded to
+``n_batches * world * window_batch`` and each rank runs its contiguous
+share; the ranks' fp32 accumulators are summed by ``all_reduce`` and every
+rank takes the same argmax, as JAX's ``psum`` over its shard-mapped windows.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hdenseformer_tpu_torch.data.io import hdf5_reader, write_nifti
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
@@ -137,6 +141,7 @@ def predict_volume(
     use_gaussian: bool = False,
     window_batch: int = 1,
     pad_to_lattice: bool = True,
+    mesh=None,
 ) -> np.ndarray:
     """Sliding-window class probabilities -> argmax labels (D, H, W), int32.
 
@@ -146,7 +151,9 @@ def predict_volume(
     function returns them. With ``pad_to_lattice`` the
     volume is zero-padded up to the (patch, step) lattice; the window grid is
     computed on the original size, so windows never read the pad and the
-    labels are those of the unpadded run.
+    labels are those of the unpadded run. With ``mesh`` (every rank calls
+    with the same volume) each rank runs its share of the windows and all
+    return the labels of the whole volume.
     """
     device = next(model.parameters()).device
     patch_size = tuple(patch_size)
@@ -165,15 +172,23 @@ def predict_volume(
     importance = (
         torch.from_numpy(get_gaussian(patch_size)).to(device) if use_gaussian else None
     )
-    # clamp wb to the window count: a larger batch only adds zero-weight windows
-    wb = max(1, min(window_batch, len(origins)))
-    n_pad = -(-len(origins) // wb) * wb - len(origins)
+    n_dev = 1 if mesh is None else mesh.world_size
+    # clamp wb to a rank's window count: a larger batch only adds zero-weight windows
+    wb = max(1, min(window_batch, -(-len(origins) // n_dev)))
+    n_batches = -(-len(origins) // (n_dev * wb))
+    n_pad = n_batches * n_dev * wb - len(origins)
     if n_pad:
         origins = np.concatenate([origins, np.zeros((n_pad, len(patch_size)), np.int32)])
         weights = np.concatenate([weights, np.zeros((n_pad,), np.float32)])
+    if n_dev > 1:  # this rank's contiguous share, as JAX's P(axis) sharding
+        share = slice(mesh.rank * n_batches * wb, (mesh.rank + 1) * n_batches * wb)
+        origins, weights = origins[share], weights[share]
 
     acc = accumulate_windows(model, volume, origins, weights, patch_size, num_classes,
                              importance, wb)
+    if n_dev > 1:
+        with torch.inference_mode():  # acc is an inference tensor
+            dist.all_reduce(acc)
     labels = acc.argmax(dim=-1).to(torch.uint8).cpu().numpy()
     return labels[crop].astype(np.int32)
 
@@ -201,14 +216,14 @@ def inference_slidingwindow(
     case has none, as the label beside it) and its labels saved as
     ``<case>.npy`` under ``save_path``; ``save_nii`` also writes
     ``<case>.nii.gz`` (int16). Returns the paths written. ``reader(path,
-    key)`` reads a volume of a case (``SegDataset``'s convention). ``mesh``
-    (sharding the windows over several cards) is not ported and raises
-    (ROADMAP.md queue 1 item 6).
+    key)`` reads a volume of a case (``SegDataset``'s convention). With a
+    data-parallel ``mesh`` every rank runs its share of each case's windows
+    (``predict_volume``) and only rank 0 writes; the paths are returned on
+    every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the windows over a mesh is not ported yet: ROADMAP.md queue 1 item 6")
-    os.makedirs(save_path, exist_ok=True)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(save_path, exist_ok=True)
     norm = PETandCTNormalize()
     outputs = []
     if isinstance(test_path, str):
@@ -223,13 +238,17 @@ def inference_slidingwindow(
             label = np.zeros(image.shape[1:], np.float32)
         image = norm({"image": image, "label": label})["image"]
         pred = predict_volume(model, image, patch_size, step_size, num_classes,
-                              use_gaussian=use_gaussian, window_batch=window_batch)
+                              use_gaussian=use_gaussian, window_batch=window_batch, mesh=mesh)
         case = os.path.basename(path).split(".")[0]
         out = os.path.join(save_path, case + ".npy")
-        np.save(out, pred)
         outputs.append(out)
+        if lead:
+            np.save(out, pred)
         if save_nii:
             nii_path = os.path.join(save_path, case + ".nii.gz")
-            write_nifti(nii_path, pred.astype(np.int16))
             outputs.append(nii_path)
+            if lead:
+                write_nifti(nii_path, pred.astype(np.int16))
+    if mesh is not None:
+        mesh.barrier()  # every file is written before any rank returns
     return outputs

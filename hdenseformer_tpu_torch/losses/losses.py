@@ -4,7 +4,11 @@ Counterpart of ``hdenseformer_tpu/losses/losses.py``, whose conventions it
 keeps: ``logits`` and ``target`` are ``(N, *spatial, C)``, ``target`` one-hot;
 the loss math runs in fp32 whatever the model's compute dtype; every loss
 takes ``sample_weight``, a (N,) vector of 1 (real sample) or 0 (padding),
-and the weighted result equals the loss of the real samples alone.
+and the weighted result equals the loss of the real samples alone. Under a
+data-parallel mesh (``parallel/mesh.py``, ``with mesh:``) every reduction
+over the batch is global: each rank returns the loss of the global batch,
+as JAX's sharded loss is one value (a missing ``sample_weight`` is then
+all ones).
 
 Every loss of JAX's registry: ``focal_loss`` (JAX's clip of the
 probabilities to [1e-7, 1 - 1e-7] and log clamp at -100), ``fl_loss`` (the
@@ -24,6 +28,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from hdenseformer_tpu_torch.ops.resize import resize_nearest
+from hdenseformer_tpu_torch.parallel.mesh import active_mesh, global_cat, global_sum
 
 _LOG_CLAMP = -100.0  # torch F.binary_cross_entropy clamps log() at -100
 _PROB_CLIP = 1e-7  # focal_loss keeps probabilities in [1e-7, 1 - 1e-7]
@@ -34,9 +39,19 @@ def _per_sample(sample_weight: torch.Tensor, ndim: int) -> torch.Tensor:
     return sample_weight.float().reshape((-1,) + (1,) * (ndim - 1))
 
 
+def _mesh_weight(sample_weight: Optional[torch.Tensor], like: torch.Tensor
+                 ) -> Optional[torch.Tensor]:
+    """``sample_weight``, or all ones under a mesh, where the reductions
+    take the weighted (global) path."""
+    if sample_weight is None and active_mesh() is not None:
+        return torch.ones(like.shape[0], dtype=torch.float32, device=like.device)
+    return sample_weight
+
+
 def _elementwise_reduce(loss: torch.Tensor, reduction: str,
                         sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
     """mean/sum over all elements, under an optional per-sample mask."""
+    sample_weight = _mesh_weight(sample_weight, loss)
     if sample_weight is None:
         if reduction == "mean":
             return loss.mean()
@@ -46,9 +61,10 @@ def _elementwise_reduce(loss: torch.Tensor, reduction: str,
     sw = _per_sample(sample_weight, loss.dim())
     if reduction == "mean":
         per_sample = float(prod(loss.shape[1:]))
-        return (loss * sw).sum() / torch.clamp_min(sw.sum() * per_sample, 1e-8)
+        return global_sum((loss * sw).sum()) / torch.clamp_min(
+            global_sum(sw.sum()) * per_sample, 1e-8)
     if reduction == "sum":
-        return (loss * sw).sum()
+        return global_sum((loss * sw).sum())
     return loss * sw
 
 
@@ -57,8 +73,10 @@ def _masked_topk_mean(flat: torch.Tensor, flat_w: torch.Tensor, k: int) -> torch
 
     As JAX's: masked entries sort last (-1e30), the top list is over the
     padded length, and a data-dependent prefix ``floor(n_real * k / 100)``
-    (at least 1) selects the real top set, counted in integers. No host sync.
+    (at least 1) selects the real top set, counted in integers. No host sync. Under a mesh
+    the top list is over the ranks' entries together.
     """
+    flat, flat_w = global_cat(flat), global_cat(flat_w)
     kk_pad = max(int(flat.shape[0] * k / 100), 1)
     top = torch.topk(torch.where(flat_w > 0, flat, -1e30), kk_pad).values
     n_real = (flat_w > 0).sum()
@@ -72,6 +90,7 @@ def _per_sample_reduce(loss_vec: torch.Tensor, reduction: str, k: int,
     """Reduce a per-sample loss vector under an optional sample mask."""
     if reduction not in ("mean", "sum", "topk", "none"):
         raise ValueError(f"Unexpected reduction {reduction}")
+    sample_weight = _mesh_weight(sample_weight, loss_vec)
     if sample_weight is None:
         if reduction == "mean":
             return loss_vec.mean()
@@ -83,9 +102,9 @@ def _per_sample_reduce(loss_vec: torch.Tensor, reduction: str, k: int,
         return loss_vec
     w = sample_weight.float()
     if reduction == "mean":
-        return (loss_vec * w).sum() / torch.clamp_min(w.sum(), 1.0)
+        return global_sum((loss_vec * w).sum()) / torch.clamp_min(global_sum(w.sum()), 1.0)
     if reduction == "sum":
-        return (loss_vec * w).sum()
+        return global_sum((loss_vec * w).sum())
     if reduction == "topk":
         return _masked_topk_mean(loss_vec, w, k)
     return loss_vec * w
@@ -158,6 +177,7 @@ def topk_loss(
     if weight is not None:
         nll = nll * torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[labels]
     flat = nll.reshape(-1)
+    sample_weight = _mesh_weight(sample_weight, nll)
     if sample_weight is not None:
         flat_w = _per_sample(sample_weight, nll.dim()).expand_as(nll).reshape(-1)
         return _masked_topk_mean(flat, flat_w, k)
@@ -252,10 +272,11 @@ def cross_entropy_loss(
     wsel = None
     if weight is not None:
         wsel = torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[labels]
+    sample_weight = _mesh_weight(sample_weight, nll)
     if sample_weight is not None:
         sw = _per_sample(sample_weight, nll.dim())
         wsel = sw.expand_as(nll) if wsel is None else wsel * sw
-        return (nll * wsel).sum() / torch.clamp_min(wsel.sum(), 1e-8)
+        return global_sum((nll * wsel).sum()) / torch.clamp_min(global_sum(wsel.sum()), 1e-8)
     if wsel is not None:
         return (nll * wsel).sum() / wsel.sum()
     return nll.mean()

@@ -4,6 +4,9 @@ Counterpart of ``hdenseformer_tpu/metrics/batch.py``: hard argmax dice per
 class, mean over the non-background classes; a class absent from both
 argmax maps keeps dice 1.0; ``sample_weight`` (N,) of 1/0 leaves padded
 samples out. Everything stays a tensor on the logits' device: no host sync.
+Under a data-parallel mesh (``parallel/mesh.py``) the mean over samples and
+a class's presence are global: the ranks add their weighted sums and
+counts, never their ratios, and each returns the dice of the global batch.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from hdenseformer_tpu_torch.parallel.mesh import active_mesh, global_any, global_sum
 
 
 def _sum_in_order(v: torch.Tensor) -> torch.Tensor:
@@ -28,10 +33,13 @@ def binary_dice(predict: torch.Tensor, target: torch.Tensor, smooth: float = 1e-
     inter = (p * t).sum(1)
     union = (p + t).sum(1)
     dice = (2.0 * inter + smooth) / (union + smooth)
+    if sample_weight is None and active_mesh() is not None:
+        sample_weight = torch.ones_like(dice)
     if sample_weight is None:
         return _sum_in_order(dice) / dice.shape[0]
     w = sample_weight.float()
-    return _sum_in_order(dice * w) / torch.clamp_min(_sum_in_order(w), 1.0)
+    return global_sum(_sum_in_order(dice * w)) / torch.clamp_min(
+        global_sum(_sum_in_order(w)), 1.0)
 
 
 def compute_dice(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = 0,
@@ -51,7 +59,7 @@ def compute_dice(logits: torch.Tensor, target: torch.Tensor, ignore_index: int =
         p, t = pred_lab == i, targ_lab == i
         if wmask is not None:
             p, t = p & wmask, t & wmask
-        present = p.any() | t.any()
+        present = global_any(p.any() | t.any())
         d = binary_dice(p, t, sample_weight=sample_weight)
         dices.append(torch.where(present, d, torch.ones_like(d)))
     keep = torch.arange(num_classes, device=logits.device) != ignore_index

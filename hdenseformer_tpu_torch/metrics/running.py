@@ -12,6 +12,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from hdenseformer_tpu_torch.parallel.mesh import global_sum
+
 
 def confusion_matrix_device(ground_truth: torch.Tensor, prediction: torch.Tensor,
                             num_classes: int,
@@ -20,7 +22,8 @@ def confusion_matrix_device(ground_truth: torch.Tensor, prediction: torch.Tensor
 
     ``sample_weight`` (N,) of 1/0 leaves padded samples' voxels out; the
     inputs are then (N, *spatial). Each voxel adds one to its cell, truth *
-    C + prediction, by an integer scatter-add: exact in any order.
+    C + prediction, by an integer scatter-add: exact in any order. Under a
+    data-parallel mesh the ranks' matrices are summed: the global batch's.
     """
     cells = num_classes * num_classes
     idx = ground_truth.long() * num_classes + prediction.long()
@@ -30,7 +33,7 @@ def confusion_matrix_device(ground_truth: torch.Tensor, prediction: torch.Tensor
     idx = idx.reshape(-1)
     counts = torch.zeros(cells + 1, dtype=torch.int64, device=idx.device)
     counts.scatter_add_(0, idx, torch.ones_like(idx))
-    return counts[:cells].reshape(num_classes, num_classes)
+    return global_sum(counts[:cells].reshape(num_classes, num_classes))
 
 
 class _RunningBase:

@@ -92,17 +92,16 @@ def get_net(
         if net_name == "unet_3d":
             depths = tuple(input_shape[0] // (2 ** k) for k in range(5))
             net = daunet.DAUNet(channels, num_classes, depths=depths, conv_builder="plain",
-                                dtype=dtype, s2d=s2d, device=device)
+                                s2d=s2d, **kw)
         else:
             net = getattr(daunet, net_name)(init_depth=input_shape[0], n_channels=channels,
-                                            n_classes=num_classes, dtype=dtype, s2d=s2d,
-                                            device=device)
+                                            n_classes=num_classes, s2d=s2d, **kw)
         return net.eval()
     if net_name == "TransBTS":
         from hdenseformer_tpu_torch.models.transbts import TransBTS
 
         return TransBTS(n_channels=channels, num_classes=num_classes, img_dim=input_shape,
-                        dtype=dtype, s2d=s2d, device=device).eval()
+                        s2d=s2d, **kw).eval()
     if net_name == "unetr":
         from hdenseformer_tpu_torch.models.unetr import UNETR
 

@@ -147,13 +147,13 @@ class DoubleConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None, depth: Optional[int] = None,
                  use_da: bool = False, use_se: bool = False, residual: bool = False,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, use_kernels: bool = True, device=None):
         super().__init__()
         mid = mid_channels or out_channels
         kw = dict(dtype=dtype, device=device)
-        self.conv1 = Conv(in_channels, mid, 3, 1, 1, **kw)
+        self.conv1 = Conv(in_channels, mid, 3, 1, 1, use_kernels=use_kernels, **kw)
         self.bn1 = BatchNorm(mid, device=device)
-        self.conv2 = Conv(mid, out_channels, 3, 1, 1, **kw)
+        self.conv2 = Conv(mid, out_channels, 3, 1, 1, use_kernels=use_kernels, **kw)
         self.bn2 = BatchNorm(out_channels, device=device)
         self.da = DepthAttention(out_channels, depth, **kw) if use_da else None
         self.se = SELayer(out_channels, **kw) if use_se else None
@@ -201,19 +201,21 @@ BUILDERS = {
 
 
 class DAUNet(nn.Module):
-    """The generic DA/SE UNet skeleton; ``forward`` returns fp32 logits."""
+    """The generic DA/SE UNet skeleton; ``forward`` returns fp32 logits.
+    ``use_kernels`` reaches every conv, as ``get_net`` passes it to every
+    model (no conv of this model runs a kernel wrapper today)."""
 
     def __init__(self, n_channels: int, n_classes: int = 2,
                  width: Sequence[int] = (32, 64, 128, 256, 512),
                  depths: Sequence[int] = (128, 64, 32, 16, 8), conv_builder: str = "da",
                  dropout_flag: bool = True, dtype: Optional[torch.dtype] = None,
-                 s2d=None, device=None):
+                 s2d=None, use_kernels: bool = True, device=None):
         super().__init__()
         w, dp = tuple(width), tuple(depths)
         kw = BUILDERS[conv_builder]
         self.dropout_flag, self.s2d = dropout_flag, s2d
         self.auto_packs = w[0] <= 32 and not kw["residual"]
-        common = dict(dtype=dtype, device=device)
+        common = dict(dtype=dtype, use_kernels=use_kernels, device=device)
 
         def block(cin, cout, depth, mid=None, builder=kw):
             return DoubleConv(cin, cout, mid, depth, **builder, **common)

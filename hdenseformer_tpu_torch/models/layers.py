@@ -60,6 +60,7 @@ from hdenseformer_tpu_torch.ops.s2d import (
     shifted_count,
     upsample2x_packed,
 )
+from hdenseformer_tpu_torch.parallel.mesh import active_mesh, global_sum, sharded_draw
 
 # the memory format of a conv weight of rank 4 / 5, channels last
 _CL = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -307,6 +308,13 @@ class BatchNorm(nn.Module):
     the ReLU, and the output keeps x's dtype, as JAX's packed path does. The
     running statistics follow the same bookkeeping from the pooled set, so
     one state serves both layouts.
+
+    Under a data-parallel mesh (``parallel/mesh.py``) the training
+    statistics are those of the global batch, as JAX's BatchNorm reduces
+    over the whole sharded batch: the fine path all-reduces each channel's
+    (sum, sum of squares) and takes JAX's E[x^2] - E[x]^2, the packed path
+    all-reduces its two sums; the count is the world size times the
+    rank's. The running statistics stay the same on every rank.
     """
 
     def __init__(self, features: int, device=None):
@@ -328,6 +336,8 @@ class BatchNorm(nn.Module):
         if packed_dims is not None:
             return self._packed(x, packed_dims, shifted, fuse_relu)
         x32 = x.float()
+        if self.training and active_mesh() is not None:
+            return self._global(x32)
         if self.training and x.numel() == x.shape[-1]:  # m = 1
             with torch.no_grad():
                 self.mean.mul_(1.0 - MOMENTUM).add_(MOMENTUM * x32.reshape(-1))
@@ -338,20 +348,36 @@ class BatchNorm(nn.Module):
                          self.training, MOMENTUM, EPS)
         return y.movedim(1, -1)
 
+    def _global(self, x32: torch.Tensor) -> torch.Tensor:
+        """Training mode over the mesh's global batch (fine grid)."""
+        axes = tuple(range(x32.dim() - 1))
+        m = active_mesh().world_size * (x32.numel() // x32.shape[-1])
+        sums = global_sum(torch.stack([x32.sum(axes), x32.square().sum(axes)]))
+        mean = sums[0] / m
+        var = sums[1] / m - mean.square()
+        with torch.no_grad():
+            self.mean.mul_(1.0 - MOMENTUM).add_(MOMENTUM * mean)
+            self.var.mul_(1.0 - MOMENTUM).add_(MOMENTUM * var * (m / (m - 1) if m > 1 else 1.0))
+        return (x32 - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias
+
     def _packed(self, x: torch.Tensor, dims, shifted: bool, relu: bool) -> torch.Tensor:
         nsp = x.dim() - 2
         pd = _pdims(nsp, dims)
         f = 2 ** len(pd)
         c = x.shape[-1] // f
 
+        mesh = active_mesh()
+
         def per_channel(v):  # (.., f*C) summed over batch, space and parity -> (C,)
             v = apply_shifted_mask(v, pd) if shifted else v
-            return v.sum(tuple(range(x.dim() - 1))).reshape(f, c).sum(0)
+            return global_sum(v.sum(tuple(range(x.dim() - 1))).reshape(f, c).sum(0))
 
         x32 = x.float()
         if self.training:
             m = x.shape[0] * (shifted_count(x.shape[1:-1], pd) if shifted
                               else f * math.prod(x.shape[1:-1]))
+            if mesh is not None:
+                m *= mesh.world_size
             mean = per_channel(x32) / m
             d = x32 - mean.repeat(f)
             var = per_channel(d.square()) / m
@@ -504,13 +530,15 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     The identity in eval and at p = 0. The keep mask is drawn from
     ``generator``, which lives on x's device: there is no hidden global RNG,
     so training with p > 0 and no generator raises. (``F.dropout`` takes no
-    generator.)
+    generator.) x's dim 0 is the batch: under a data-parallel mesh a rank
+    keeps its rows of the global batch's mask (``sharded_draw``).
     """
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = sharded_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                        x.shape) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -66,6 +66,7 @@ from hdenseformer_tpu_torch.models.layers import (
     self_attention,
 )
 from hdenseformer_tpu_torch.ops.s2d import concat_packed, pack, unpack
+from hdenseformer_tpu_torch.parallel.mesh import sharded_draw
 
 CHANNEL_DROPOUT = 0.2  # the encoder's, fixed where TransBTSModel builds it, as in JAX
 
@@ -99,11 +100,11 @@ class EnBlock(nn.Module):
     where given, the convs the shift-free pair."""
 
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None, packed_dims=None,
-                 device=None):
+                 use_kernels: bool = True, device=None):
         super().__init__()
         self.dims = packed_dims
         p = dict(packed=True, packed_dims=packed_dims) if packed_dims else {}
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, use_kernels=use_kernels, device=device)
         self.bn1 = GroupNorm(channels, device=device)
         self.conv1 = Conv(channels, channels, 3, 1, 1, packed_shift="out" if p else None,
                           **p, **kw)
@@ -123,14 +124,15 @@ class EnBlock(nn.Module):
 class UnetEncoder(nn.Module):
     """The 4-level encoder to the 1/8 grid; returns the three skips and the
     bottom feature map. ``pk`` holds levels 0 and 1's packed dims or None;
-    a packed level's skip is returned packed."""
+    a packed level's skip is returned packed. ``use_kernels`` False runs
+    the packed ``InitConv``'s half-shift as its plain version."""
 
     def __init__(self, in_channels: int, base_channels: int = 16,
                  dropout: float = CHANNEL_DROPOUT, dtype: Optional[torch.dtype] = None,
-                 pk: tuple = (None, None), device=None):
+                 pk: tuple = (None, None), use_kernels: bool = True, device=None):
         super().__init__()
         bc, self.p, self.pk = base_channels, dropout, tuple(pk)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, use_kernels=use_kernels, device=device)
         p0, p1 = (dict(packed=True, packed_dims=d) if d else {} for d in self.pk)
         self.InitConv = Conv(in_channels, bc, 3, 1, 1, **p0, **kw)
         self.EnBlock1 = EnBlock(bc, packed_dims=self.pk[0], **kw)
@@ -152,7 +154,8 @@ class UnetEncoder(nn.Module):
         if generator is None:
             raise ValueError("dropout in training needs an explicit torch.Generator")
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.InitConv.weight.shape[0],)
-        return torch.rand(shape, generator=generator, device=x.device) >= self.p
+        return sharded_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                            shape) >= self.p
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         pk0, pk1 = self.pk
@@ -206,7 +209,7 @@ class TransBTSModel(nn.Module):
                  embedding_dim: int = 512, num_heads: int = 8, num_layers: int = 4,
                  hidden_dim: int = 4096, dropout_rate: float = 0.1,
                  attn_dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
-                 s2d=None, device=None):
+                 s2d=None, use_kernels: bool = True, device=None):
         super().__init__()
         ed = embedding_dim
         dims = (img_dim,) * 3 if isinstance(img_dim, int) else tuple(img_dim)
@@ -215,7 +218,8 @@ class TransBTSModel(nn.Module):
         # the DeUp's k2 transposed conv packs at full rank only
         self.packed_up = pk_up = tuple(d if d and len(d) == len(dims) else None for d in pk)
         kw = dict(dtype=dtype, device=device)
-        self.Unet = UnetEncoder(n_channels, 16, CHANNEL_DROPOUT, pk=pk, **kw)
+        self.Unet = UnetEncoder(n_channels, 16, CHANNEL_DROPOUT, pk=pk,
+                                use_kernels=use_kernels, **kw)
         self.bn = BatchNorm(128, device=device)
         self.conv_x = Conv(128, ed, 3, 1, 1, **kw)
         tokens = 1
@@ -310,7 +314,9 @@ class TransBTSModel(nn.Module):
         return self.endconv(y.float())
 
 
-def TransBTS(n_channels=2, num_classes=2, img_dim=144, dtype=None, s2d=None, device=None):
-    """The factory of the JAX package's signature, and ``device``."""
+def TransBTS(n_channels=2, num_classes=2, img_dim=144, dtype=None, s2d=None,
+             use_kernels=True, device=None):
+    """The factory of the JAX package's signature, ``use_kernels`` and
+    ``device``."""
     return TransBTSModel(n_channels=n_channels, num_classes=num_classes, img_dim=img_dim,
-                         dtype=dtype, s2d=s2d, device=device)
+                         dtype=dtype, s2d=s2d, use_kernels=use_kernels, device=device)

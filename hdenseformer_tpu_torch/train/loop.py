@@ -52,11 +52,25 @@ device:
   ``get_net``'s ``use_kernels``; ``norm_barrier`` and ``shift_pack`` are
   XLA knobs, accepted and ignored.
 
-Not ported: more than one device (``NotImplementedError``, ROADMAP.md
-queue 1 item 6).
+On several devices (``trainer(n_devices=N)``) the process is one of N
+ranks of ``torch.distributed`` (``torchrun``, ``parallel/mesh.py``), one a
+card, each holding the replicated model on its ``device``. Every rank
+reads the same global batches; ``pad_and_mask_batch`` pads each to a
+multiple of N and gives the rank its contiguous share, and the step runs
+under the mesh: the loss, dice, confusion matrix and BatchNorm statistics
+are the global batch's, the gradients are averaged over the ranks, and
+every dropout mask is the one a single process would draw for the sample
+(``parallel.mesh.sharded_draw``). One N-rank step equals one step of one
+process on the global batch, as JAX's sharded step does. Validation is
+global too, so EarlyStopping decides alike on every rank; only rank 0
+writes checkpoints and ``metrics.jsonl``.
+
+``make_multi_train_step`` is JAX's K steps in one dispatch: on a card, one
+step captured as a CUDA graph and replayed K times.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -103,6 +117,13 @@ from hdenseformer_tpu_torch.metrics.running import (
 from hdenseformer_tpu_torch.models import SMP_2D, get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
 from hdenseformer_tpu_torch.models.unet2d import load_torch_resnet_encoder
+from hdenseformer_tpu_torch.parallel.mesh import (
+    Mesh,
+    active_mesh,
+    all_reduce_gradients,
+    make_mesh,
+    shard_batch,
+)
 from hdenseformer_tpu_torch.train.checkpoint import (
     checkpoint_format,
     dfs_remove_weight,
@@ -117,6 +138,7 @@ from hdenseformer_tpu_torch.train.state import (
     current_learning_rate,
     get_lr_scheduler,
     get_optimizer,
+    make_capturable,
     set_learning_rate,
 )
 from hdenseformer_tpu_torch.utils import count_params, set_process_title
@@ -159,32 +181,210 @@ def make_train_step(criterion: Callable, num_classes: int,
     augmentation runs first on the device, without gradients and outside
     any checkpointed block, drawing from ``augment_generator`` (never the
     dropout generator).
+
+    Under a data-parallel mesh (``with mesh:``, ``parallel/mesh.py``) the
+    batch is this rank's share of the global batch: the metrics are the
+    global batch's and the gradients are averaged over the ranks before the
+    optimizer's step.
     """
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                    augment_generator: Optional[torch.Generator] = None):
-        if augment_fn is not None:
-            if augment_generator is None:
-                raise ValueError("a train step with augment_fn needs an augment_generator")
-            with torch.no_grad():
-                image, label = augment_fn(augment_generator, batch["image"], batch["label"])
-            batch = dict(batch, image=image, label=label)
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        outs = model(batch["image"], generator=generator)
-        out = _metrics(criterion, outs, batch, num_classes)
-        out["loss"].backward()
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:  # no loss reaches it (an aux head): JAX's gradient is 0,
-                    p.grad = torch.zeros_like(p)  # and the coupled decay still moves it
-        state.optimizer.step()
+        out = _step_body(criterion, num_classes, augment_fn, state, batch, generator,
+                         augment_generator)
         state.step += 1
-        out["loss"] = out["loss"].detach()
         return state, out
 
     return train_step
+
+
+def _step_body(criterion, num_classes: int, augment_fn, state: TrainState, batch: Dict,
+               generator, augment_generator) -> Dict[str, torch.Tensor]:
+    """One train step's work on the device, ``state.step`` left as it is."""
+    if augment_fn is not None:
+        if augment_generator is None:
+            raise ValueError("a train step with augment_fn needs an augment_generator")
+        with torch.no_grad():
+            image, label = augment_fn(augment_generator, batch["image"], batch["label"])
+        batch = dict(batch, image=image, label=label)
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    outs = model(batch["image"], generator=generator)
+    out = _metrics(criterion, outs, batch, num_classes)
+    out["loss"].backward()
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:  # no loss reaches it (an aux head): JAX's gradient is 0,
+                p.grad = torch.zeros_like(p)  # and the coupled decay still moves it
+    mesh = active_mesh()
+    if mesh is not None:
+        all_reduce_gradients(model.parameters(), mesh)
+    state.optimizer.step()
+    out["loss"] = out["loss"].detach()
+    return out
+
+
+class MultiTrainStep:
+    """K chained train steps; made by ``make_multi_train_step``.
+
+    ``step(state, batches, seed) -> (state, {"loss": (K,), "dice": (K,),
+    "cm": (K, C, C)})``. ``batches`` holds the batch of ``make_train_step``
+    with a leading step axis K on every entry (``"image"`` (K, N, ...),
+    ``"label"``, optionally ``"weight"`` (K, N)), on the model's device.
+    Step i draws its dropout masks from a generator seeded
+    ``step_seed(seed, state.step)`` (and, with ``augment_fn``, its
+    augmentation from ``augment_seed(seed, state.step)``), as the trainer
+    seeds every step and as JAX folds the step into its key: K chained steps
+    equal K calls of ``make_train_step`` seeded so.
+
+    On the CPU it is that loop. On a card it runs one step as a CUDA graph
+    (``torch.cuda.CUDAGraph``) replayed K times, with no Python between the
+    launches of a step:
+
+    - the first call for a (model, optimizer, batch shape) warms up: one
+      eager step on a side stream builds the kernels and cuDNN's plans and
+      creates the optimizer's state, and everything it changed (parameters,
+      buffers, optimizer state) is then put back as it was, so the warm-up
+      is not a step of the run (``warmup`` runs it alone);
+    - the optimizer is made capturable (``train.state.make_capturable``):
+      its step counters and learning rate live on the card, where
+      ``set_learning_rate`` still reaches them between calls;
+    - one step is captured on static input buffers; each replay copies
+      batch i into them, seeds the generators (registered with the graph,
+      which reads their seed and offset from the card), and replays;
+    - the kernel wrappers run their Python at capture only, so their
+      launch counts grow by one step's launches, once, at capture.
+
+    A capture that the card refuses raises: there is no eager fallback.
+    Under a data-parallel mesh the step is not captured (the collectives
+    run eagerly): the loop of K steps runs instead.
+    """
+
+    def __init__(self, criterion, num_classes: int, augment_fn=None):
+        self.criterion, self.num_classes, self.augment_fn = criterion, num_classes, augment_fn
+        self.single = make_train_step(criterion, num_classes, augment_fn)
+        self._graphs: Dict[tuple, "_CapturedStep"] = {}
+
+    def _generators(self, device) -> tuple:
+        return (torch.Generator(device=device),
+                torch.Generator(device=device) if self.augment_fn is not None else None)
+
+    def _seed(self, generators, seed: int, step: int) -> None:
+        generators[0].manual_seed(step_seed(seed, step))
+        if generators[1] is not None:
+            generators[1].manual_seed(augment_seed(seed, step))
+
+    def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor], seed: int):
+        k = batches["image"].shape[0]
+        device = next(state.model.parameters()).device
+        if device.type != "cuda" or active_mesh() is not None:
+            generators = self._generators(device)
+            stacked = []
+            for i in range(k):
+                self._seed(generators, seed, state.step)
+                state, out = self.single(state, {n: v[i] for n, v in batches.items()},
+                                         *generators)
+                stacked.append(out)
+            return state, {n: torch.stack([o[n] for o in stacked]) for n in stacked[0]}
+        captured = self._captured(state, batches)
+        outs = []
+        for i in range(k):
+            outs.append(captured.replay({n: v[i] for n, v in batches.items()}, seed, state.step))
+            state.step += 1
+        return state, {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
+
+    def warmup(self, state: TrainState, batches: Dict[str, torch.Tensor]) -> None:
+        """The first call's warm-up alone (on a card): builds the kernels and
+        the optimizer's state and leaves ``state`` as it was."""
+        self._captured(state, batches, capture=False)
+
+    def _captured(self, state, batches, capture: bool = True) -> "_CapturedStep":
+        key = (id(state.model), id(state.optimizer)) + tuple(
+            (n, tuple(v.shape[1:]), v.dtype) for n, v in sorted(batches.items()))
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured = self._graphs[key] = _CapturedStep(self, state, batches)
+        if capture:
+            captured.capture()
+        return captured
+
+
+class _CapturedStep:
+    """One train step of ``owner`` on ``state`` as a CUDA graph."""
+
+    def __init__(self, owner: MultiTrainStep, state: TrainState, batches: Dict):
+        self.owner, self.state = owner, state
+        device = next(state.model.parameters()).device
+        self.generators = owner._generators(device)
+        self.static = {n: torch.empty_like(v[0]) for n, v in batches.items()}
+        for n, v in batches.items():
+            self.static[n].copy_(v[0])
+        make_capturable(state.optimizer, device)
+        self.graph, self.out = None, None
+        self._warmup()
+
+    def _body(self) -> Dict[str, torch.Tensor]:
+        o = self.owner
+        return _step_body(o.criterion, o.num_classes, o.augment_fn, self.state, self.static,
+                          *self.generators)
+
+    def _warmup(self) -> None:
+        """One eager step on a side stream, then everything it changed put
+        back: parameters, buffers and the optimizer's state (a state the step
+        created is zeroed: Adam's fresh moments and counter)."""
+        model, opt = self.state.model, self.state.optimizer
+        tensors = list(model.parameters()) + list(model.buffers())
+        saved = [t.detach().clone() for t in tensors]
+        before = {p: {n: v.clone() for n, v in st.items() if torch.is_tensor(v)}
+                  for p, st in opt.state.items()}
+        self.owner._seed(self.generators, 0, 0)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+            for p, st in opt.state.items():
+                for n, v in st.items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if p in before:
+                        v.copy_(before[p][n])
+                    else:  # created by the warm-up: Adam's moments and counter start at 0
+                        v.zero_()
+        opt.zero_grad(set_to_none=True)
+
+    def capture(self) -> None:
+        if self.graph is not None:
+            return
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            if g is not None:
+                graph.register_generator_state(g)
+        self.owner._seed(self.generators, 0, 0)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.out = self._body()
+        self.graph = graph
+
+    def replay(self, batch: Dict[str, torch.Tensor], seed: int, step: int
+               ) -> Dict[str, torch.Tensor]:
+        for n, v in batch.items():
+            self.static[n].copy_(v, non_blocking=True)
+        self.owner._seed(self.generators, seed, step)
+        self.graph.replay()
+        return {n: v.clone() for n, v in self.out.items()}
+
+
+def make_multi_train_step(criterion: Callable, num_classes: int,
+                          augment_fn: Optional[Callable] = None) -> MultiTrainStep:
+    """K chained train steps in one call: JAX's ``make_multi_train_step``
+    (a ``lax.scan`` of the step in one dispatch), here a CUDA graph of one
+    step replayed K times on a card (``MultiTrainStep``). JAX's trainer
+    never calls it, nor does the port's."""
+    return MultiTrainStep(criterion, num_classes, augment_fn)
 
 
 def make_eval_step(criterion: Callable, num_classes: int):
@@ -221,17 +421,24 @@ def pad_and_mask_batch(batch: Dict[str, np.ndarray], batch_size: int, device
     to ``device``; the masked loss, dice and confusion matrix equal those of
     the real samples alone, and every step of a run has one shape.
 
-    On a CUDA device the arrays go through pinned memory without blocking,
-    so the copy waits for nothing already queued on the card.
+    ``device`` may be a data-parallel ``Mesh``: the padded size is then
+    rounded up to a multiple of its world size and the rank gets its
+    contiguous share (``parallel.mesh.shard_batch``), as JAX's function
+    pads to the device count and shards. On a CUDA device the arrays go
+    through pinned memory without blocking, so the copy waits for nothing
+    already queued on the card.
     """
+    n_dev = device.world_size if isinstance(device, Mesh) else 1
     b = batch["image"].shape[0]
-    pad_to = max(batch_size, b)
+    pad_to = -(-max(batch_size, b) // n_dev) * n_dev
     w = np.zeros((pad_to,), np.float32)
     w[:b] = 1.0
     if b < pad_to:
         idx = np.arange(pad_to) % b
         batch = {k: np.asarray(v)[idx] for k, v in batch.items()}
     batch = dict(batch, weight=w)
+    if isinstance(device, Mesh):
+        return shard_batch(device, batch)
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
@@ -277,8 +484,17 @@ class EarlyStopping:
         self.best_score, self.best_value, self.counter = score, value, 0
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
+class _NoWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    def add_scalars(self, *args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class SemanticSeg:
@@ -490,19 +706,25 @@ class SemanticSeg:
         use_ds=False,
         n_devices: Optional[int] = None,
     ) -> Dict[str, Any]:
-        if n_devices not in (None, 1):
-            raise _not_ported(f"training on {n_devices} devices", 6)
+        """Train fold ``cur_fold``; returns the per-epoch history. In a world
+        of several ``torch.distributed`` ranks (``n_devices`` None, or the
+        world size) it trains data-parallel over them, this process one of
+        them on ``device`` (module docstring): only rank 0 writes files."""
         is_3d = len(self.input_shape) > 2
         if self.device_augment and not is_3d:
             raise ValueError("device_augment currently supports the 3D pipeline")
+        mesh = make_mesh(n_devices, self.device)  # None: the world as it is, as JAX's
+        if mesh.world_size == 1:
+            mesh = None
+        lead = mesh is None or mesh.rank == 0
         output_dir = os.path.join(output_dir, f"fold{cur_fold}")
         log_dir = os.path.join(log_dir, f"fold{cur_fold}")
-        for d in (log_dir, output_dir):
+        for d in (log_dir, output_dir) if lead else ():
             if os.path.exists(d) and not self.pre_trained:
                 shutil.rmtree(d)
             os.makedirs(d, exist_ok=True)
 
-        writer = MetricsWriter(log_dir)
+        writer = MetricsWriter(log_dir) if lead else _NoWriter()
         criterion = get_loss(loss_fun, class_weight=class_weight, topk=self.topk, use_ds=use_ds)
         state = self.build_state(optimizer)
         if self.pre_trained and self.weight_path:
@@ -556,8 +778,9 @@ class SemanticSeg:
                 set_learning_rate(state.optimizer, sched.step(prev_val_loss))
 
             state, tr = self._run_epoch(state, train_loader, train_step, epoch,
-                                        (generator, augment_generator), train=True)
-            _, va = self._run_epoch(state, val_loader, eval_step, epoch, None, train=False)
+                                        (generator, augment_generator), train=True, mesh=mesh)
+            _, va = self._run_epoch(state, val_loader, eval_step, epoch, None, train=False,
+                                    mesh=mesh)
             prev_val_loss = va["loss"]
 
             print(f"epoch:{epoch}/{self.n_epoch},train_loss:{tr['loss']:.5f},"
@@ -586,24 +809,30 @@ class SemanticSeg:
                 self.metrics_threshold = va["dice"]
                 fname = metric_filename(epoch, tr["loss"], tr["dice"], tr["run_dice"],
                                         va["loss"], va["dice"], va["run_dice"])
-                print(f"Save as: {fname}")
-                save_checkpoint(os.path.join(output_dir, fname), state.model.state_dict(),
-                                state.optimizer.state_dict(), epoch, state.step,
-                                async_save=True)
+                if lead:
+                    print(f"Save as: {fname}")
+                    save_checkpoint(os.path.join(output_dir, fname), state.model.state_dict(),
+                                    state.optimizer.state_dict(), epoch, state.step,
+                                    async_save=True)
             if early_stopping.early_stop:
                 print("Early stopping")
                 break
 
         writer.close()
-        wait_for_async_saves()
-        dfs_remove_weight(output_dir, retain=3)
+        if lead:
+            wait_for_async_saves()
+            dfs_remove_weight(output_dir, retain=3)
+        if mesh is not None:
+            mesh.barrier()  # no rank goes on before rank 0's files are written
         self.state = state
         return history
 
-    def _run_epoch(self, state, loader, step_fn, epoch, generators, train: bool):
+    def _run_epoch(self, state, loader, step_fn, epoch, generators, train: bool,
+                   mesh: Optional[Mesh] = None):
         """One pass over ``loader``: the loss, dice and running dice, and the
         wall seconds, steps and seconds spent waiting for the loader.
-        ``generators`` is (dropout, augmentation or None) in training."""
+        ``generators`` is (dropout, augmentation or None) in training; under
+        ``mesh`` each step runs on this rank's share of the batch."""
         loss_meter, dice_meter = AverageMeter(), AverageMeter()
         run_dice = RunningDice(labels=range(self.num_classes), ignore_label=-1)
         # metrics stay on the card until drained (every 10 global steps, the
@@ -633,15 +862,16 @@ class SemanticSeg:
             if batch is None:
                 break
             n = batch["image"].shape[0]
-            batch = pad_and_mask_batch(batch, self.batch_size, self.device)
-            if train:
-                generator, augment_generator = generators
-                generator.manual_seed(step_seed(self.seed, state.step))
-                if augment_generator is not None:
-                    augment_generator.manual_seed(augment_seed(self.seed, state.step))
-                state, metrics = step_fn(state, batch, generator, augment_generator)
-            else:
-                metrics = step_fn(state, batch)
+            batch = pad_and_mask_batch(batch, self.batch_size, mesh or self.device)
+            with mesh or contextlib.nullcontext():
+                if train:
+                    generator, augment_generator = generators
+                    generator.manual_seed(step_seed(self.seed, state.step))
+                    if augment_generator is not None:
+                        augment_generator.manual_seed(augment_seed(self.seed, state.step))
+                    state, metrics = step_fn(state, batch, generator, augment_generator)
+                else:
+                    metrics = step_fn(state, batch)
             pending.append((n, metrics))
             if train:
                 if self.global_step % 10 == 0:

@@ -14,7 +14,10 @@ Weight decay is excluded for 1-D parameters (biases, norm scales), the
 rate is a host float in every parameter group (``set_learning_rate``): where
 JAX injects it as a hyperparameter so that the compiled update is reused,
 torch's optimizer reads the group's value at each step, and setting it
-waits for nothing on the card.
+waits for nothing on the card. A step captured in a CUDA graph needs the
+optimizer ``make_capturable``: its step counters and learning rate then
+live on the card, and ``set_learning_rate`` writes the rate there, so the
+per-epoch schedule still reaches a replayed step.
 
 Schedules step per epoch with torch semantics, a copy of JAX's: poly
 (1 - e/E)^0.9, MultiStepLR, CosineAnnealingLR, CosineAnnealingWarmRestarts
@@ -59,10 +62,33 @@ def get_optimizer(
     raise ValueError(f"unknown optimizer {name!r}")
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Set every parameter group's rate (a host float: no sync)."""
+def make_capturable(optimizer: torch.optim.Optimizer, device) -> torch.optim.Optimizer:
+    """Make ``optimizer`` capturable in a CUDA graph, in place: Adam's and
+    AdamW's ``capturable`` flag with their step counters on ``device``, and
+    every group's rate a tensor there (SGD has no counter: its rate alone).
+    The update is the same arithmetic, with the bias corrections computed on
+    the card."""
+    device = torch.device(device)
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if "capturable" in group:
+            group["capturable"] = True
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+    for state in optimizer.state.values():
+        if torch.is_tensor(state.get("step")) and state["step"].device != device:
+            state["step"] = state["step"].to(device, torch.float32)
+    return optimizer
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every parameter group's rate: a host float, or in place where
+    the rate is a tensor on the card (``make_capturable``); neither waits for
+    the card."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
 
 def current_learning_rate(optimizer: torch.optim.Optimizer) -> float:

@@ -1015,3 +1015,172 @@ def test_packed_models_go_through_the_shifted_kernels(cuda):
     assert counts == (14, 0, 4, 0)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# --- the captured train step (make_multi_train_step) -----------------------------------
+
+
+def _multi_step_case(cuda, k: int):
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState
+    from hdenseformer_tpu_torch.train.state import get_optimizer, make_capturable
+
+    def state():
+        net = get_net("HDenseFormer_16", 2, 2, (32, 32, 32), transformer_depth=4,
+                      remat=False, device=cuda)
+        init_weights(net, torch.Generator().manual_seed(0))
+        opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
+        return TrainState(net, make_capturable(opt, cuda))
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    label = torch.zeros(k, 2, 32, 32, 32, 2, device=cuda)
+    label[..., 0] = 1
+    label[:, :, 8:20, 10:22, 6:18] = torch.tensor([0.0, 1.0], device=cuda)
+    batches = {"image": torch.randn(k, 2, 32, 32, 32, 2, generator=g, device=cuda),
+               "label": label}
+    return state, batches, get_loss("FocalLoss", use_ds=True)
+
+
+def test_captured_steps_equal_eager_steps(cuda):
+    """K = 3 steps of HDenseFormer_16 (32^3, depth 4, fp32, dropout 0.5)
+    captured as a CUDA graph and replayed, against 3 eager steps seeded as
+    the trainer seeds them, both with the capturable Adam; cuDNN
+    deterministic. The first step's loss within 1e-6 relative (the same
+    arithmetic), the later ones within 1e-4 (cuBLAS may split a product
+    otherwise under capture, and Adam amplifies it: observed 4.5e-5 at step
+    3, the one-step bar of tests/test_torch_train.py); the parameters
+    within 2 lr a step (Adam moves a parameter by about lr whatever its
+    gradient's size, so a rounding-level gradient near zero can flip an
+    update, and at this size a rounding step moves the gradients by up to a
+    percent of a tensor's largest: JAX's bar for its scan,
+    tests/test_multi_step.py). The wrappers count one step's launches, at
+    capture."""
+    from hdenseformer_tpu_torch.ops.dense_attention import dense_attention as attention
+    from hdenseformer_tpu_torch.train.loop import (
+        make_multi_train_step,
+        make_train_step,
+        step_seed,
+    )
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        make_state, batches, crit = _multi_step_case(cuda, 3)
+        captured, eager = make_state(), make_state()
+        multi = make_multi_train_step(crit, 2)
+        multi.warmup(captured, batches)
+        reset_norm_counts()
+        attention.launches = 0
+        captured, out = multi(captured, batches, 11)
+        assert attention.launches == 4 * 2 and norm_counts()[:2] != (0, 0)
+        step, gen, losses = make_train_step(crit, 2), torch.Generator(device=cuda), []
+        for i in range(3):
+            gen.manual_seed(step_seed(11, eager.step))
+            eager, m = step(eager, {n: v[i] for n, v in batches.items()}, gen)
+            losses.append(float(m["loss"]))
+    finally:
+        torch.backends.cudnn.deterministic = old
+    assert captured.step == eager.step == 3
+    torch.testing.assert_close(out["loss"][0].item(), losses[0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(out["loss"].cpu(), torch.tensor(losses), rtol=1e-4, atol=0)
+    for (n, p), q in zip(captured.model.named_parameters(), eager.model.parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=3 * 2e-3, msg=n)
+
+
+def test_captured_step_follows_the_learning_rate(cuda):
+    """set_learning_rate between calls reaches the replayed step: a rate of
+    0 leaves every parameter where it was (the capturable Adam reads its
+    rate from the card)."""
+    from hdenseformer_tpu_torch.train.loop import make_multi_train_step
+    from hdenseformer_tpu_torch.train.state import set_learning_rate
+
+    make_state, batches, crit = _multi_step_case(cuda, 2)
+    state = make_state()
+    multi = make_multi_train_step(crit, 2)
+    state, _ = multi(state, batches, 0)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    set_learning_rate(state.optimizer, 0.0)
+    state, out = multi(state, batches, 0)
+    assert bool(torch.isfinite(out["loss"]).all())
+    assert all(torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
+
+
+def _capture(fn):
+    """``fn()`` captured as a CUDA graph after a warm-up run; returns
+    (graph, the captured outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _grads_of(op, *inputs):
+    def run():
+        xs = [x.detach().requires_grad_() for x in inputs]
+        y = op(*xs)
+        gy = torch.ones_like(y)
+        return (y,) + torch.autograd.grad(y, xs, gy)
+    return run
+
+
+@pytest.mark.parametrize("kernel", ["dense_attention", "instance_norm_relu",
+                                    "instance_norm_relu_shifted", "shift_pack"])
+def test_kernel_wrappers_capture_forward_and_backward(cuda, kernel):
+    """Each kernel wrapper, forward and backward (the InstanceNorm backward
+    is the cooperative launch), captured as a CUDA graph and replayed on new
+    inputs copied into the static ones: the same outputs as eager calls."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    scale = torch.rand(32, generator=g, device=cuda)
+    bias = torch.randn(32, generator=g, device=cuda)
+    op, inputs = {
+        "dense_attention": (dense_attention, [rand(2, 8, 130, 4) for _ in range(3)]),
+        "instance_norm_relu": (lambda x: instance_norm_relu(x, scale, bias), [rand(2, 4096, 32)]),
+        "instance_norm_relu_shifted": (
+            lambda x: instance_norm_relu_shifted(x, (1, 2), scale, bias),
+            [rand(2, 8, 9, 9, 128)]),
+        "shift_pack": (shift_pack, [rand(2, 6, 5, 7, 64)]),
+    }[kernel]
+    static = [x.clone() for x in inputs]
+    graph, outs = _capture(_grads_of(op, *static))
+    fresh = [torch.randn(x.shape, generator=g, device=cuda).to(x.dtype) for x in inputs]
+    for s, x in zip(static, fresh):
+        s.copy_(x)
+    graph.replay()
+    want = _grads_of(op, *fresh)()
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_transbts_plain_build_launches_no_kernel(cuda):
+    """get_net("TransBTS", use_kernels=False) at 32^3 (levels 0-1 packed):
+    a train forward and backward launch no kernel of the port; with the
+    kernels, its packed InitConv launches the half-shift once."""
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    launches = {}
+    for use in (False, True):
+        net = get_net("TransBTS", 2, 2, (32, 32, 32), use_kernels=use, device=cuda)
+        init_weights(net, torch.Generator().manual_seed(0))
+        net.train()
+        reset_norm_counts()
+        dense_attention.launches = shift_pack.launches = shift_unpack.launches = 0
+        x = torch.randn(2, 32, 32, 32, 2, device=cuda)
+        net(x, generator=torch.Generator(device=cuda).manual_seed(1)).square().mean().backward()
+        torch.cuda.synchronize()
+        launches[use] = (dense_attention.launches, shift_pack.launches, shift_unpack.launches,
+                         norm_counts())
+    assert launches[False] == (0, 0, 0, (0, 0, 0, 0))
+    assert launches[True][1] == 1

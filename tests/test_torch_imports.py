@@ -50,6 +50,9 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.configs",
     "hdenseformer_tpu_torch.configs.config",
     "hdenseformer_tpu_torch.utils",
+    "hdenseformer_tpu_torch.utils.profiling",
+    "hdenseformer_tpu_torch.parallel",
+    "hdenseformer_tpu_torch.parallel.mesh",
     "hdenseformer_tpu_torch.cli",
     "hdenseformer_tpu_torch.bench",
 ]
