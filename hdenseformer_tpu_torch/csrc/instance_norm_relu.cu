@@ -52,12 +52,22 @@
 // is cell r >> npk, parity block r & (f - 1). Some rows are pad slots that hold
 // conv garbage: per packed dim j (the leading one the high bit of the block),
 // the cell's coordinate is 0 where the block's bit is 1, or s_j - 1 where it
-// is 0. Each thread decodes that from the row index (Shift, is_pad), so no
-// mask is read. Pad rows are left out of the sums by selection (never
-// multiplied by 0: their values may be anything), each chunk's count of valid
-// rows goes to finalize in place of the chunk's length, and normalize writes 0
-// there: the next conv reads them as the fine conv's zero padding. Row 0 (cell
-// 0, block 0), the shift x0, is valid whenever every s_j >= 2.
+// is 0. Pad rows are left out of the sums by selection (never multiplied by
+// 0: their values may be anything), each chunk's count of valid rows goes to
+// finalize in place of the chunk's length, and normalize writes 0 there: the
+// next conv reads them as the fine conv's zero padding. Row 0 (cell 0, block
+// 0), the shift x0, is valid whenever every s_j >= 2.
+// What bounds it is what bounds the unshifted mode: HBM bytes, x read twice.
+// The pad status is decoded, not read from a mask, and the decode is kept off
+// the critical path: a thread's rows step by RPB, a multiple of f, from a
+// multiple of RPB, so its parity block never changes and its cells advance by
+// a constant step. PadWalk decodes the thread's first cell once (one modulo
+// per packed dim) and then steps each packed coordinate's residue by a
+// constant with one conditional subtraction: no division per row. The
+// statistics and normalize passes decode a thread's m <= 32 rows of the chunk
+// into a bit mask before their loads, so their inner loops are the unshifted
+// ones but for a predicate, and pad rows are never read: their loads are
+// predicated off, normalize stores 0 there without loading x.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -111,28 +121,81 @@ __device__ __forceinline__ void merge(float& n, float& mean, float& m2, float nb
   n = nn;
 }
 
-// The pad slots of a packed-shifted (N, S, C) view: npk packed dims (0 in
-// the unshifted mode), and for each, leading first, its extent in cells and
-// the cells between neighbours along it.
+// The pad slots of a packed-shifted (N, S, C) view and a thread's walk over
+// them: npk packed dims (0 in the unshifted mode), and for each, leading
+// first, the cells between neighbours along it (stride), the period of its
+// coordinate in the cell index (extent * stride) and the cell step of the
+// walk modulo that period (ops/instance_norm.py::Shift.walk).
 struct Shift {
   int npk;
-  int ext[3];
-  int stride[3];
+  unsigned stride[3];
+  unsigned period[3];
+  unsigned step[3];
 };
 
-// Is row r of a sample a pad slot? (See the shifted mode above.)
-__device__ __forceinline__ bool is_pad(const Shift& sh, long long r) {
-  const unsigned cell = (unsigned)(r >> sh.npk);
-  const unsigned p = (unsigned)r & ((1u << sh.npk) - 1u);
-  bool pad = false;
+// The pad status of one thread's rows r, r + step f, r + 2 step f, ... (or
+// backwards): all of the same parity block p = r & (f - 1), so row r is a
+// pad slot iff for some packed dim j the residue x_j = cell mod period_j lies
+// in [lo_j, lo_j + stride_j), with lo_j = 0 (coordinate 0) where p's bit for
+// j is 1, else period_j - stride_j (coordinate s_j - 1). One modulo per dim
+// decodes the first row; each step adds the step's residue and subtracts the
+// period at most once (x_j < 2^31: cells < 2^31).
+struct PadWalk {
+  unsigned x[3], lo[3];
+  PadWalk() = default;
+  __device__ __forceinline__ PadWalk(const Shift& sh, long long r) {
+    const unsigned cell = (unsigned)(r >> sh.npk);
+    const unsigned p = (unsigned)r & ((1u << sh.npk) - 1u);
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    if (j < sh.npk) {
-      const unsigned co = (cell / (unsigned)sh.stride[j]) % (unsigned)sh.ext[j];
-      pad |= (p >> (sh.npk - 1 - j)) & 1u ? co == 0u : co == (unsigned)sh.ext[j] - 1u;
+    for (int j = 0; j < 3; ++j) {
+      x[j] = lo[j] = 0u;
+      if (j < sh.npk) {
+        x[j] = cell % sh.period[j];
+        lo[j] = (p >> (sh.npk - 1 - j)) & 1u ? 0u : sh.period[j] - sh.stride[j];
+      }
     }
   }
-  return pad;
+  __device__ __forceinline__ bool pad(const Shift& sh) const {
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < sh.npk) any |= x[j] - lo[j] < sh.stride[j];  // unsigned: below lo wraps high
+    return any;
+  }
+  __device__ __forceinline__ void next(const Shift& sh) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < sh.npk) {
+        x[j] += sh.step[j];
+        if (x[j] >= sh.period[j]) x[j] -= sh.period[j];
+      }
+    }
+  }
+  __device__ __forceinline__ void prev(const Shift& sh) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < sh.npk)
+        x[j] = x[j] >= sh.step[j] ? x[j] - sh.step[j] : x[j] + (sh.period[j] - sh.step[j]);
+  }
+};
+
+// Bit i set where the thread's row r + i * rpb is a pad slot, for `rows` <=
+// 32 rows (the walk's step: rpb / f cells).
+__device__ __forceinline__ unsigned pad_mask(const Shift& sh, long long r, int rows) {
+  PadWalk w(sh, r);
+  unsigned mask = 0u;
+  for (int i = 0; i < rows; ++i) {
+    mask |= (unsigned)w.pad(sh) << i;
+    w.next(sh);
+  }
+  return mask;
+}
+
+// Whether the walk's step residues are those of a step of `cells` cells.
+bool walks_by(const Shift& sh, long long cells) {
+  for (int j = 0; j < sh.npk; ++j)
+    if ((long long)sh.step[j] != cells % sh.period[j]) return false;
+  return true;
 }
 
 // Launch geometry shared by kernels 1 and 3.
@@ -166,7 +229,12 @@ partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
   float x0[CV], s1[CV], s2[CV];
 #pragma unroll
   for (int j = 0; j < CV; ++j) x0[j] = s1[j] = s2[j] = 0.f;
-  int valid = kShifted ? 0 : mine;  // rows summed
+  int valid = mine;  // rows summed
+  unsigned pads = 0u;  // bit i: my row i of the chunk is a pad slot (never read)
+  if constexpr (kShifted) {
+    if (mine > 0) pads = pad_mask(sh, r0 + g, mine);
+    valid = mine - __popc(pads);
+  }
   if (mine > 0) {
     // the shift: row 0 of the sample, the same for every block of (n, c)
     V first;
@@ -179,19 +247,16 @@ partial_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
       V v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (i + u < mine) v[u].raw = p[(i + u) * step];
+        if (i + u < mine && !((pads >> (i + u)) & 1u)) v[u].raw = p[(i + u) * step];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        bool use = i + u < mine;
-        if constexpr (kShifted) use = use && !is_pad(sh, r0 + g + (long long)(i + u) * rpb);
-        if (use) {
+        if (i + u < mine && !((pads >> (i + u)) & 1u)) {
 #pragma unroll
           for (int j = 0; j < CV; ++j) {
             const float d = Elem<T>::load(v[u].e[j]) - x0[j];
             s1[j] += d;
             s2[j] = fmaf(d, d, s2[j]);
           }
-          if constexpr (kShifted) ++valid;
         }
       }
     }
@@ -290,6 +355,8 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   const int rows = (int)min((long long)rpb * gm.m, gm.S - r0);
   if (vi >= gm.vpr || g >= rows) return;
   const int mine = min(gm.m, (rows - g + rpb - 1) / rpb);
+  unsigned pads = 0u;  // bit i: my row i of the chunk is a pad slot (y = 0, x not read)
+  if constexpr (kShifted) pads = pad_mask(sh, r0 + g, mine);
   V first;
   first.raw = reinterpret_cast<const R*>(x + (long long)n * gm.S * gm.C)[vi];
   float x0[CV], mean[CV], a[CV], b[CV];
@@ -310,13 +377,12 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     V v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (i + u < mine) v[u].raw = p[(i + u) * step];
+      if (i + u < mine) v[u].raw = (pads >> (i + u)) & 1u ? R{} : p[(i + u) * step];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (i + u < mine) {
         V o;
-        bool pad = false;
-        if constexpr (kShifted) pad = is_pad(sh, r0 + g + (long long)(i + u) * rpb);
+        const bool pad = (pads >> (i + u)) & 1u;
 #pragma unroll
         for (int j = 0; j < CV; ++j) {
           float t = fmaf((Elem<T>::load(v[u].e[j]) - x0[j]) - mean[j], a[j], b[j]);
@@ -346,6 +412,8 @@ int launch(const void* x, const float* scale, const float* bias, void* y, float*
       (gm.vpr + gm.tv - 1) / gm.tv > 65535)
     return (int)cudaErrorInvalidValue;
   gm.m = (int)(chunk / rpb);
+  // the shifted mode: a thread's rows step by rpb / f cells, at most 32 of them (its pad mask)
+  if (kShifted && (gm.m > 32 || !walks_by(sh, rpb >> sh.npk))) return (int)cudaErrorInvalidValue;
   float* part_mean = part;
   float* part_m2 = part + (long long)N * C * K;
   float* part_cnt = kShifted ? part + 2LL * N * C * K : nullptr;
@@ -377,15 +445,23 @@ int launch_vec(int vec_bytes, const void* x, const float* scale, const float* bi
 }
 
 // A Shift from the C interface's arguments; false if they do not describe
-// npk in 1..3 packed dims of extent >= 2 (row 0, the shift, must be valid)
-// whose cells number S / 2^npk, fewer than 2^31.
-bool make_shift(Shift& sh, long long S, int npk, const int* ext, const int* stride) {
+// npk in 1..3 packed dims of extent >= 2 (period >= 2 * stride: row 0, the
+// shift, must be valid) whose cells number S / 2^npk, fewer than 2^31, with
+// each step residue below its period.
+bool make_shift(Shift& sh, long long S, int npk, const int* stride, const int* period,
+                const int* step) {
   sh.npk = npk;
   if (npk < 1 || npk > 3 || S % (1LL << npk) || (S >> npk) >= (1LL << 31)) return false;
   for (int j = 0; j < 3; ++j) {
-    sh.ext[j] = j < npk ? ext[j] : 1;
-    sh.stride[j] = j < npk ? stride[j] : 1;
-    if (sh.ext[j] < 1 || sh.stride[j] < 1 || (j < npk && sh.ext[j] < 2)) return false;
+    sh.stride[j] = sh.period[j] = 1u;
+    sh.step[j] = 0u;
+    if (j >= npk) continue;
+    if (stride[j] < 1 || period[j] < 2LL * stride[j] || period[j] % stride[j] ||
+        period[j] > (S >> npk) || step[j] < 0 || step[j] >= period[j])
+      return false;
+    sh.stride[j] = (unsigned)stride[j];
+    sh.period[j] = (unsigned)period[j];
+    sh.step[j] = (unsigned)step[j];
   }
   return true;
 }
@@ -449,7 +525,13 @@ bool make_shift(Shift& sh, long long S, int npk, const int* ext, const int* stri
 // Shifted mode (kShifted; replaces fused_norm.py::_bwd_rule with shifted=dims):
 // the forward's shifted mode above. Pad rows are skipped by (a), so dy there
 // is ignored and dscale and dbias leave them out; (c) writes dx = 0 there; m
-// is the count of valid rows, which the caller passes.
+// is the count of valid rows, which the caller passes. What bounds it is the
+// unshifted backward's bound: HBM bytes. A thread's rows of an item step by P
+// * rpb, a multiple of f, so the forward's PadWalk serves here too: decoded
+// once an item, stepped as the ring issues each unit (forwards in (a),
+// backwards in (c)), each unit's status kept as a bit of its ring slot until
+// it is used. A pad row's copies into the ring are never issued, and (c)
+// stores its 0 without reading the slot.
 
 constexpr int kBwdMinBlocks = 2;  // blocks a multiprocessor holds: <= 128 registers a thread
 constexpr int kMaxTile = 64;      // channels of a tile, at most (128 bytes of bf16)
@@ -583,6 +665,7 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   constexpr int CV = kCV<T, R>;
   constexpr int kWarps = kThreads / 32;
   constexpr int D = kRing<R>;
+  static_assert(D <= 32, "a ring slot's pad status is one bit of 32");
   // slot k holds a unit of x (ring[2k]) and of dy (ring[2k + 1]); each thread its own vectors
   __shared__ R ring[2 * D][kThreads];
   __shared__ float s_red[2][kWarps][kMaxTile];  // (t1, t2) per warp and tile channel
@@ -615,9 +698,9 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const long long r = (k.w.j + u * gm.P) * rpb + g;
     return k.on && r < gm.S ? r : -1;
   };
-  auto issue = [&](const Walk& k, long long u, int slot) {
+  auto issue = [&](const Walk& k, long long u, int slot, bool pad) {
     const long long r = row(k, u);
-    if (r >= 0) {
+    if (r >= 0 && !pad) {
       copy_async(&ring[2 * slot][tid], xv + k.base + r * gm.vpr);
       copy_async(&ring[2 * slot + 1][tid], dv + k.base + r * gm.vpr);
     }
@@ -638,14 +721,26 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         ch[j] = bwd_chan(Elem<T>::load(first_row.e[j]), stats, scale, bias,
                          (long long)k.w.n * gm.C + k.vi * CV + j, k.vi * CV + j, relu);
     }
+    // shifted: each unit's pad status, decoded as the ring issues the units
+    // (0, 1, ...: the walk's step is P * rpb / f cells) and kept by ring slot
+    // until the unit is used; a pad row is neither copied nor summed
+    PadWalk pw;
+    unsigned pads = 0u;
+    if constexpr (kShifted) pw = PadWalk(sh, (long long)k.w.j * rpb + g);
     ring_walk<D>(
-        k.w.count, [&](long long u, int slot) { issue(k, u, slot); },
+        k.w.count,
+        [&](long long u, int slot) {
+          bool pad = false;
+          if constexpr (kShifted) {
+            pad = pw.pad(sh);
+            pw.next(sh);
+            pads = (pads & ~(1u << slot)) | (unsigned)pad << slot;
+          }
+          issue(k, u, slot, pad);
+        },
         [&](long long u, int slot) {
           const long long r = row(k, u);
-          if (r < 0) return;
-          if constexpr (kShifted) {
-            if (is_pad(sh, r)) return;
-          }
+          if (r < 0 || ((pads >> slot) & 1u)) return;
           V vx, vd;
           vx.raw = ring[2 * slot][tid];
           vd.raw = ring[2 * slot + 1][tid];
@@ -745,22 +840,39 @@ bwd_persistent_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       }
     }
     const long long top = k.w.count - 1;  // step i walks unit top - i
+    // shifted: the walk of (a) backwards, from unit top; a pad row's dx is 0,
+    // stored without reading x or dy
+    PadWalk pw;
+    unsigned pads = 0u;
+    if constexpr (kShifted) pw = PadWalk(sh, (k.w.j + top * gm.P) * rpb + g);
     ring_walk<D>(
-        k.w.count, [&](long long i, int slot) { issue(k, top - i, slot); },
+        k.w.count,
+        [&](long long i, int slot) {
+          bool pad = false;
+          if constexpr (kShifted) {
+            pad = pw.pad(sh);
+            pw.prev(sh);
+            pads = (pads & ~(1u << slot)) | (unsigned)pad << slot;
+          }
+          issue(k, top - i, slot, pad);
+        },
         [&](long long i, int slot) {
           const long long r = row(k, top - i);
           if (r < 0) return;
-          V vx, vd, o;
-          vx.raw = ring[2 * slot][tid];
-          vd.raw = ring[2 * slot + 1][tid];
-          bool pad = false;
-          if constexpr (kShifted) pad = is_pad(sh, r);
+          V o;
+          if ((pads >> slot) & 1u) {
+            o.raw = R{};
+          } else {
+            V vx, vd;
+            vx.raw = ring[2 * slot][tid];
+            vd.raw = ring[2 * slot + 1][tid];
 #pragma unroll
-          for (int j = 0; j < CV; ++j) {
-            const float xf = Elem<T>::load(vx.e[j]);
-            const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd.e[j]) : 0.f;
-            const float d = fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j]));
-            o.e[j] = Elem<T>::store(pad ? 0.f : d);
+            for (int j = 0; j < CV; ++j) {
+              const float xf = Elem<T>::load(vx.e[j]);
+              const float e = xf > ch[j].lo && xf < ch[j].hi ? Elem<T>::load(vd.e[j]) : 0.f;
+              o.e[j] = Elem<T>::store(
+                  fmaf(ch[j].coef, e, fmaf((xf - ch[j].x0) - ch[j].mean, b[j], a[j])));
+            }
           }
           __stcs(out + k.base + r * gm.vpr, o.raw);
         });
@@ -790,6 +902,9 @@ int launch_bwd(const void* x, const void* dy, const float* stats, const float* s
   // the partials are indexed ((n * C + c) * P + j) * 2 floats
   if (grid < 1 || grid > gm.items || P > gm.U || part_floats < 2LL * N * C * P)
     return (int)cudaErrorInvalidValue;
+  // the shifted mode: a thread's rows of an item step by P * rpb / f cells
+  if (kShifted && !walks_by(sh, (long long)P * (kThreads / gm.tv) >> sh.npk))
+    return (int)cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const T* dyp = static_cast<const T*>(dy);
   T* dxp = static_cast<T*>(dx);
@@ -804,27 +919,6 @@ int launch_bwd(const void* x, const void* dy, const float* stats, const float* s
   // the next launch's check does not report it again
   if (err) return cudaGetLastError(), err;
   return (int)cudaGetLastError();
-}
-
-template <typename T, typename R, bool kShifted>
-int bwd_blocks_per_sm() {
-  int blocks = 0;
-  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, bwd_persistent_kernel<T, R, kShifted>, kThreads, 0);
-  return err ? -err : blocks;
-}
-
-template <typename T, bool kShifted>
-int bwd_blocks_per_sm_vec(int vec_bytes) {
-  switch (vec_bytes) {
-    case 16: return bwd_blocks_per_sm<T, uint4, kShifted>();
-    case 8: return bwd_blocks_per_sm<T, uint2, kShifted>();
-    case 4: return bwd_blocks_per_sm<T, unsigned, kShifted>();
-    case 2:
-      if constexpr (sizeof(T) == 2) return bwd_blocks_per_sm<T, unsigned short, kShifted>();
-      else return -(int)cudaErrorInvalidValue;
-    default: return -(int)cudaErrorInvalidValue;
-  }
 }
 
 template <typename T, bool kShifted>
@@ -873,19 +967,22 @@ extern "C" int hdf_instance_norm_relu(const void* x, const float* scale,
 }
 
 // hdf_instance_norm_relu in the shifted mode: x (and y) is the (N, S, C) view
-// of a packed-shifted (N, *s, 2^npk * C) tensor, ext and stride give its npk
-// packed dims, leading first (extent in cells, cells between neighbours), and
-// part holds 2 * N * C * K + K floats (the last K: each chunk's valid rows).
-// Statistics leave the pad rows out; y is 0 there.
+// of a packed-shifted (N, *s, 2^npk * C) tensor; stride, period and step give
+// its npk packed dims, leading first (ops/instance_norm.py::Shift.walk: cells
+// between neighbours, extent * stride, and the residue of the threads' cell
+// step, (256 / threads a row) / 2^npk, modulo the period); part holds 2 * N *
+// C * K + K floats (the last K: each chunk's valid rows), and the chunk is at
+// most 32 rows a thread. Statistics leave the pad rows out; y is 0 there.
 extern "C" int hdf_instance_norm_relu_shifted(const void* x, const float* scale,
                                               const float* bias, void* y, float* part,
                                               float* stats, int dtype, int vec_bytes, int N,
                                               long long S, int C, int CT, int chunk, int K,
-                                              float eps, int relu, int npk, const int* ext,
-                                              const int* stride, void* stream) {
+                                              float eps, int relu, int npk, const int* stride,
+                                              const int* period, const int* step,
+                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Shift sh;
-  if (!make_shift(sh, S, npk, ext, stride)) return (int)cudaErrorInvalidValue;
+  if (!make_shift(sh, S, npk, stride, period, step)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_vec<float, true>(vec_bytes, x, scale, bias, y, part, stats, N, S, C, CT,
                                    chunk, K, eps, relu, sh, s);
@@ -904,7 +1001,7 @@ extern "C" int hdf_instance_norm_relu_shifted(const void* x, const float* scale,
 // channels; CT * elem_bytes / vec_bytes threads per row, a power of two <=
 // 32), the parts P of each (n, tile) (at most its units of 256 / that count
 // rows), and the grid (at most N * tiles * P, and no more blocks than the
-// card holds at once: hdf_instance_norm_relu_bwd_blocks_per_sm). part is
+// card holds at once: hdf_instance_norm_relu_kernel_attributes). part is
 // float32 scratch of part_floats >= 2 * N * C * P; tsum (N * C * 2)
 // receives (t1, t2) per (n, c), and dsb, where not null, dscale then dbias
 // (2 * C: sum_n inv * t2 and sum_n t1, samples in order). Returns the
@@ -930,17 +1027,20 @@ extern "C" int hdf_instance_norm_relu_bwd(const void* x, const void* dy, const f
 }
 
 // hdf_instance_norm_relu_bwd in the shifted mode: x, dy and dx as the
-// forward's shifted mode takes x, stats what it wrote, m its count of valid
-// rows a sample. dy at pad rows is ignored and dx is 0 there. The plan's grid
-// comes from hdf_instance_norm_relu_bwd_blocks_per_sm(dtype, vec_bytes, 1).
+// forward's shifted mode takes x (the step here: P * (256 / threads a row) /
+// 2^npk cells), stats what it wrote, m its count of valid rows a sample. dy
+// at pad rows is ignored and dx is 0 there. The plan's grid comes from the
+// shifted backward's blocks a multiprocessor holds
+// (hdf_instance_norm_relu_kernel_attributes(2, dtype, vec_bytes, 1, out)).
 extern "C" int hdf_instance_norm_relu_bwd_shifted(
     const void* x, const void* dy, const float* stats, const float* scale, const float* bias,
     void* dx, float* part, long long part_floats, float* tsum, float* dsb, int dtype,
     int vec_bytes, int N, long long S, int C, int CT, int P, int grid, int relu, float m,
-    int npk, const int* ext, const int* stride, void* stream) {
+    int npk, const int* stride, const int* period, const int* step, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Shift sh;
-  if (!make_shift(sh, S, npk, ext, stride) || !(m >= 1.f)) return (int)cudaErrorInvalidValue;
+  if (!make_shift(sh, S, npk, stride, period, step) || !(m >= 1.f))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd_vec<float, true>(vec_bytes, x, dy, stats, scale, bias, dx, part,
                                        part_floats, tsum, dsb, N, S, C, CT, P, grid, relu, m,
@@ -952,14 +1052,55 @@ extern "C" int hdf_instance_norm_relu_bwd_shifted(
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the backward kernel (the shifted mode's where `shifted`) that
-// one multiprocessor holds at once, or minus the CUDA error.
-extern "C" int hdf_instance_norm_relu_bwd_blocks_per_sm(int dtype, int vec_bytes, int shifted) {
+namespace {
+
+// out = (registers a thread, local bytes a thread, blocks a multiprocessor
+// holds at once) of kernel `which`: 0 the statistics pass, 1 the normalize
+// pass, 2 the backward.
+template <typename T, typename R, bool kShifted>
+int kernel_attributes(int which, int* out) {
+  const void* fn = which == 0   ? (const void*)partial_stats_kernel<T, R, kShifted>
+                   : which == 1 ? (const void*)normalize_kernel<T, R, kShifted>
+                                : (const void*)bwd_persistent_kernel<T, R, kShifted>;
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, fn);
+  int blocks = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  if (err) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return 0;
+}
+
+template <typename T, bool kShifted>
+int kernel_attributes_vec(int which, int vec_bytes, int* out) {
+  switch (vec_bytes) {
+    case 16: return kernel_attributes<T, uint4, kShifted>(which, out);
+    case 8: return kernel_attributes<T, uint2, kShifted>(which, out);
+    case 4: return kernel_attributes<T, unsigned, kShifted>(which, out);
+    case 2:
+      if constexpr (sizeof(T) == 2) return kernel_attributes<T, unsigned short, kShifted>(which, out);
+      else return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// cudaFuncGetAttributes and the occupancy of one InstanceNorm kernel (which:
+// 0 statistics, 1 normalize, 2 backward; its shifted instantiation where
+// `shifted`): out[0] registers a thread, out[1] local (spilled) bytes a
+// thread, out[2] blocks of 256 threads a multiprocessor holds. Returns the
+// CUDA error, or cudaErrorInvalidValue for what no kernel is built for.
+extern "C" int hdf_instance_norm_relu_kernel_attributes(int which, int dtype, int vec_bytes,
+                                                        int shifted, int* out) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return shifted ? bwd_blocks_per_sm_vec<float, true>(vec_bytes)
-                   : bwd_blocks_per_sm_vec<float, false>(vec_bytes);
+    return shifted ? kernel_attributes_vec<float, true>(which, vec_bytes, out)
+                   : kernel_attributes_vec<float, false>(which, vec_bytes, out);
   if (dtype == 1)
-    return shifted ? bwd_blocks_per_sm_vec<__nv_bfloat16, true>(vec_bytes)
-                   : bwd_blocks_per_sm_vec<__nv_bfloat16, false>(vec_bytes);
-  return -(int)cudaErrorInvalidValue;
+    return shifted ? kernel_attributes_vec<__nv_bfloat16, true>(which, vec_bytes, out)
+                   : kernel_attributes_vec<__nv_bfloat16, false>(which, vec_bytes, out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -54,17 +54,17 @@ _SIGNATURES = {
     "hdf_instance_norm_relu_bwd": (
         _p, _p, _p, _p, _p, _p, _p, _ll, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p,
     ),
-    # ... as hdf_instance_norm_relu, then npk, ext, stride (int arrays of 3)
+    # ... as hdf_instance_norm_relu, then npk, stride, period, step (int arrays of 3)
     "hdf_instance_norm_relu_shifted": (
-        _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _i, _p, _p, _p,
+        _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _f, _i, _i, _p, _p, _p, _p,
     ),
-    # ... as hdf_instance_norm_relu_bwd, then m, npk, ext, stride
+    # ... as hdf_instance_norm_relu_bwd, then m, npk, stride, period, step
     "hdf_instance_norm_relu_bwd_shifted": (
         _p, _p, _p, _p, _p, _p, _p, _ll, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _f,
-        _i, _p, _p, _p,
+        _i, _p, _p, _p, _p,
     ),
-    # dtype, vec_bytes, shifted
-    "hdf_instance_norm_relu_bwd_blocks_per_sm": (_i, _i, _i),
+    # which, dtype, vec_bytes, shifted, out (int array of 3)
+    "hdf_instance_norm_relu_kernel_attributes": (_i, _i, _i, _i, _p),
     # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
     "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),
 }

@@ -30,8 +30,10 @@ tensor (N, *s, f*C), the output of a ``conv3_packed_p2s``, normalised per
 (``s2d.shifted_mask_factors``), which hold conv garbage: they are left out
 of the statistics, their dy is ignored, and y and dx are 0 there. The
 kernels take it as the (N, S*f, C) view whose row r is cell r / f, block r
-% f, and decode each row's pad status from its index. Their launches count
-under ``instance_norm_relu_shifted`` and ``instance_norm_relu_shifted_bwd``.
+% f, and decode each row's pad status from its index, stepping each
+thread's walk over its rows without a division (``pad_walk`` mirrors it).
+Their launches count under ``instance_norm_relu_shifted`` and
+``instance_norm_relu_shifted_bwd``.
 """
 from __future__ import annotations
 
@@ -82,6 +84,10 @@ class LaunchPlan:
     grid: tuple
     part_floats: int
     stats_floats: int
+
+    def cell_step(self, f: int) -> int:
+        """Cells between a thread's rows in the shifted mode (f parity blocks)."""
+        return self.rows_per_block // f
 
 
 def launch_plan(n: int, s: int, c: int, elem_bytes: int, addresses=(0,)) -> LaunchPlan:
@@ -146,6 +152,10 @@ class BwdPlan:
     part_floats: int
     tsum_floats: int
 
+    def cell_step(self, f: int) -> int:
+        """Cells between a thread's rows of one item in the shifted mode."""
+        return self.parts * self.rows_per_unit // f
+
 
 def bwd_launch_plan(n: int, s: int, c: int, elem_bytes: int, addresses=(0,), sms: int = 132,
                     blocks_per_sm: int = 2) -> BwdPlan:
@@ -201,12 +211,48 @@ class Shift:
     f: int
     m: int
 
-    def args(self) -> tuple:
-        """The C interface's npk, ext and stride: each packed dim's extent in
-        cells and the cells between neighbours along it, leading dim first."""
-        ext = (ctypes.c_int * 3)(*(self.sshape[i] for i in self.dims))
-        stride = (ctypes.c_int * 3)(*(prod(self.sshape[i + 1:]) for i in self.dims))
-        return len(self.dims), ext, stride
+    def walk(self, step: int) -> tuple:
+        """The constants of the kernels' pad walk (``PadWalk``) whose rows
+        step by ``step`` cells: per packed dim, leading first, the cells
+        between neighbours along it (stride), the period of its coordinate
+        in the cell index (extent * stride), and ``step`` modulo the period."""
+        stride = tuple(prod(self.sshape[i + 1:]) for i in self.dims)
+        period = tuple(self.sshape[i] * st for i, st in zip(self.dims, stride))
+        return stride, period, tuple(step % p for p in period)
+
+    def args(self, step: int) -> tuple:
+        """The C interface's npk, stride, period and step (``walk(step)``)."""
+        return (len(self.dims), *((ctypes.c_int * 3)(*v) for v in self.walk(step)))
+
+
+def pad_walk(sh: Shift, step: int, starts, count: int, reverse: bool = False) -> np.ndarray:
+    """A numpy mirror of the kernels' per-thread pad walk (``PadWalk`` in
+    csrc/instance_norm_relu.cu): for each row in ``starts`` of the (S*f)
+    view, whether each of its ``count`` rows r, r + step*f, r + 2*step*f, ...
+    (r - step*f, ... with ``reverse``) is a pad slot, (len(starts), count).
+
+    As the kernel does it, from ``Shift.walk(step)``: the parity block p = r
+    % f is the walk's throughout, each packed dim's residue x = cell % period
+    is taken once, then moves by the step's residue with one conditional
+    correction, and a row is a pad slot where some x lies in [lo, lo +
+    stride) (unsigned 32-bit), lo = 0 where p's bit for the dim is 1, else
+    period - stride."""
+    stride, period, dstep = sh.walk(step)
+    npk = len(sh.dims)
+    starts = np.asarray(starts, np.int64)
+    cell, p = starts >> npk, starts & (sh.f - 1)
+    pad = np.zeros((starts.size, count), bool)
+    for j in range(npk):
+        x = cell % period[j]
+        lo = np.where((p >> (npk - 1 - j)) & 1, 0, period[j] - stride[j])
+        for i in range(count):
+            pad[:, i] |= (x - lo) % 2**32 < stride[j]
+            if reverse:
+                x = np.where(x >= dstep[j], x - dstep[j], x + (period[j] - dstep[j]))
+            else:
+                x = x + dstep[j]
+                x = np.where(x >= period[j], x - period[j], x)
+    return pad
 
 
 def shift_of(x: torch.Tensor, shifted) -> Optional[Shift]:
@@ -429,7 +475,8 @@ def instance_norm_relu_fwd(x, scale=None, bias=None, eps: float = 1e-5, relu: bo
         if sh is None:
             err = lib.hdf_instance_norm_relu(*args, stream)
         else:
-            err = lib.hdf_instance_norm_relu_shifted(*args, *sh.args(), stream)
+            err = lib.hdf_instance_norm_relu_shifted(
+                *args, *sh.args(plan.cell_step(sh.f)), stream)
     check(err, what)
     (instance_norm_relu if sh is None else instance_norm_relu_shifted).launches += 1
     return y, stats
@@ -496,8 +543,8 @@ def launch_bwd(plan: BwdPlan, dx, dy, x, stats, scale, bias, relu: bool,
         if shift is None:
             err = lib.hdf_instance_norm_relu_bwd(*args, stream)
         else:
-            err = lib.hdf_instance_norm_relu_bwd_shifted(*args, float(shift.m), *shift.args(),
-                                                         stream)
+            err = lib.hdf_instance_norm_relu_bwd_shifted(
+                *args, float(shift.m), *shift.args(plan.cell_step(shift.f)), stream)
     check(err, "instance_norm_relu_bwd" if shift is None else "instance_norm_relu_shifted_bwd")
     (instance_norm_relu_bwd if shift is None else instance_norm_relu_shifted_bwd).launches += 1
     if dsb is None:
@@ -522,11 +569,36 @@ def _bwd_residency(lib, device: torch.device, dtype: torch.dtype, vec: int,
                    shifted: bool = False) -> tuple[int, int]:
     """(multiprocessors, backward blocks each holds at once) of the card."""
     with torch.cuda.device(device):
-        blocks = lib.hdf_instance_norm_relu_bwd_blocks_per_sm(_DTYPES[dtype], vec, int(shifted))
+        blocks = _attributes(lib, KERNEL_NAMES.index("bwd_persistent_kernel"), dtype, vec,
+                             shifted)[2]
     if blocks < 1:
         raise RuntimeError("instance_norm_relu_bwd: no block of the backward fits a "
-                           f"multiprocessor (CUDA error {-blocks})")
+                           "multiprocessor")
     return torch.cuda.get_device_properties(device).multi_processor_count, blocks
+
+
+KERNEL_NAMES = ("partial_stats_kernel", "normalize_kernel", "bwd_persistent_kernel")
+_ATTRIBUTES = ("registers", "local_bytes", "blocks_per_sm")
+
+
+def _attributes(lib, which: int, dtype: torch.dtype, vec: int, shifted: bool) -> tuple:
+    """``_ATTRIBUTES`` of kernel ``KERNEL_NAMES[which]`` on the current card."""
+    buf = (ctypes.c_int * 3)()
+    check(lib.hdf_instance_norm_relu_kernel_attributes(which, _DTYPES[dtype], vec, int(shifted),
+                                                       buf),
+          f"instance_norm_relu {KERNEL_NAMES[which]} attributes")
+    return tuple(buf)
+
+
+def kernel_attributes(dtype: torch.dtype, vec_bytes: int, shifted: bool = False) -> dict:
+    """Per kernel of ``KERNEL_NAMES`` (the shifted instantiations where
+    ``shifted``) at ``vec_bytes``-byte vectors: registers a thread, local
+    (spilled) bytes a thread and blocks of 256 threads a multiprocessor of
+    the current card holds, from cudaFuncGetAttributes and the occupancy
+    query."""
+    lib = load_library()
+    return {name: dict(zip(_ATTRIBUTES, _attributes(lib, which, dtype, vec_bytes, shifted)))
+            for which, name in enumerate(KERNEL_NAMES)}
 
 
 class _InstanceNormReLU(torch.autograd.Function):

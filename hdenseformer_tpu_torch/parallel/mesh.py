@@ -103,8 +103,8 @@ def maybe_distributed_init(device=None, backend: Optional[str] = None) -> bool:
     ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``; torch cannot detect a cluster
     as JAX does, so both counts are required). Without either, nothing
     happens. The backend is ``backend``, else NCCL for a CUDA ``device``
-    (None: CUDA where a card is present) and gloo for the CPU; under NCCL
-    the process's current card is set to ``cuda:LOCAL_RANK`` first.
+    (None is the card) and gloo for the CPU; under NCCL the process's
+    current card is set to ``cuda:LOCAL_RANK`` first.
     """
     if dist.is_initialized():
         return True
@@ -120,9 +120,7 @@ def maybe_distributed_init(device=None, backend: Optional[str] = None) -> bool:
     else:
         return False
     if backend is None:
-        cuda = (torch.device(device).type == "cuda" if device is not None
-                else torch.cuda.is_available())
-        backend = "nccl" if cuda else "gloo"
+        backend = "gloo" if torch.device(device or "cuda").type == "cpu" else "nccl"
     if backend == "nccl":
         torch.cuda.set_device(_local_rank() if "LOCAL_RANK" in env
                               else init.get("rank", 0) % max(1, torch.cuda.device_count()))
@@ -130,12 +128,19 @@ def maybe_distributed_init(device=None, backend: Optional[str] = None) -> bool:
     return True
 
 
+def _no_card() -> RuntimeError:
+    return RuntimeError("no CUDA device: the port runs on the GPU unless the caller "
+                        "passes device='cpu'")
+
+
 def local_device(device=None) -> torch.device:
     """This process's device: ``device`` as given, except that a CUDA device
-    without an index (or None where a card is present) is
-    ``cuda:LOCAL_RANK``; None without a card is the CPU."""
+    without an index (None is one) is ``cuda:LOCAL_RANK``. None raises
+    without a card: ``device="cpu"`` asks for the host."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise _no_card()
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", _local_rank())
@@ -143,9 +148,11 @@ def local_device(device=None) -> torch.device:
 
 
 def local_mesh_devices(n: Optional[int] = None) -> list:
-    """This host's cards (``cuda:0`` ...), else the CPU; the first ``n``."""
-    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-            or [torch.device("cpu")])
+    """This host's cards (``cuda:0`` ...), the first ``n``; raises without
+    a card."""
+    if not torch.cuda.is_available():
+        raise _no_card()
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if n is not None:
         if n > len(devs):
             raise ValueError(f"requested {n} devices, have {len(devs)}")
@@ -157,7 +164,8 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     """The data-parallel mesh of this process over the default process
     group (one process of one rank where none is initialised).
     ``n_devices`` None takes the world as it is; any other value must be the
-    world size. ``device`` is this rank's (``local_device``)."""
+    world size. ``device`` is this rank's (``local_device``: None is the
+    card, and raises without one; ``"cpu"`` is the host)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices is not None and n_devices != world:
         raise ValueError(

@@ -918,16 +918,25 @@ def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
 # --- the shifted InstanceNorm (packed-shifted input, pad slots masked) -----
 
 
-def _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, seed):
-    """A packed-shifted x whose pad slots hold large garbage, dy, scale, bias."""
+def _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, seed, garbage="normal"):
+    """A packed-shifted x whose pad slots hold garbage, dy, scale, bias. The
+    garbage is large ("normal": N(0, 1e4^2) in x, N(0, 1e3^2) in dy as
+    everywhere) or not finite ("nonfinite": NaN, +Inf and -Inf in turn, in x
+    and dy), which would turn any sum it reached into NaN or Inf."""
     from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask
 
     g = torch.Generator(device=cuda).manual_seed(seed)
     f = 2 ** len(dims)
     x = torch.randn((n, *sshape, f * c), generator=g, device=cuda) * 3 + 1
-    garbage = 1e4 * torch.randn(x.shape, generator=g, device=cuda)
-    x = torch.where(apply_shifted_mask(torch.ones_like(x), dims) > 0, x, garbage).to(dtype)
-    dy = (torch.randn(x.shape, generator=g, device=cuda) * 1e3).to(dtype)  # large at pads too
+    valid = apply_shifted_mask(torch.ones_like(x), dims) > 0
+    dy = torch.randn(x.shape, generator=g, device=cuda) * 1e3  # large at pads too
+    junk = 1e4 * torch.randn(x.shape, generator=g, device=cuda)
+    if garbage == "nonfinite":
+        turn = torch.arange(x.numel(), device=cuda).reshape(x.shape) % 3
+        junk = torch.tensor([float("nan"), float("inf"), -float("inf")], device=cuda)[turn]
+        dy = torch.where(valid, dy, junk.roll(1))
+    x = torch.where(valid, x, junk).to(dtype)
+    dy = dy.to(dtype)
     scale = bias = None
     if affine:
         scale = torch.randn(c, generator=g, device=cuda)
@@ -936,23 +945,35 @@ def _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, seed):
     return x, dy, scale, bias
 
 
+# (n, cells, packed dims, C). Beside the first six: an extent of 2 along a
+# packed dim (its every slot a pad slot of some parity block), three packed
+# dims (f = 8), C = 1, 2, 4, 8 (bf16 vectors of 2, 4, 8 and 16 bytes), and
+# shapes of many chunks and of several units an item in the backward, where
+# each thread's walk takes many steps
 SHIFTED_CASES = [((2, (5, 6, 7), (1, 2), 16)), ((1, (4, 9, 5), (2,), 64)),
                  ((2, (3, 5, 6), (0, 2), 32)), ((1, (5, 4, 6), (0, 1, 2), 2)),
-                 ((3, (9, 10), (0, 1), 32)), ((1, (33, 17), (1,), 256))]
+                 ((3, (9, 10), (0, 1), 32)), ((1, (33, 17), (1,), 256)),
+                 ((2, (2, 5, 6), (0, 2), 8)), ((1, (3, 2, 2), (1, 2), 4)),
+                 ((1, (4, 3, 5), (0, 1, 2), 8)), ((2, (7, 9), (0, 1), 2)),
+                 ((1, (6, 5, 7), (0, 1, 2), 1)), ((2, (40, 37, 21), (1, 2), 32)),
+                 ((3, (129, 65), (0, 1), 16))]
 
 
+@pytest.mark.parametrize("garbage", ["normal", "nonfinite"])
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("affine", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(SHIFTED_CASES)))
-def test_shifted_instance_norm_kernels_match_plain(cuda, case, dtype, affine, relu):
+def test_shifted_instance_norm_kernels_match_plain(cuda, case, dtype, affine, relu, garbage):
     """Forward (the bars of test_instance_norm_kernel_ragged_rows) and
     backward (assert_norm_grads_close, given the same statistics) of the
     shifted mode against its plain versions; 0 at every pad slot, whatever
-    x and dy hold there; reruns bitwise; one launch each, counted under the
+    x and dy hold there (NaN and Inf included: the statistics, dscale and
+    dbias stay finite); reruns bitwise; one launch each, counted under the
     shifted wrappers."""
     n, sshape, dims, c = SHIFTED_CASES[case]
-    x, dy, scale, bias = _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, 90 + case)
+    x, dy, scale, bias = _shifted_case(cuda, n, sshape, dims, c, dtype, affine, relu, 90 + case,
+                                       garbage)
     reset_norm_counts()
     y, stats = instance_norm_relu_fwd(x, scale, bias, relu=relu, shifted=dims)
     got = instance_norm_relu_bwd(dy, x, stats, scale, bias, relu, shifted=dims)
@@ -971,6 +992,8 @@ def test_shifted_instance_norm_kernels_match_plain(cuda, case, dtype, affine, re
 
     pads = apply_shifted_mask(torch.ones(x.shape, device=cuda), dims) == 0
     assert pads.any() and not y[pads].any() and not got[0][pads].any()
+    assert torch.isfinite(stats).all() and torch.isfinite(y).all()
+    assert all(t is None or torch.isfinite(t).all() for t in got)
     assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
     assert y.shape == x.shape and f * c == x.shape[-1]
 

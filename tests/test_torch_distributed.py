@@ -379,6 +379,19 @@ def test_maybe_distributed_init_needs_the_jax_counts(monkeypatch):
         tmesh.maybe_distributed_init("cpu")
 
 
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """No quiet fallback to the host: without a card, make_mesh() (device
+    None), local_device(None) and local_mesh_devices() raise, as get_net
+    does; device="cpu" is how a caller asks for the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (tmesh.make_mesh, tmesh.local_device, tmesh.local_mesh_devices):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = tmesh.make_mesh(device="cpu")
+    assert (mesh.rank, mesh.world_size, mesh.device) == (0, 1, torch.device("cpu"))
+    assert tmesh.local_device("cpu") == torch.device("cpu")
+
+
 def test_make_mesh_is_one_rank_without_a_world():
     mesh = tmesh.make_mesh(device="cpu")
     assert (mesh.rank, mesh.world_size, mesh.device) == (0, 1, torch.device("cpu"))
