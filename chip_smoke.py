@@ -53,9 +53,13 @@ removed at the end):
    default), packed through the plain versions, and fine through the
    kernels; then packed against fine in fp32 at 64^3;
 3. serving: predict_volume on a synthetic 200^3 two-channel volume (patch
-   144^3, step 72^3, window_batch 8, one model call of 8 windows): first
-   call, p50 of 3 warm calls, peak device memory, launch counts, and the
-   labels against the plain path's; 3b. the same for Hecktor20Top1;
+   144^3, step 72^3, window_batch 8, one model call of 8 windows), its
+   window forward captured as a CUDA graph at the first call (the default
+   on a card): first call, then captured and eager (``capture=False``)
+   calls in turns, p50 and peak device memory of each, launch counts (a
+   warm-up's and a capture's at the first call, none at a replay), the
+   captured labels equal to the eager ones wherever the margin exceeds 0.1,
+   and the labels against the plain path's; 3b. the same for Hecktor20Top1;
 4. training: one train step of HDenseFormer_32 at 64^3, depth 4, through
    the kernels and through the plain versions from the same weights and
    dropout seed, in fp32 and in bf16, beside the plain path on an input
@@ -64,8 +68,9 @@ removed at the end):
    144^3, batch 1, depth 24, bf16, FocalLoss deep supervision, Adam with
    coupled L2 1e-4, lr 1e-3, dropout 0.5, no rematerialisation) on its zero
    image, built and timed by ``hdenseformer_tpu_torch.bench`` (one warm
-   step, the best of 4 chained windows of 8 steps): the loss after every
-   window, peak memory, launches per step, and the bench's JSON line;
+   step, the best of 4 chained windows of 8 steps), captured as the
+   trainer runs it and then eagerly on the same state: the loss after every
+   window, peak memory, launches, and the bench's JSON line (captured);
    then one 64^3 fp32 step with remat on and off (cuDNN deterministic, one
    dropout seed: equal loss, gradients within 1e-5 of their max, the
    generator in one state), and the peak memory and time of one full-width
@@ -120,7 +125,8 @@ removed at the end):
    (phase 2's bars). Then da_unet through the trainer: one epoch of fold 1
    on phase 5's cases, inf-sw of one 200^3 volume (labels equal to
    predict_volume's under the checkpoint's weights and running statistics,
-   which must have moved off (0, 1)), eval;
+   which must have moved off (0, 1)), eval; its training run captured,
+   then in turns eager and eager on moved inputs (as phase 5);
 4c. the 2-D path at the PI-CAI22 preset (3 channels, 384^2, 2 classes,
    bf16, full width, batch 24): attention at one modality path's (24, 8,
    576, 4) and each of HDenseFormer_2D_32's 18 InstanceNorm shapes, forward
@@ -134,7 +140,8 @@ removed at the end):
    running statistics unmoved) and 2 train steps (finite losses, every
    running statistic moved, no kernel of the port); then the 2-D journey:
    one epoch of HDenseFormer_2D_32 through the trainer on 72 synthetic
-   slice cases (.npy), ``predict_case_2d`` of two 3 x 30 x 400^2 volumes
+   slice cases (.npy; captured, then in turns eager and eager on moved
+   inputs, as phase 5), ``predict_case_2d`` of two 3 x 30 x 400^2 volumes
    (seconds a volume, slices/s; labels equal to a direct argmax of the
    model's logits on the same preprocessed slices) and their dice and HD95;
 5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
@@ -142,27 +149,38 @@ removed at the end):
    .npy case directories driven through ``SemanticSeg`` with a .npy reader
    (the CLI's own calls; the line says which). Fold 1 of 3 trains 2 epochs
    at the Hecktor21 preset (HDenseFormer_32, 144^3, depth 24, batch 2, bf16,
-   remat, DS FocalLoss, Adam with coupled L2 1e-4, poly LR), resumes one
-   epoch from its best checkpoint, infers two 200^3 volumes (window batch
+   remat, DS FocalLoss, Adam with coupled L2 1e-4, poly LR), resumes 3
+   epochs from its best checkpoint, infers two 200^3 volumes (window batch
    8) and is evaluated (dice, HD95); then one epoch of Hecktor20Top1 (with
    the preset's remat, as JAX). Per epoch: losses, dice, seconds, step time
    and the share spent waiting on the loader; launches per train step,
-   checked against the counts the models' code gives. The resumed epoch
-   runs under ``utils.profiling.profiler_trace`` (the CLI's ``--profile``):
+   checked against the counts the models' code gives. The resumed epochs
+   run under ``utils.profiling.profiler_trace`` (the CLI's ``--profile``):
    the trace must name the attention, InstanceNorm forward and backward
-   kernels and their shifted instantiations; its size and the epoch's step
-   time beside the unprofiled epochs';
+   kernels and their shifted instantiations; its size and the epochs' step
+   time beside the unprofiled epochs', and the card's idle share over their
+   5 replayed steps, loader waits left out. Every training run is the
+   trainer's default, its train and eval steps captured as CUDA graphs,
+   then the same fold runs in turns eagerly (``capture=False``) and
+   eagerly on inputs moved by a relative N(0, 2^-8): step losses of the captured run against the eager
+   one, the first within 1e-3, each later one within that or 3x the moved
+   run's spread (the graph phase's bars); steady step, loader-wait share,
+   graphs captured and peak memory of each run side by side; launches at
+   capture (a warm-up's and a capture's a graph) and by the eager steps;
 5b. the same 2 epochs of HDenseFormer_32 with ``device_augment=True``
    (through ``SemanticSeg``: the CLI has no flag for it, as JAX's has
    none): the loader ships raw cases and the augmentation runs in the step
    on the card. Steady step time, loader-wait share and peak memory beside
    phase 5's; launches per train step equal to phase 5's; finite losses;
+   captured and in turns eager, as phase 5;
 6. a {"kernels": [...]} line with each kernel's numbers;
 7. the result line {"ok": true, "device": {...}}.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
-run. The InstanceNorm kernels' shifted mode counts as two kernels of its own
+run. A wrapper counts in Python, so on a captured path it counts the
+warm-up's and the capture's launches, and a replay none. The InstanceNorm
+kernels' shifted mode counts as two kernels of its own
 (``instance_norm_relu_shifted`` and its backward); HDenseFormer_32's and
 HDenseFormer_2D_32's paths launch it at level 0's first BasicConvs.
 
@@ -176,6 +194,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -186,6 +205,8 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
+import zlib
 
 import numpy as np
 import torch
@@ -231,6 +252,7 @@ from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_unpack,
     shift_unpack_ref,
 )
+from hdenseformer_tpu_torch.train import loop as train_loop
 from hdenseformer_tpu_torch.train.checkpoint import get_weight_path, load_checkpoint
 from hdenseformer_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init
 from hdenseformer_tpu_torch.train.loop import (
@@ -245,6 +267,8 @@ from hdenseformer_tpu_torch.utils import profiler_trace
 from hdenseformer_tpu_torch.train.state import get_optimizer, make_capturable
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SM_COUNT = 132  # H100 SXM
+EX2_PER_CLOCK_SM = 16  # ex2 results a clock per SM, compute capability 9.0
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PATCH, STEP, WINDOWS, N_CLS = 144, 72, 8, 2
 VOLUME = 200  # the serving case measured on the TPU, baselines/infer_latency_v5e.json
@@ -336,8 +360,9 @@ LR, WEIGHT_DECAY = bench.LR, bench.WEIGHT_DECAY
 TRAIN_WINDOWS, TRAIN_STEPS = bench.REPS, bench.STEPS
 PATCH_EQUIV = (PATCH / 128) ** 3
 # the trainer phase: 6 synthetic cases of CASE^3 (3 patients x 2; RandomCrop3D
-# draws a 144^3 patch), fold 1 of 3, 2 epochs, then one resumed
-CASE, TRAIN_EPOCHS = 152, 2
+# draws a 144^3 patch), fold 1 of 3, 2 epochs, then RESUME_EPOCHS resumed and
+# profiled (2 train steps an epoch: the first captures, 5 replays)
+CASE, TRAIN_EPOCHS, RESUME_EPOCHS = 152, 2, 3
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_work")
 # the conv biases under an InstanceNorm without affine: their true gradient
 # is zero, and what any implementation returns for them is rounding noise
@@ -476,6 +501,32 @@ def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def attention_bound(shape, dtype) -> dict:
+    """Attention's bound at (B, H, N, D): the larger of bytes (q, k, v read,
+    o written), products over the tensor-core peak, and the N^2 exponentials
+    a (b, h) over the special-function units (16 ``ex2`` a clock per SM at
+    compute capability 9.0, SM_COUNT SMs at the maximum SM clock): at head
+    dim 4 the exponentials bound it. ``bound_by`` "operations" for either of
+    the last two; ``exp_bound_ms`` says which."""
+    b, h, n, d = shape
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    t, by = bound(4 * b * h * n * d * itemsize, 4 * b * h * n * n * d, dtype)
+    t_exp = b * h * n * n / (EX2_PER_CLOCK_SM * SM_COUNT * sm_clock_hz()) * 1e3
+    rec = dict(bound_ms=t, bound_by=by, exp_bound_ms=t_exp, sm_clock_hz=sm_clock_hz())
+    if t_exp > t:
+        rec.update(bound_ms=t_exp, bound_by="operations")
+    return rec
+
+
 def max_err(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
     """Max abs error, max relative error, and the largest error over its limit."""
     diff = (got.float() - ref.float()).abs()
@@ -560,8 +611,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             if not over <= 1.0:
                 fail(f"dense_attention {shape} {dtype} vs {ref_name}: {abs_e} over tolerance")
         b, h, n, d = shape
-        nbytes, ops = 4 * q.numel() * q.element_size(), 4 * b * h * n * n * d
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
+        rec.update(attention_bound(shape, dtype))
         rec["ms"] = device_ms(lambda: dense_attention(q, k, v), iters=50)
         rec["event_ms"] = cuda_ms(lambda: dense_attention(q, k, v), iters=50)  # with the host
         rec["plain_ms"] = device_ms(lambda: attention_ref(q, k, v), iters=20)
@@ -591,7 +641,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
         emit("kernel_check", kernel="dense_attention", **rec)
         if shape == (8, 8, 729, 4) and dtype == torch.bfloat16:
             main["dense_attention"] = dict(max_abs_err=rec["vs_plain"]["max_abs"], **{
-                key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                key: rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                          "exp_bound_ms")})
         del q, k, v, got, plain, math32
 
     # --- InstanceNorm + ReLU ---------------------------------------------
@@ -1038,45 +1089,74 @@ def synthetic_volume(seed: int, size: int = VOLUME) -> np.ndarray:
 
 
 def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
+    """predict_volume of a 200^3 volume as ``-m inf-sw`` serves it: the
+    model's window forward captured at the first call (its warm-up and
+    capture count two forwards' launches; later calls replay and count
+    none), then captured and eager (``capture=False``) calls in turns: p50
+    of each, peak memory of each, the labels of the two equal wherever the
+    eager accumulator's top-two margin exceeds 0.1; and the plain path's
+    labels, agreeing on 99 % of the voxels. Returns the first call's
+    launches."""
     image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
 
-    def serve(model):
+    def serve(model, capture=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         labels = predict_volume(model, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
-                                window_batch=WINDOWS)
+                                window_batch=WINDOWS, capture=capture)
         return labels, (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     labels, first_ms = serve(net)
     first_counts = read_counts()
-    warm, per_call = [], []
-    for _ in range(3):
+    peaks = {"captured": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eager_labels, eager_first_ms = serve(net, capture=False)
+    peaks["eager"] = torch.cuda.max_memory_allocated()
+    eager_first_counts = read_counts()
+    turns, per_call = [], {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured", "captured", "eager"):
         reset_counts()
-        again, ms = serve(net)
-        warm.append(ms)
-        per_call.append(read_counts())
-        if not np.array_equal(again, labels):
-            fail("repeated serving calls gave different labels")
-    peak = torch.cuda.max_memory_allocated()
-    ref, plain_ms = serve(plain)
+        again, ms = serve(net, mode == "captured")
+        turns.append([mode, ms])
+        per_call[mode].append(read_counts())
+        if not np.array_equal(again, labels if mode == "captured" else eager_labels):
+            fail(f"repeated {mode} serving calls gave different labels")
+    warm = {mode: [ms for m, ms in turns if m == mode] for mode in per_call}
+    acc = single_accumulator(net, image)
+    top = acc.topk(2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1] > 0.1).cpu().numpy()
+    same = labels == eager_labels
+    ref, plain_ms = serve(plain, capture=False)
     agree = float((labels == ref).mean())
-    p50 = statistics.median(warm)
+    p50 = {mode: statistics.median(v) for mode, v in warm.items()}
     n_windows = int(np.prod([len(s) for s in cal_steps((VOLUME,) * 3, (PATCH,) * 3,
                                                         (STEP,) * 3)]))
     emit(tag, volume=[VOLUME] * 3, patch=PATCH, step=STEP, window_batch=WINDOWS,
          windows=n_windows, label_shape=list(labels.shape), label_dtype=str(labels.dtype),
          class_histogram=np.bincount(labels.ravel(), minlength=N_CLS).tolist(),
-         first_call_ms=first_ms, warm_ms=warm, p50_ms=p50,
-         windows_per_s=n_windows / (p50 / 1e3),
-         max_memory_allocated_bytes=peak, launches_first_call=first_counts,
-         launches_per_warm_call=per_call, plain_path_ms=plain_ms,
-         label_agreement_vs_plain=agree)
+         first_call_ms=first_ms, eager_first_call_ms=eager_first_ms, ms_in_turns=turns,
+         p50_ms=p50["captured"], eager_p50_ms=p50["eager"],
+         windows_per_s=n_windows / (p50["captured"] / 1e3),
+         max_memory_allocated_bytes=peaks["captured"],
+         eager_max_memory_allocated_bytes=peaks["eager"],
+         launches_first_call=first_counts, launches_per_warm_call=per_call,
+         eager_launches_first_call=eager_first_counts,
+         labels_equal_eager=float(same.mean()), decided_fraction=float(decided.mean()),
+         labels_equal_eager_margin_gt_0p1=float(same[decided].mean()),
+         plain_path_ms=plain_ms, label_agreement_vs_plain=agree)
     if labels.shape != (VOLUME,) * 3 or labels.min() < 0 or labels.max() >= N_CLS:
         fail(f"labels {labels.shape} in [{labels.min()}, {labels.max()}]")
-    if first_counts != expect or any(c != expect for c in per_call):
-        fail(f"{tag} launched {first_counts} / {per_call}, expected {expect} per call")
+    zero = {k: 0 for k in expect}
+    if (first_counts != {k: 2 * v for k, v in expect.items()} or eager_first_counts != expect
+            or any(c != zero for c in per_call["captured"])
+            or any(c != expect for c in per_call["eager"])):
+        fail(f"{tag} launched {first_counts} at capture, {per_call} in turns, expected "
+             f"{expect} a forward")
+    if not same[decided].all():
+        fail(f"{tag}: captured and eager labels differ where the margin exceeds 0.1")
     if agree < 0.99:
         fail(f"{tag} labels agree with the plain path on {agree} of voxels, under 0.99")
     return first_counts
@@ -1283,37 +1363,51 @@ def phase_train_compare(args) -> dict:
 
 def phase_train(args) -> dict:
     """The full-width train step of bench.py, built and timed by
-    ``hdenseformer_tpu_torch.bench`` (its protocol, its zero input)."""
+    ``hdenseformer_tpu_torch.bench`` (its protocol, its zero input): the
+    step the trainer runs, captured (its first step warms up and captures,
+    so the wrappers count two steps' launches, whatever the replays), then
+    the eager step by the same protocol on the same state. Returns the
+    captured run's launches."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state, step, batch, gen = bench.build("cuda", PATCH, args.depth, args.seed)
+    expect = hdf_expect(args, train=True)
     reset_counts()
     timed = bench.time_steps(state, step, batch, gen, TRAIN_STEPS, TRAIN_WINDOWS)
     counts = read_counts()
+    if counts != {k: 2 * v for k, v in expect.items()}:
+        fail(f"the captured steps launched {counts}, not a warm-up's and a capture's {expect}")
+    captured_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eager = bench.time_steps(state, step.eager, batch, gen, TRAIN_STEPS, TRAIN_WINDOWS)
+    eager_counts = read_counts()
     steps = 1 + TRAIN_WINDOWS * TRAIN_STEPS
-    expect = hdf_expect(args, train=True)
-    if any(counts[k] != v * steps for k, v in expect.items()):
-        fail(f"the {steps} steps launched {counts}, not {steps} x {expect}")
-    windows = [t * 1e3 / TRAIN_STEPS for t in timed["rep_window_s"]]
-    best = min(windows)
+    if any(eager_counts[k] != v * steps for k, v in expect.items()):
+        fail(f"the {steps} eager steps launched {eager_counts}, not {steps} x {expect}")
+    recs = {}
+    for mode, t in (("captured", timed), ("eager", eager)):
+        windows = [w * 1e3 / TRAIN_STEPS for w in t["rep_window_s"]]
+        recs[mode] = dict(first_step_ms=t["first_call_s"] * 1e3, first_loss=t["first_loss"],
+                          window_ms_per_step=windows, window_losses=t["window_losses"],
+                          ms_per_step=min(windows), patches_128_per_s=PATCH_EQUIV / (
+                              min(windows) / 1e3), window_spread=max(windows) / min(windows))
+        losses = t["window_losses"]
+        if not all(np.isfinite([t["first_loss"]] + losses)) or not losses[-1] < t["first_loss"]:
+            fail(f"{mode} train losses {t['first_loss']} -> {losses}: not finite and falling")
     out = timed["metrics"]
-    rec = dict(patch=PATCH, batch=bench.BATCH, depth=args.depth, dtype="bfloat16", dropout=0.5,
-               input="bench.py's: zero image, background label",
-               first_step_ms=timed["first_call_s"] * 1e3, first_loss=timed["first_loss"],
-               window_ms_per_step=windows, window_losses=timed["window_losses"],
-               ms_per_step=best, patches_128_per_s=PATCH_EQUIV / (best / 1e3),
-               window_spread=max(windows) / best,
-               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches_per_step=expect, launches_in_run=counts, steps=state.step,
-               dice=float(out["dice"]), cm=out["cm"].tolist())
-    emit("train", **rec)
+    emit("train", patch=PATCH, batch=bench.BATCH, depth=args.depth, dtype="bfloat16",
+         dropout=0.5, input="bench.py's: zero image, background label",
+         captured=recs["captured"], eager=recs["eager"],
+         max_memory_allocated_bytes=captured_peak,
+         eager_max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches_per_step=expect, launches_captured_run=counts,
+         launches_eager_run=eager_counts, steps=state.step, dice=float(out["dice"]),
+         cm=out["cm"].tolist())
     emit("bench", **bench.result_line(timed["best_window_s"], TRAIN_STEPS, PATCH))
-    losses = timed["window_losses"]
-    if not all(np.isfinite([timed["first_loss"]] + losses)) or not losses[-1] < timed["first_loss"]:
-        fail(f"train losses {timed['first_loss']} -> {losses}: not finite and falling")
-    del state, batch
+    del state, batch, step
     torch.cuda.empty_cache()
-    return expect
+    return counts
 
 
 GRAPH_STEPS = 8  # K: the chained steps of the graph phase
@@ -1492,8 +1586,10 @@ def dp_global_batch(args, nudge: float = 0.0) -> dict:
 def dp_steps(args, device, mesh=None, nudge: float = 0.0) -> dict:
     """Two train steps of bench.py's model on the global batch of two cases
     (this rank's share under ``mesh``), dropout seeded per step as the
-    trainer seeds it: the losses, launches and the parameters after."""
+    trainer seeds it: the losses, launches and the parameters after. The
+    steps run eagerly (the collectives of a mesh are not captured)."""
     state, step, _, _ = bench.build(device, PATCH, args.depth, args.seed)
+    step = step.eager
     host = dp_global_batch(args, nudge)
     batch = pad_and_mask_batch(host, 2, mesh or device)
     gen = torch.Generator(device=device)
@@ -1695,7 +1791,7 @@ def single_accumulator(net, image) -> torch.Tensor:
     volume[tuple(slice(0, s) for s in spatial)] = torch.from_numpy(image_cl).to(device)
     origins = _origins_array(cal_steps(spatial, (PATCH,) * 3, (STEP,) * 3))
     acc = accumulate_windows(net, volume, origins, np.ones(len(origins), np.float32),
-                             (PATCH,) * 3, N_CLS, None, len(origins))
+                             (PATCH,) * 3, N_CLS, None, len(origins), capture=False)
     return acc[tuple(slice(0, s) for s in spatial)]
 
 
@@ -2211,9 +2307,14 @@ def phase_zoo_journey(args, work: str, case_format: str, device: str = "cuda") -
     cwd = os.getcwd()
     os.chdir(work)
     try:
-        cfg = run.config("da_unet", 1, version="smoke-zoo-")
+        def train_fn(mode, **knobs):
+            c = run.config("da_unet", 1, version=f"smoke-zoo-{mode}-")
+            return run.train(c, paths, **knobs), c
+
+        none = {k: 0 for k in KERNELS}
+        runs = captured_and_eager("zoo-da_unet", train_fn, none, none, extra_forwards=1)
+        cfg = runs["captured"]["cfg"]
         reset_counts()
-        run.train(cfg, paths)
         ckpt = get_weight_path(os.path.join(cfg.output_dir, "fold1"))
         stats = {k: v for k, v in load_checkpoint(ckpt)["model"].items()
                  if k.endswith((".mean", ".var"))}
@@ -2232,6 +2333,7 @@ def phase_zoo_journey(args, work: str, case_format: str, device: str = "cuda") -
                               window_batch=WINDOWS)
         rows = run.evaluate(cfg, tests, save)
         epochs = epoch_records(cfg)
+        counts = {k: v + runs["captured"]["counts"][k] for k, v in counts.items()}
     finally:
         os.chdir(cwd)
     rec = dict(net="da_unet", case_format=case_format, epochs=epochs, checkpoint_statistics=len(
@@ -2288,9 +2390,7 @@ def phase_2d_kernels(args, gen) -> dict:
             fail(f"dense_attention {ATTN_2D} vs {ref_name}: {abs_e} over tolerance")
     if not torch.equal(got, dense_attention(q, k, v)):
         fail(f"dense_attention {ATTN_2D}: reruns differ")
-    b, h, n, d = ATTN_2D
-    rec["bound_ms"], rec["bound_by"] = bound(4 * q.numel() * q.element_size(),
-                                             4 * b * h * n * n * d, torch.bfloat16)
+    rec.update(attention_bound(ATTN_2D, torch.bfloat16))
     rec["ms"] = device_ms(lambda: dense_attention(q, k, v), iters=50)
     rec["plain_ms"] = device_ms(lambda: attention_ref(q, k, v), iters=20)
     rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
@@ -2434,10 +2534,48 @@ def phase_2d_hdenseformer(args, gen) -> dict:
     if any(st["launches"] != train_expect for st in steps) or not all(
             np.isfinite(st["loss"]) for st in steps):
         fail(f"HDenseFormer_2D steps: {steps}, expected {train_expect} launches a step")
+    captured = captured_2d_steps(state, step, batch, g, train_expect)
     del state, step, net, batch
     torch.cuda.empty_cache()
     return {"2d-serve": counts,
-            "2d-train": {k: sum(st["launches"][k] for st in steps) for k in KERNELS}}
+            "2d-train": {k: sum(st["launches"][k] for st in steps) for k in KERNELS},
+            "2d-train-captured": captured}
+
+
+def captured_2d_steps(state, eager_step, batch, g, train_expect: dict) -> dict:
+    """The batch-24 step of HDenseFormer_2D_32 as the trainer runs it
+    (``CapturedTrainStep``), against the eager step on the same state in
+    turns (captured, eager, eager, captured), each a chained window of 4
+    steps ended by reading the loss: ms a step of each, and the capture's
+    first call. Returns the captured launches (a warm-up's and a
+    capture's)."""
+    from hdenseformer_tpu_torch.train.loop import CapturedTrainStep
+
+    captured = CapturedTrainStep(get_loss("FocalLoss", use_ds=True), N_CLS)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, out = captured(state, batch, g)
+    float(out["loss"])
+    first_ms = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+
+    def window(step) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            _, out = step(state, batch, g)
+        float(out["loss"])
+        return (time.perf_counter() - t0) * 1e3 / 4
+
+    turns = [[mode, window(captured if mode == "captured" else eager_step)]
+             for mode in ("captured", "eager", "eager", "captured")]
+    emit("hdenseformer_2d_captured", batch=SLICE_BATCH, remat=state.model.remat,
+         first_call_ms=first_ms, ms_per_step_in_turns=turns, launches_at_capture=counts)
+    if counts != {k: 2 * v for k, v in train_expect.items()}:
+        fail(f"the captured 2-D step launched {counts}, not a warm-up's and a capture's "
+             f"{train_expect}")
+    return counts
 
 
 def phase_2d_zoo(args) -> None:
@@ -2530,23 +2668,26 @@ def phase_2d_journey(args, work: str) -> dict:
     cwd = os.getcwd()
     os.chdir(work)
     try:
-        cfg = get_config("PI-CAI22", net_name="HDenseFormer_2D_32", data_path="slices",
-                         n_epoch=1, fold_num=3, current_fold=1, seed=args.seed,
-                         transformer_depth=args.depth, version="smoke-2d")
-        seg = NpySemanticSeg(**cfg.init_trainer_kwargs(), device="cuda")
+        def train_fn(mode, capture=True, move=False):
+            cfg = get_config("PI-CAI22", net_name="HDenseFormer_2D_32", data_path="slices",
+                             n_epoch=1, fold_num=3, current_fold=1, seed=args.seed,
+                             transformer_depth=args.depth, version=f"smoke-2d-{mode}")
+            seg_cls = moved(NpySemanticSeg) if move else NpySemanticSeg
+            seg = seg_cls(**cfg.init_trainer_kwargs(), device="cuda", capture=capture)
+            train, val = get_cross_validation_by_sample(paths, cfg.fold_num, cfg.current_fold,
+                                                        shuffle_seed=cfg.seed)
+            seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+            return seg, cfg
+
+        runs = captured_and_eager("2d-journey", train_fn, hdf2d_expect(args),
+                                  hdf2d_expect(args, train=True))
+        seg, cfg = runs["captured"]["seg"], runs["captured"]["cfg"]
         train, val = get_cross_validation_by_sample(paths, cfg.fold_num, cfg.current_fold,
                                                     shuffle_seed=cfg.seed)
-        reset_counts()
-        t = time.perf_counter()
-        seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
-        train_s = time.perf_counter() - t
-        train_counts = read_counts()
-        epochs = epoch_records(cfg)
+        train_s, train_counts = runs["captured"]["wall_s"], runs["captured"]["counts"]
+        epochs = runs["captured"]["epochs"]
     finally:
         os.chdir(cwd)
-    n_train = epochs[0]["train_steps"]
-    n_val = -(-len(val) // cfg.batch_size)
-    per_step = per_train_step(train_counts, n_train, n_val, hdf2d_expect(args))
     model = seg.state.model.eval()
     reset_counts()
     volumes, rows = [], []
@@ -2578,13 +2719,11 @@ def phase_2d_journey(args, work: str) -> dict:
     want = {k: 2 * chunks * v for k, v in hdf2d_expect(args).items()}
     rec = dict(net="HDenseFormer_2D_32", case_format="npy", slices=JOURNEY_SLICES,
                train_cases=len(train), val_cases=len(val), epochs=epochs, train_s=train_s,
-               launches_per_train_step=per_step, volume=[SLICE_CH, *JOURNEY_VOLUME],
+               launches_train_captured=train_counts, volume=[SLICE_CH, *JOURNEY_VOLUME],
                seconds_per_volume=volumes, slices_per_s=[d / s for s in volumes],
                launches_predict=predict_counts, labels_equal_direct_argmax=direct_equal,
                eval_rows=rows, seconds=time.perf_counter() - t0)
     emit("journey_2d", **rec)
-    if per_step != hdf2d_expect(args, train=True):
-        fail(f"the 2-D trainer launched {per_step} a step, expected {hdf2d_expect(args, True)}")
     if predict_counts != want or not all(direct_equal):
         fail(f"predict_case_2d launched {predict_counts} (expected {want}); labels equal to "
              f"the direct argmax: {direct_equal}")
@@ -2602,8 +2741,52 @@ def npy_reader(path: str, key: str) -> np.ndarray:
     return np.load(f).astype(np.float32)
 
 
-class NpySemanticSeg(SemanticSeg):
+class StepLosses:
+    """A ``SemanticSeg`` mixin: keeps each train step's loss (a tensor on the
+    card, read after the run, so the loop waits for nothing more) in
+    ``step_losses``, and marks each train step and epoch for the profiler
+    (``chip_smoke_train_step`` / ``chip_smoke_train_epoch``)."""
+
+    def _run_epoch(self, state, loader, step_fn, epoch, generators, train, mesh=None):
+        if not train:
+            return super()._run_epoch(state, loader, step_fn, epoch, generators, train, mesh)
+        losses = self.__dict__.setdefault("step_losses", [])
+
+        def recorded(*step_args):
+            with torch.profiler.record_function("chip_smoke_train_step"):
+                state, metrics = step_fn(*step_args)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        with torch.profiler.record_function("chip_smoke_train_epoch"):
+            return super()._run_epoch(state, loader, recorded, epoch, generators, train, mesh)
+
+
+class NpySemanticSeg(StepLosses, SemanticSeg):
     reader = staticmethod(npy_reader)
+
+
+class HdfSemanticSeg(StepLosses, SemanticSeg):
+    pass
+
+
+MOVE = 2.0 ** -8  # the moved input: a relative N(0, 2^-8) factor, about one bf16 step
+
+
+def moved(seg_cls):
+    """``seg_cls`` reading every image (key ``ct``) moved by a factor 1 +
+    MOVE * N(0, 1) seeded by the case's path: the bars' spread, the
+    network's own sensitivity to one rounding of its input."""
+    base = seg_cls.reader
+
+    def reader(path: str, key: str) -> np.ndarray:
+        arr = base(path, key)
+        if key != "ct":
+            return arr
+        rng = np.random.default_rng(zlib.crc32(path.encode()))
+        return (arr * (1 + MOVE * rng.standard_normal(arr.shape))).astype(np.float32)
+
+    return type("Moved" + seg_cls.__name__, (seg_cls,), {"reader": staticmethod(reader)})
 
 
 def write_cases(root: str, names, size: int, seed: int, case_format: str) -> list:
@@ -2633,7 +2816,7 @@ class TrainerRun:
 
     def __init__(self, args, case_format: str, device: str = "cuda"):
         self.args, self.case_format, self.device = args, case_format, device
-        self.seg_cls = SemanticSeg if case_format == "hdf5" else NpySemanticSeg
+        self.seg_cls = HdfSemanticSeg if case_format == "hdf5" else NpySemanticSeg
 
     def config(self, net: str, epochs: int, version: str = "smoke-"):
         return get_config("Hecktor21", net_name=net, data_path="cases", test_path="test",
@@ -2652,15 +2835,32 @@ class TrainerRun:
         return get_cross_validation_by_sample(paths, cfg.fold_num, cfg.current_fold,
                                               shuffle_seed=cfg.seed)
 
-    def train(self, cfg, paths) -> None:
-        if self.case_format == "hdf5":
-            cli.main(["-m", "train", "--data-path", cfg.data_path, "--fold", "1", "--epochs",
-                      str(cfg.n_epoch)] + self.cli_args(cfg))
-            return
-        seg = self.seg_cls(**cfg.init_trainer_kwargs(), device=self.device)
+    def train(self, cfg, paths, move: bool = False, **knobs):
+        """Train ``cfg``'s fold 1 (the CLI's calls); ``knobs`` go to
+        ``SemanticSeg`` (``capture``, ``device_augment``), ``move`` reads
+        moved images. Where cases are ``.hdf5`` and no knob is given the
+        CLI runs it, its trainer made as ``HdfSemanticSeg`` so that the step
+        losses are kept as on the other route. Returns the trainer."""
+        if self.case_format == "hdf5" and not knobs and not move:
+            made = []
+
+            class Kept(HdfSemanticSeg):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    made.append(self)
+
+            with unittest.mock.patch.object(train_loop, "SemanticSeg", Kept):
+                cli.main(["-m", "train", "--data-path", cfg.data_path, "--fold", "1",
+                          "--epochs", str(cfg.n_epoch)] + self.cli_args(cfg))
+            if len(made) != 1:
+                fail(f"the CLI made {len(made)} trainers for one fold")
+            return made[0]
+        seg_cls = moved(self.seg_cls) if move else self.seg_cls
+        seg = seg_cls(**cfg.init_trainer_kwargs(), device=self.device, **knobs)
         cli._report_params_flops(seg, cfg)
         train, val = self.split(cfg, paths)
         seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
+        return seg
 
     def resume(self, cfg, paths, ckpt: str, epochs: int, profile_dir=None):
         """The resumed run, traced by ``profiler_trace(profile_dir)`` as the
@@ -2711,8 +2911,10 @@ def epoch_records(cfg) -> list:
                         val_loss=v["data/loss/val"], train_dice=v["data/dice/train"],
                         val_dice=v["data/dice/val"], lr=v["data/lr"],
                         wall_s=tr_s + v["time/val/seconds"], train_steps=int(steps),
-                        step_s=tr_s / steps, loader_wait_share=v["time/train/loader_wait_seconds"]
-                        / tr_s))
+                        val_steps=int(v["time/val/steps"]), step_s=tr_s / steps,
+                        loader_wait_share=v["time/train/loader_wait_seconds"] / tr_s,
+                        train_graphs=int(v["time/train/graphs_captured"]),
+                        val_graphs=int(v["time/val/graphs_captured"])))
     return out
 
 
@@ -2729,6 +2931,97 @@ def per_train_step(counts: dict, n_train: int, n_forward: int, forward: dict) ->
     return out
 
 
+def captured_launches(tag: str, counts: dict, epochs: list, train_step: dict, forward: dict,
+                      extra_forwards: int = 0) -> dict:
+    """Check a captured trainer run's launches: each train graph's warm-up
+    and capture run one train step through the wrappers, each eval graph's
+    one forward each, ``extra_forwards`` eager forwards besides (the
+    startup report's); the replays launch nothing through them (their
+    kernels run inside the graphs). Returns the count by graph and replay."""
+    train_graphs = sum(r["train_graphs"] for r in epochs)
+    eval_graphs = sum(r["val_graphs"] for r in epochs)
+    want = {k: 2 * train_graphs * train_step[k] + (2 * eval_graphs + extra_forwards) * forward[k]
+            for k in counts}
+    if counts != want:
+        fail(f"{tag}: the captured run launched {counts}, expected {want} ({train_graphs} train "
+             f"and {eval_graphs} eval graphs, {extra_forwards} eager forwards)")
+    if not train_graphs or not eval_graphs:
+        fail(f"{tag}: the run captured {train_graphs} train and {eval_graphs} eval graphs")
+    return dict(train_graphs=train_graphs, eval_graphs=eval_graphs,
+                launches_at_capture_per_train_graph=train_step,
+                train_replays=sum(r["train_steps"] for r in epochs),
+                eval_replays=sum(r["val_steps"] for r in epochs))
+
+
+def loss_bars(tag: str, runs: dict) -> dict:
+    """The captured run's step losses against the eager run's, with the graph
+    phase's bars: the first within 1e-3 relative (phase 4's bf16 bar), each later
+    one within that or 3x the largest spread of the run on moved inputs
+    against the eager run (Adam turns rounding into whole-lr moves, so two
+    correct runs drift apart step by step)."""
+    losses = {mode: getattr(r["seg"], "step_losses", None) for mode, r in runs.items()}
+    if not all(losses.values()):
+        fail(f"{tag}: a run kept no step losses: {sorted(m for m, v in losses.items() if not v)}")
+    cap, eager, mov = (torch.stack(losses[m]).tolist() for m in ("captured", "eager", "moved"))
+    if not (len(cap) == len(eager) == len(mov)) or not np.isfinite(cap + eager + mov).all():
+        fail(f"{tag}: step losses captured {cap}, eager {eager}, moved {mov}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(cap, eager)]
+    spread = [abs(a - b) / abs(b) for a, b in zip(mov, eager)]
+    bars = [1e-3] + [max(1e-3, 3 * max(spread))] * (len(rel) - 1)
+    if any(r > b for r, b in zip(rel, bars)):
+        fail(f"{tag}: captured against eager step losses {rel}, bars {bars}")
+    return dict(captured_losses=cap, eager_losses=eager, moved_input_losses=mov, loss_rel=rel,
+                moved_input_loss_rel=spread, loss_bars=bars)
+
+
+def captured_and_eager(tag: str, train_fn, forward: dict, train_step: dict,
+                       extra_forwards: int = 0) -> dict:
+    """A journey's training run as the trainer runs it (captured: the main
+    run), then in turns the same fold eagerly (``capture=False``) and
+    eagerly on moved inputs (the bars' spread), each in its own directories.
+    ``train_fn(mode, **knobs) -> (trainer or None, cfg)``. Each run's
+    launches are checked (captured: at capture; eager: ``train_step`` a
+    step and ``forward`` an eval step); the step losses are held to
+    ``loss_bars``; steady step, loader-wait share, graphs and peak memory
+    are printed side by side. Returns the runs."""
+    runs = {}
+    for mode, knobs in (("captured", {}), ("eager", dict(capture=False)),
+                        ("moved", dict(capture=False, move=True))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        seg, cfg = train_fn(mode, **knobs)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        epochs = epoch_records(cfg)
+        runs[mode] = dict(seg=seg, cfg=cfg, counts=counts, epochs=epochs, wall_s=wall,
+                          peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                          peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    cap = captured_launches(tag, runs["captured"]["counts"], runs["captured"]["epochs"],
+                            train_step, forward, extra_forwards)
+    for mode in ("eager", "moved"):
+        ep = runs[mode]["epochs"]
+        step = per_train_step(runs[mode]["counts"], sum(r["train_steps"] for r in ep),
+                              sum(r["val_steps"] for r in ep) + extra_forwards, forward)
+        if step != train_step or any(r["train_graphs"] or r["val_graphs"] for r in ep):
+            fail(f"{tag}: the {mode} run launched {step} a step (expected {train_step}), "
+                 f"graphs {[(r['train_graphs'], r['val_graphs']) for r in ep]}")
+    bars = loss_bars(tag, runs)
+    side = {mode: dict(wall_s=r["wall_s"], step_s=[e["step_s"] for e in r["epochs"]],
+                       loader_wait_share=[e["loader_wait_share"] for e in r["epochs"]],
+                       graphs=[(e["train_graphs"], e["val_graphs"]) for e in r["epochs"]],
+                       peak_allocated_bytes=r["peak_allocated_bytes"],
+                       peak_reserved_bytes=r["peak_reserved_bytes"],
+                       train_losses=[e["train_loss"] for e in r["epochs"]],
+                       val_losses=[e["val_loss"] for e in r["epochs"]])
+            for mode, r in runs.items()}
+    emit("captured_vs_eager", journey=tag, launches_captured=runs["captured"]["counts"],
+         capture=cap, runs=side, **bars)
+    return runs
+
+
 # the port's kernels by the names the profiler gives them
 TRACE_KERNELS = {"dense_attention": "dense_attention_kernel",
                  "instance_norm_relu": "normalize_kernel",
@@ -2736,10 +3029,10 @@ TRACE_KERNELS = {"dense_attention": "dense_attention_kernel",
 
 
 def profile_check(trace: str, epochs: list, resume_s: float) -> None:
-    """Phase 5's resumed epoch ran under ``profiler_trace``: the trace file
+    """Phase 5's resumed epochs ran under ``profiler_trace``: the trace file
     exists and names the attention, InstanceNorm forward and backward
     kernels, each also in its shifted instantiation (``kShifted`` true), and
-    the epoch's step time beside the unprofiled epochs'."""
+    the epochs' step time beside the unprofiled epochs'."""
     if not trace or not os.path.exists(trace):
         fail(f"the profiled resume wrote no trace ({trace})")
     with open(trace) as f:
@@ -2752,8 +3045,8 @@ def profile_check(trace: str, epochs: list, resume_s: float) -> None:
                               ("instance_norm_relu_shifted_backward", "bwd_persistent_kernel"))}
     emit("profile", trace=os.path.basename(trace), trace_mb=os.path.getsize(trace) / 1e6,
          kernels_named=named, shifted_named=shifted, kernel_names=kernels[:12],
-         profiled_epoch_step_s=epochs[-1]["step_s"],
-         unprofiled_epoch_step_s=[r["step_s"] for r in epochs[:-1]],
+         profiled_epoch_step_s=[r["step_s"] for r in epochs[-RESUME_EPOCHS:]],
+         unprofiled_epoch_step_s=[r["step_s"] for r in epochs[:-RESUME_EPOCHS]],
          profiled_resume_wall_s=resume_s)
     if not all(named.values()) or not all(shifted.values()):
         fail(f"the trace lacks a kernel of the port: {named}, shifted {shifted}, {kernels}")
@@ -2778,38 +3071,99 @@ def phase_trainer(args, work: str, case_format: str, device: str = "cuda") -> di
         os.chdir(cwd)
 
 
+def trace_idle(trace: str) -> dict:
+    """The card's idle share over the replayed train steps of a profiled
+    captured run, from its trace. A step's window runs from the start of
+    its host span to the end of the last device event (kernel, copy, set)
+    that a runtime call inside the span queued (the trace's correlation
+    ids): the batch copied into the graph's buffers, the replay, the cloned
+    outputs; the loader's wait and copies before the next step stay out.
+    The run's first step (the warm-up and the capture) is left out. Idle is
+    1 - the device's busy time over the union of the windows; beside it the
+    idle share of the whole train epochs, capture and loader waits
+    included."""
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("name") == name and e.get("cat") == "user_annotation")
+
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    queued = {}  # correlation id -> end of the last device event it queued
+    for e in dev:
+        c = e.get("args", {}).get("correlation")
+        queued[c] = max(queued.get(c, 0), e["ts"] + e["dur"])
+    calls = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {}))
+
+    def busy(windows):
+        """The device's busy time inside the union of ``windows`` and that union's length."""
+        merged = []
+        for a, b in sorted(windows):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        total, covered = sum(b - a for a, b in merged), 0.0
+        for a, b in merged:
+            end = a
+            for lo, hi in device:
+                lo, hi = max(lo, end), min(hi, b)
+                if hi > lo:
+                    covered, end = covered + hi - lo, hi
+        return covered, total
+
+    steps, epochs = spans("chip_smoke_train_step"), spans("chip_smoke_train_epoch")
+    windows = []
+    for a, b in steps[1:]:  # the first step captures
+        ends = [queued[c] for t, c in calls if a <= t <= b and c in queued]
+        if ends:
+            windows.append((a, max(ends)))
+    if len(windows) != len(steps) - 1 or len(windows) < 2 or not device:
+        fail(f"the profiled run's trace holds {len(steps)} train steps in {len(epochs)} train "
+             f"epochs, {len(windows)} replay windows with device work and {len(device)} "
+             f"device events")
+    replay_busy, replay_total = busy(windows)
+    epoch_busy, epoch_total = busy(epochs)
+    return dict(idle_share_replayed_steps=1 - replay_busy / replay_total,
+                idle_share_train_epochs=1 - epoch_busy / epoch_total,
+                replayed_steps=len(windows), replay_windows_ms=replay_total / 1e3,
+                replay_busy_ms=replay_busy / 1e3, train_epochs=len(epochs),
+                train_steps=len(steps))
+
+
 def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     on_card = run.device == "cuda"
     forward = hdf_expect(args)
     train_expect = hdf_expect(args, train=True, remat=True)  # the forward kernels run twice
     cfg = run.config("HDenseFormer_32", TRAIN_EPOCHS)
-    train, val = run.split(cfg, paths)
-    n_train, n_val = -(-len(train) // cfg.batch_size), -(-len(val) // cfg.batch_size)
-    if on_card:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    run.train(cfg, paths)
-    train_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    def train_fn(mode, **knobs):
+        c = cfg if mode == "captured" else run.config("HDenseFormer_32", TRAIN_EPOCHS,
+                                                      version=f"smoke-{mode}-")
+        return run.train(c, paths, **knobs), c
+
     # the startup report's forward, then an eval forward an epoch
-    step = per_train_step(counts, TRAIN_EPOCHS * n_train, TRAIN_EPOCHS * n_val + 1,
-                          forward) if on_card else None
+    runs = captured_and_eager("trainer", train_fn, forward, train_expect, extra_forwards=1)
+    counts, peak = runs["captured"]["counts"], runs["captured"]["peak_allocated_bytes"]
+    train_s = runs["captured"]["wall_s"]
     ckpt_dir = os.path.join(cfg.output_dir, "fold1")
     best = get_weight_path(ckpt_dir)
     best_epoch = int(os.path.basename(best).split("-")[0].split("=")[1])
 
     reset_counts()
     t_resume = time.perf_counter()
-    seg, trace = run.resume(cfg, paths, best, best_epoch + 2,  # one epoch after the best
+    seg, trace = run.resume(cfg, paths, best, best_epoch + 1 + RESUME_EPOCHS,
                             profile_dir=os.path.join("trace", cfg.version))
     resume_s = time.perf_counter() - t_resume
     resume_counts = read_counts()
-    resume_step = per_train_step(resume_counts, n_train, n_val, forward) if on_card else None
     kept = sorted(os.listdir(ckpt_dir))
     epochs = epoch_records(cfg)
+    resume_capture = captured_launches("trainer resume", resume_counts, epochs[-RESUME_EPOCHS:],
+                                       train_expect, forward)
     for rec in epochs:
         emit("trainer_epoch", net=cfg.net_name, **rec)
     steady = [r["step_s"] for r in epochs[1:]]
@@ -2819,20 +3173,24 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
          lr_scheduler=cfg.lr_scheduler, loss=cfg.loss_fun, train_wall_s=train_s,
          steady_step_s=statistics.mean(steady) if steady else None,
          loader_wait_share=[r["loader_wait_share"] for r in epochs],
-         peak_memory_bytes=peak, launches=counts, launches_per_train_step=step,
-         resume_launches_per_train_step=resume_step, best_checkpoint_epoch=best_epoch,
+         graphs_captured=[(r["train_graphs"], r["val_graphs"]) for r in epochs],
+         peak_memory_bytes=peak, eager_peak_memory_bytes=runs["eager"]["peak_allocated_bytes"],
+         launches=counts, launches_per_train_step_at_capture=train_expect,
+         resume_capture=resume_capture, best_checkpoint_epoch=best_epoch,
          start_epoch_after_resume=seg.start_epoch, checkpoints_kept=len(kept))
-    if on_card and (step != train_expect or resume_step != train_expect):
-        fail(f"trainer step launched {step} (resumed {resume_step}), expected {train_expect}")
     if on_card:
         profile_check(trace, epochs, resume_s)
-    if len(kept) > 3 or seg.start_epoch != best_epoch + 1 or len(epochs) != TRAIN_EPOCHS + 1:
+        emit("trainer_idle", net=cfg.net_name, profiled="the resumed epochs, captured",
+             **trace_idle(trace))
+    if (len(kept) > 3 or seg.start_epoch != best_epoch + 1
+            or len(epochs) != TRAIN_EPOCHS + RESUME_EPOCHS):
         fail(f"checkpoints {kept}, start_epoch {seg.start_epoch}, epochs {epochs}")
     if not all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in epochs):
         fail(f"trainer losses are not finite: {epochs}")
 
     save = os.path.join("seg", cfg.version)
     newest = get_weight_path(ckpt_dir)
+    emit("trainer_cpu_resume", checkpoint=os.path.basename(newest), **cpu_resume(run, cfg, newest))
     reset_counts()
     t0 = time.perf_counter()
     run.infer(cfg, tests, newest, save)
@@ -2848,72 +3206,93 @@ def drive_trainer(args, run: TrainerRun, paths: list, tests: list) -> dict:
     if any(lab.shape != (args.volume,) * 3 or lab.min() < 0 or lab.max() >= N_CLS
            for lab in labels) or len(rows) != len(tests):
         fail(f"inference labels {[lab.shape for lab in labels]}, eval rows {rows}")
-    if on_card and infer_counts != {k: v * len(tests) for k, v in forward.items()}:
-        fail(f"inference launched {infer_counts}, expected {len(tests)} x {forward}")
+    # one window batch a volume, one shape: the first volume's warm-up and
+    # capture launch through the wrappers, every batch after replays
+    if on_card and infer_counts != {k: 2 * v for k, v in forward.items()}:
+        fail(f"inference launched {infer_counts}, expected a warm-up and a capture of {forward}")
 
     # Hecktor20Top1, one epoch: the preset's remat (on), level 1 packed
-    hcfg = run.config("hecktor20top1", 1)
-    reset_counts()
-    run.train(hcfg, paths)
-    hcounts = read_counts()
-    hstep = per_train_step(hcounts, n_train, n_val + 1, HECKTOR_EXPECT) if on_card else None
-    hepoch = epoch_records(hcfg)
-    for rec in hepoch:
+    def hecktor_fn(mode, **knobs):
+        c = run.config("hecktor20top1", 1, version="smoke-" if mode == "captured"
+                       else f"smoke-{mode}-")
+        return run.train(c, paths, **knobs), c
+
+    hruns = captured_and_eager("trainer-hecktor20top1", hecktor_fn, HECKTOR_EXPECT,
+                               HECKTOR_TRAIN_EXPECT, extra_forwards=1)
+    hcfg, hcounts = hruns["captured"]["cfg"], hruns["captured"]["counts"]
+    for rec in hruns["captured"]["epochs"]:
         emit("trainer_epoch", net=hcfg.net_name, **rec)
-    emit("trainer_hecktor", launches=hcounts, launches_per_train_step=hstep,
+    emit("trainer_hecktor", launches=hcounts, launches_per_train_step=HECKTOR_TRAIN_EXPECT,
          loss=hcfg.loss_fun, deep_supervision=hcfg.use_ds, remat=hcfg.remat)
-    if on_card and hstep != HECKTOR_TRAIN_EXPECT:
-        fail(f"Hecktor20Top1's train step launched {hstep}, expected {HECKTOR_TRAIN_EXPECT}")
-    # phase 5's first run alone (not the resumed epoch), as 5b runs it
+    # phase 5's first run alone (not the resumed epochs), as 5b runs it
     first_run = epochs[:TRAIN_EPOCHS]
     host = dict(steady_step_s=statistics.mean(r["step_s"] for r in first_run[1:]),
                 loader_wait_share=[r["loader_wait_share"] for r in first_run],
-                peak_memory_bytes=peak, launches_per_train_step=step, train_wall_s=train_s)
+                peak_memory_bytes=peak, launches_per_train_step=train_expect,
+                train_wall_s=train_s)
     return ({"trainer": {k: counts[k] + resume_counts[k] + infer_counts[k] for k in counts},
              "trainer-hecktor20top1": hcounts}, host)
+
+
+def cpu_resume(run: TrainerRun, cfg, ckpt: str) -> dict:
+    """A captured run's checkpoint resumed on the CPU, as ``--device cpu``
+    resumes it: the weights and the optimizer's state load into a CPU
+    trainer's plain Adam (no capturable flag, host rates and counters,
+    ``plain_state_dict``), which then takes a step (zero gradients: the
+    moments and the coupled decay still move every weight)."""
+    seg = run.seg_cls(**cfg.init_trainer_kwargs(), device="cpu")
+    state = seg.load_pretrained(seg.build_state(), ckpt, ckpt_point=True)
+    opt = state.optimizer
+    plain = (all(not g.get("capturable", False) and isinstance(g["lr"], float)
+                 for g in opt.param_groups)
+             and all(st["step"].device.type == "cpu" for st in opt.state.values()))
+    before = [p.detach().clone() for p in state.model.parameters()]
+    for p in state.model.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    moved = sum(not torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
+    rec = dict(start_epoch=seg.start_epoch, step=state.step, plain_optimizer_state=plain,
+               adam_states=len(opt.state), weights_moved_by_a_step=moved,
+               weights=len(before))
+    if not plain or len(opt.state) != len(before) or not moved or not state.step:
+        fail(f"the captured run's checkpoint does not resume on the CPU: {rec}")
+    return rec
 
 
 def drive_device_augment(args, run: TrainerRun, paths: list, host: dict) -> dict:
     """Phase 5b: phase 5's first run (HDenseFormer_32, 2 epochs of fold 1 at
     the Hecktor21 preset) with ``device_augment=True``, through
-    ``SemanticSeg`` (the CLI has no flag for it). Its steady step, loader
-    wait and peak beside phase 5's (``host``); launches per train step must
-    equal phase 5's (the augmentation launches no custom kernel). Returns
-    the run's launches."""
-    on_card = run.device == "cuda"
+    ``SemanticSeg`` (the CLI has no flag for it), captured and in turns
+    eager and on moved inputs. Its steady step, loader wait and peak beside
+    phase 5's (``host``); launches a train step equal phase 5's (the
+    augmentation launches no custom kernel). Returns the captured run's
+    launches."""
     forward = hdf_expect(args)
-    cfg = run.config("HDenseFormer_32", TRAIN_EPOCHS, version="smoke-augment-")
-    train, val = run.split(cfg, paths)
-    n_train, n_val = -(-len(train) // cfg.batch_size), -(-len(val) // cfg.batch_size)
-    if on_card:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    seg = run.seg_cls(**cfg.init_trainer_kwargs(), device_augment=True, device=run.device)
-    seg.trainer(train, val, 1, **cfg.setup_trainer_kwargs())
-    train_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() if on_card else None
-    step = per_train_step(counts, TRAIN_EPOCHS * n_train, TRAIN_EPOCHS * n_val,
-                          forward) if on_card else None
-    epochs = epoch_records(cfg)
+
+    def train_fn(mode, **knobs):
+        c = run.config("HDenseFormer_32", TRAIN_EPOCHS, version=f"smoke-augment-{mode}-")
+        return run.train(c, paths, device_augment=True, **knobs), c
+
+    runs = captured_and_eager("trainer-device-augment", train_fn, forward,
+                              host["launches_per_train_step"], extra_forwards=1)
+    cfg, epochs = runs["captured"]["cfg"], runs["captured"]["epochs"]
     for rec in epochs:
         emit("trainer_epoch", net=cfg.net_name, device_augment=True, **rec)
     steady = [r["step_s"] for r in epochs[1:]]
     emit("trainer_device_augment", net=cfg.net_name, cases=len(paths), case_size=args.case,
          patch=args.patch, batch=cfg.batch_size, depth=args.depth, remat=cfg.remat,
-         train_wall_s=train_s, steady_step_s=statistics.mean(steady) if steady else None,
-         loader_wait_share=[r["loader_wait_share"] for r in epochs], peak_memory_bytes=peak,
-         launches=counts, launches_per_train_step=step,
-         train_losses=[r["train_loss"] for r in epochs], host_augmentation=host)
-    if on_card and step != host["launches_per_train_step"]:
-        fail(f"device_augment train step launched {step}, host augmentation "
-             f"{host['launches_per_train_step']}")
+         train_wall_s=runs["captured"]["wall_s"],
+         steady_step_s=statistics.mean(steady) if steady else None,
+         loader_wait_share=[r["loader_wait_share"] for r in epochs],
+         graphs_captured=[(r["train_graphs"], r["val_graphs"]) for r in epochs],
+         peak_memory_bytes=runs["captured"]["peak_allocated_bytes"],
+         eager_peak_memory_bytes=runs["eager"]["peak_allocated_bytes"],
+         launches=runs["captured"]["counts"], train_losses=[r["train_loss"] for r in epochs],
+         host_augmentation=host)
     if len(epochs) != TRAIN_EPOCHS or not all(
             np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in epochs):
         fail(f"device_augment trainer epochs {epochs}")
-    return counts
+    return runs["captured"]["counts"]
 
 
 def remat_memory(args, net_name: str = "HDenseFormer_32") -> dict:

@@ -7,11 +7,16 @@ HDenseFormer_32 (2 modalities, 144^3, depth 24, batch 1, bf16 compute with
 fp32 parameters, no rematerialisation) takes full train steps: the forward
 with dropout, the deep-supervision FocalLoss, the backward, and Adam (lr
 1e-3, coupled L2 1e-4), on a zero image whose label is background
-everywhere. One warm step, then ``REPS`` chained windows of ``STEPS``
-steps, each ended by reading the loss (a sync); the best window counts.
+everywhere. The step is the one the trainer runs: on the card captured as
+a CUDA graph and replayed (``train.loop.CapturedTrainStep``; its first
+call warms up and captures). One warm step, then ``REPS`` chained windows
+of ``STEPS`` steps, each ended by reading the loss (a sync); the best
+window counts. The eager step is then timed by the same protocol on the
+same state, for the record.
 
 stderr: ``{"first_call_s"}``, then ``{"rep_window_s", "ms_per_step_best",
-"contention_spread"}``. stdout: one line ``{"metric":
+"contention_spread"}``, then the eager step's ``{"eager_first_call_s",
+"eager_rep_window_s", "eager_ms_per_step_best"}``. stdout: one line ``{"metric":
 "train_throughput_128eq_patches_per_sec", "value", "unit", "vs_baseline"}``,
 the 128^3-equivalent patches a second (a 144^3 patch counts (144/128)^3),
 and its ratio to ``baselines/cpu_torch.json`` (the reference PyTorch
@@ -35,7 +40,7 @@ import torch
 from hdenseformer_tpu_torch.losses import get_loss
 from hdenseformer_tpu_torch.models import get_net
 from hdenseformer_tpu_torch.models.layers import init_weights
-from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+from hdenseformer_tpu_torch.train.loop import CapturedTrainStep, TrainState
 from hdenseformer_tpu_torch.train.state import get_optimizer
 
 VOL = 144
@@ -53,14 +58,16 @@ BASELINE_FILE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__f
 
 def build(device=None, size: int = VOL, depth: int = DEPTH, seed: int = 0):
     """bench.py's train step: (state, step, batch, dropout generator).
-    ``device`` None is the GPU (raising without one)."""
+    ``device`` None is the GPU (raising without one). The step is the
+    trainer's ``CapturedTrainStep`` (the eager step on the CPU); its
+    ``.eager`` is the eager step."""
     net = get_net("HDenseFormer_32", CHANNELS, 2, (size,) * 3, transformer_depth=depth,
                   dtype=torch.bfloat16, remat=REMAT, device=device)
     init_weights(net, torch.Generator().manual_seed(seed))
     device = next(net.parameters()).device
     state = TrainState(net, get_optimizer("Adam", LR, weight_decay=WEIGHT_DECAY,
                                           params=net.parameters()))
-    step = make_train_step(get_loss("FocalLoss", use_ds=True), 2)
+    step = CapturedTrainStep(get_loss("FocalLoss", use_ds=True), 2)
     image = torch.zeros((BATCH,) + (size,) * 3 + (CHANNELS,), device=device)
     label = torch.zeros((BATCH,) + (size,) * 3 + (2,), device=device)
     label[..., 0] = 1.0
@@ -127,6 +134,11 @@ def main(argv=None) -> int:
     timed = time_steps(state, step, batch, generator, args.steps, args.reps)
     print(json.dumps({"first_call_s": round(timed["first_call_s"], 1)}), file=sys.stderr)
     print(json.dumps(window_line(timed)), file=sys.stderr)
+    eager = time_steps(state, step.eager, batch, generator, args.steps, args.reps)
+    print(json.dumps({"eager_first_call_s": round(eager["first_call_s"], 1),
+                      "eager_rep_window_s": [round(t, 3) for t in eager["rep_window_s"]],
+                      "eager_ms_per_step_best": round(1000.0 * eager["best_window_s"]
+                                                      / eager["steps"], 1)}), file=sys.stderr)
     print(json.dumps(result_line(timed["best_window_s"], args.steps, args.size)))
     return 0
 

@@ -14,8 +14,13 @@ Counterpart of ``hdenseformer_tpu/infer/sliding.py``:
   argmax;
 - the argmax is taken on the device and shipped to the host as uint8.
 
-Where JAX scans the windows inside one executable, the port runs them as a
-Python loop of eager calls. With a data-parallel ``mesh``
+JAX scans the windows inside one executable. On a card the port captures
+the model's forward and the fp32 softmax of one window batch as a CUDA
+graph per (model, window-batch shape) on a static input buffer
+(``utils.graphs``), kept with the model, and every batch of every volume
+replays it; the slicing of the windows and the accumulation stay Python
+around it (eight slices and eight adds a batch of 8). ``capture=False``, the
+CPU and a ``mesh`` run the eager forward. With a data-parallel ``mesh``
 (``parallel/mesh.py``: one process a card) the origin list is padded to
 ``n_batches * world * window_batch`` and each rank runs its contiguous
 share; the ranks' fp32 accumulators are summed by ``all_reduce`` and every
@@ -24,7 +29,9 @@ rank takes the same argmax, as JAX's ``psum`` over its shard-mapped windows.
 from __future__ import annotations
 
 import glob
+import itertools
 import os
+import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -33,6 +40,12 @@ import torch.distributed as dist
 
 from hdenseformer_tpu_torch.data.io import hdf5_reader, write_nifti
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
+from hdenseformer_tpu_torch.utils.graphs import CapturedCall, GraphCache, batch_key
+
+# each model's captured window forwards; a graph holds no reference to its
+# model, so both go when the model does
+_WINDOW_GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = (
+    weakref.WeakKeyDictionary())
 
 
 def cal_steps(
@@ -91,6 +104,32 @@ def _lattice_pad_targets(
     return tgt
 
 
+def _window_probs(model: torch.nn.Module, windows: torch.Tensor) -> torch.Tensor:
+    """The fp32 softmax of head 0's logits of a window batch."""
+    outs = model(windows)
+    logits = outs[0] if isinstance(outs, (list, tuple)) else outs
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def _captured_probs(model: torch.nn.Module, windows: torch.Tensor) -> torch.Tensor:
+    """``_window_probs`` replayed from the model's graph of this window-batch
+    shape (captured at its first call). A graph reads the parameters and
+    buffers at the addresses they had at its capture: where they were
+    rebound since (``.to(dtype)``, ``load_state_dict(assign=True)``), the
+    model's graphs are dropped and captured anew."""
+    tensors = tuple((t.data_ptr(), t.dtype)
+                    for t in itertools.chain(model.parameters(), model.buffers()))
+    graphs = _WINDOW_GRAPHS.get(model)
+    if graphs is None or any(key[2] != tensors for key in graphs.calls):
+        graphs = _WINDOW_GRAPHS[model] = GraphCache()
+    batch = {"windows": windows}
+    ref = weakref.ref(model)  # the body runs at warm-up and capture only
+    key = ("windows", model.training, tensors) + batch_key(batch)
+    call = graphs.get(key, lambda pool: CapturedCall(
+        lambda static: {"probs": _window_probs(ref(), static["windows"])}, batch, pool=pool))
+    return call.replay(batch)["probs"]
+
+
 @torch.inference_mode()
 def accumulate_windows(
     model: torch.nn.Module,
@@ -101,27 +140,28 @@ def accumulate_windows(
     num_classes: int,
     importance: Optional[torch.Tensor] = None,
     window_batch: int = 1,
+    capture: bool = True,
 ) -> torch.Tensor:
     """Weighted per-window probability accumulator, (D, H, W, num_classes) fp32.
 
     ``image`` is the (D, H, W, C) volume on the device; ``origins`` (Nw, 3)
     and ``weights`` (Nw,) are host arrays with Nw a multiple of
     ``window_batch``. A zero-weight window runs through the model with its
-    batch and adds nothing.
+    batch and adds nothing. On a card with ``capture`` each window batch is
+    one replay of the model's captured forward.
     """
     if len(origins) % window_batch:
         raise ValueError(f"{len(origins)} origins are not a multiple of {window_batch}")
     acc = torch.zeros(tuple(image.shape[:-1]) + (num_classes,), dtype=torch.float32,
                       device=image.device)
     imp = None if importance is None else importance[..., None]
+    forward = _captured_probs if capture and image.device.type == "cuda" else _window_probs
     for start in range(0, len(origins), window_batch):
         boxes = [
             tuple(slice(int(o), int(o) + p) for o, p in zip(origin, patch_size))
             for origin in origins[start:start + window_batch]
         ]
-        outs = model(torch.stack([image[box] for box in boxes]))
-        logits = outs[0] if isinstance(outs, (list, tuple)) else outs
-        probs = torch.softmax(logits.float(), dim=-1)
+        probs = forward(model, torch.stack([image[box] for box in boxes]))
         for i, (box, w) in enumerate(zip(boxes, weights[start:start + window_batch])):
             if w == 0:
                 continue
@@ -142,6 +182,7 @@ def predict_volume(
     window_batch: int = 1,
     pad_to_lattice: bool = True,
     mesh=None,
+    capture: bool = True,
 ) -> np.ndarray:
     """Sliding-window class probabilities -> argmax labels (D, H, W), int32.
 
@@ -153,7 +194,9 @@ def predict_volume(
     computed on the original size, so windows never read the pad and the
     labels are those of the unpadded run. With ``mesh`` (every rank calls
     with the same volume) each rank runs its share of the windows and all
-    return the labels of the whole volume.
+    return the labels of the whole volume. ``capture`` (on a card, without
+    ``mesh``) replays the model's captured window forward
+    (``accumulate_windows``).
     """
     device = next(model.parameters()).device
     patch_size = tuple(patch_size)
@@ -185,7 +228,7 @@ def predict_volume(
         origins, weights = origins[share], weights[share]
 
     acc = accumulate_windows(model, volume, origins, weights, patch_size, num_classes,
-                             importance, wb)
+                             importance, wb, capture=capture and mesh is None)
     if n_dev > 1:
         with torch.inference_mode():  # acc is an inference tensor
             dist.all_reduce(acc)
@@ -207,6 +250,7 @@ def inference_slidingwindow(
     window_batch: int = 8,
     save_nii: bool = False,
     reader: Callable[[str, str], np.ndarray] = hdf5_reader,
+    capture: bool = True,
 ) -> list:
     """Sliding-window inference over every ``*.hdf5`` case of the directory
     ``test_path`` (or over a list of case paths).
@@ -219,7 +263,7 @@ def inference_slidingwindow(
     key)`` reads a volume of a case (``SegDataset``'s convention). With a
     data-parallel ``mesh`` every rank runs its share of each case's windows
     (``predict_volume``) and only rank 0 writes; the paths are returned on
-    every rank.
+    every rank. ``capture`` is ``predict_volume``'s.
     """
     lead = mesh is None or mesh.rank == 0
     if lead:
@@ -238,7 +282,8 @@ def inference_slidingwindow(
             label = np.zeros(image.shape[1:], np.float32)
         image = norm({"image": image, "label": label})["image"]
         pred = predict_volume(model, image, patch_size, step_size, num_classes,
-                              use_gaussian=use_gaussian, window_batch=window_batch, mesh=mesh)
+                              use_gaussian=use_gaussian, window_batch=window_batch, mesh=mesh,
+                              capture=capture)
         case = os.path.basename(path).split(".")[0]
         out = os.path.join(save_path, case + ".npy")
         outputs.append(out)

@@ -21,7 +21,7 @@ takes every name of JAX's ``LOSS_REGISTRY``.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from math import prod
 from typing import Callable, Optional, Sequence
 
@@ -152,12 +152,13 @@ def dice_loss(
     loss_nc = 1.0 - (2.0 * inter + smooth) / (union + smooth)
     per_class = torch.stack([_per_sample_reduce(loss_nc[:, c], reduction, 50, sample_weight)
                              for c in range(num_classes)])
-    class_mask = torch.ones(num_classes, dtype=torch.float32, device=logits.device)
-    if ignore_index is not None:
-        class_mask[ignore_index] = 0.0
+    # a compare, not an indexed store (whose host scalar a CUDA graph cannot
+    # capture): 0 at the ignored class, 1 elsewhere
+    classes = torch.arange(num_classes, device=logits.device)
+    ignored = -1 if ignore_index is None else ignore_index % num_classes
+    class_mask = (classes != ignored).float()
     if weight is not None:
-        per_class = per_class * torch.as_tensor(weight, dtype=torch.float32,
-                                                device=logits.device)
+        per_class = per_class * _weights_on(weight, logits.device)
     denom = num_classes - 1 if ignore_index is not None else num_classes
     return (per_class * class_mask).sum() / denom
 
@@ -175,7 +176,7 @@ def topk_loss(
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     if weight is not None:
-        nll = nll * torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[labels]
+        nll = nll * _weights_on(weight, logits.device)[labels]
     flat = nll.reshape(-1)
     sample_weight = _mesh_weight(sample_weight, nll)
     if sample_weight is not None:
@@ -271,7 +272,7 @@ def cross_entropy_loss(
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     wsel = None
     if weight is not None:
-        wsel = torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[labels]
+        wsel = _weights_on(weight, logits.device)[labels]
     sample_weight = _mesh_weight(sample_weight, nll)
     if sample_weight is not None:
         sw = _per_sample(sample_weight, nll.dim())
@@ -280,6 +281,19 @@ def cross_entropy_loss(
     if wsel is not None:
         return (nll * wsel).sum() / wsel.sum()
     return nll.mean()
+
+
+@lru_cache(maxsize=None)
+def _class_weights(weight: tuple, device: torch.device) -> torch.Tensor:
+    """A class-weight vector on ``device``, made at its first use: a step
+    captured as a CUDA graph reads it (a copy from the host cannot be
+    captured)."""
+    with torch.inference_mode(False):
+        return torch.tensor(weight, dtype=torch.float32, device=device)
+
+
+def _weights_on(weight: Sequence[float], device: torch.device) -> torch.Tensor:
+    return _class_weights(tuple(float(w) for w in weight), device)
 
 
 def deep_supervision_loss(

@@ -36,10 +36,14 @@ Differences from the JAX module, none of which changes the function:
   replays only the global RNG states, never an explicit generator, so
   ``remat_call`` saves the generator's state before a block's forward,
   sets it back for the recompute (the same dropout masks) and afterwards
-  restores where the forward had left it.
+  restores where the forward had left it. Inside a captured CUDA graph
+  (``utils/graphs.py``) the recompute draws from a generator state
+  registered with the graph instead (``RematGraphRng``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence
 
 import torch
@@ -115,6 +119,74 @@ def packed_levels(s2d, n_filters: int, spatial: Sequence[int], levels: int = 3) 
     return tuple(out)
 
 
+class RematGraphRng:
+    """The dropout generator of ``remat_call`` in a step captured as a CUDA
+    graph.
+
+    While a stream captures, a generator's seed and offset are read on the
+    card at replay, so the eager way of replaying a block's masks cannot run:
+    ``get_state``, ``set_state`` and ``clone_state`` all raise under
+    capture. Instead the k-th checkpointed call of the step recomputes from
+    its own generator state, cloned from ``generator`` before the capture and
+    registered with the graph (``capturing``); ``remat_call`` swaps it in for
+    the recompute by ``graphsafe_set_state`` and swaps the generator's own
+    state back after. Before each replay ``sync`` seeds every such state as
+    ``generator`` is seeded and moves it to the offset the generator had at
+    that call's start: the offsets are those of an eager run of the same step
+    (``recording``, the warm-up), which draws the same sequence. The
+    recompute so draws the forward's masks, as the eager step's does.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        if generator.device.type != "cuda":
+            raise ValueError("a CUDA graph's dropout generator lives on the card")
+        self.generator = generator
+        self.offsets: list = []  # the generator's offset at each call's start, less the step's
+        self.states: list = []  # one registered generator a call
+        self.calls = 0
+        self.mode: Optional[str] = None
+        self._base = 0
+
+    @contextlib.contextmanager
+    def _active(self, mode: str):
+        self.mode, self.calls = mode, 0
+        token = _GRAPH_RNG.set(self)
+        try:
+            yield self
+        finally:
+            _GRAPH_RNG.reset(token)
+            self.mode = None
+
+    def recording(self):
+        """Context of the eager run whose checkpointed calls it records."""
+        self.offsets, self._base = [], self.generator.get_offset()
+        return self._active("record")
+
+    @contextlib.contextmanager
+    def capturing(self, graph: torch.cuda.CUDAGraph):
+        """Context of the capture into ``graph`` (entered before it begins):
+        one state a recorded call, registered with ``graph``."""
+        self.states = [self.generator.clone_state() for _ in self.offsets]
+        for state in self.states:
+            graph.register_generator_state(state)
+        with self._active("capture"):
+            yield self
+            if self.calls != len(self.offsets):
+                raise RuntimeError(f"the captured step made {self.calls} checkpointed calls "
+                                   f"with the generator, its eager run {len(self.offsets)}")
+
+    def sync(self) -> None:
+        """Before a replay: each call's state at the generator's seed and at
+        its offset plus that call's."""
+        seed, base = self.generator.initial_seed(), self.generator.get_offset()
+        for state, offset in zip(self.states, self.offsets):
+            state.manual_seed(seed)
+            state.set_offset(base + offset)
+
+
+_GRAPH_RNG: contextvars.ContextVar = contextvars.ContextVar("remat_graph_rng", default=None)
+
+
 def remat_call(fn, *args, generator: Optional[torch.Generator] = None):
     """``fn(*args[, generator])`` under ``torch.utils.checkpoint``: its
     activations are recomputed in the backward instead of stored.
@@ -125,23 +197,47 @@ def remat_call(fn, *args, generator: Optional[torch.Generator] = None):
     and a plain step leave it in the same state. (Getting and setting a
     generator's state waits for nothing on the card.) The global RNG states
     are not saved (``preserve_rng_state=False``): the model draws from none.
+    While the current stream captures a CUDA graph, the recompute draws from
+    the state that the step's ``RematGraphRng`` registered for this call, and
+    without one it raises.
     """
     if not torch.is_grad_enabled():
         return fn(*args) if generator is None else fn(*args, generator)
     if generator is None:
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    start, ran = generator.get_state(), []
+    rng = _GRAPH_RNG.get()
+    if rng is not None and rng.generator is not generator:
+        rng = None
+    capturing = generator.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if capturing:
+        if rng is None or rng.mode != "capture" or rng.calls >= len(rng.states):
+            raise RuntimeError("remat with a dropout generator under CUDA-graph capture needs "
+                               "the step's RematGraphRng, recorded by an eager run of the step")
+        replay_state = rng.states[rng.calls]
+        rng.calls += 1
+    else:
+        if rng is not None and rng.mode == "record":
+            rng.offsets.append(generator.get_offset() - rng._base)
+        start = generator.get_state()
+    ran = []
 
     def run(*inputs):
         if not ran:  # the forward
             ran.append(True)
             return fn(*inputs, generator)
-        resume = generator.get_state()
-        generator.set_state(start)
+        if capturing:
+            resume = generator.graphsafe_get_state()
+            generator.graphsafe_set_state(replay_state)
+        else:
+            resume = generator.get_state()
+            generator.set_state(start)
         try:
             return fn(*inputs, generator)
         finally:  # also when checkpoint stops the recompute early
-            generator.set_state(resume)
+            if capturing:
+                generator.graphsafe_set_state(resume)
+            else:
+                generator.set_state(resume)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 

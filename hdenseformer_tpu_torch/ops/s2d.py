@@ -457,9 +457,18 @@ def shifted_mask_factors(sshape: tuple, fc: int, c: int, dims: tuple = None) -> 
     return tuple(out)
 
 
-def _mask_factor(m: np.ndarray, i: int, nsp: int, device) -> torch.Tensor:
-    shape = (1,) * (1 + i) + (m.shape[0],) + (1,) * (nsp - 1 - i) + (m.shape[1],)
-    return torch.from_numpy(m).reshape(shape).to(device)
+@lru_cache(maxsize=None)
+def _mask_factors(sshape: tuple, fc: int, c: int, dims: tuple, device: torch.device) -> tuple:
+    """``shifted_mask_factors`` as broadcastable bool tensors on ``device``,
+    made at the first call: a step captured as a CUDA graph reads them (a
+    copy from the host cannot be captured)."""
+    nsp = len(sshape)
+    out = []
+    for i, m in shifted_mask_factors(sshape, fc, c, dims):
+        shape = (1,) * (1 + i) + (m.shape[0],) + (1,) * (nsp - 1 - i) + (m.shape[1],)
+        with torch.inference_mode(False):
+            out.append(torch.from_numpy(m).reshape(shape).to(device))
+    return tuple(out)
 
 
 def apply_shifted_mask(y: torch.Tensor, dims=None) -> torch.Tensor:
@@ -469,8 +478,8 @@ def apply_shifted_mask(y: torch.Tensor, dims=None) -> torch.Tensor:
     pd = _pdims(nsp, dims)
     fc = y.shape[-1]
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    for i, m in shifted_mask_factors(tuple(y.shape[1:-1]), fc, fc // 2 ** len(pd), pd):
-        y = torch.where(_mask_factor(m, i, nsp, y.device), y, zero)
+    for m in _mask_factors(tuple(y.shape[1:-1]), fc, fc // 2 ** len(pd), pd, y.device):
+        y = torch.where(m, y, zero)
     return y
 
 

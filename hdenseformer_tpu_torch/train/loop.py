@@ -65,8 +65,19 @@ process on the global batch, as JAX's sharded step does. Validation is
 global too, so EarlyStopping decides alike on every rank; only rank 0
 writes checkpoints and ``metrics.jsonl``.
 
-``make_multi_train_step`` is JAX's K steps in one dispatch: on a card, one
-step captured as a CUDA graph and replayed K times.
+JAX jits its train and eval steps: one call is one device program. On a
+card the trainer's steps are the port's counterpart, CUDA graphs
+(``CapturedTrainStep`` / ``CapturedEvalStep`` over ``utils/graphs.py``):
+each step of a (model, optimizer, batch shape) is captured once, remat
+included, train and eval graphs in one memory pool, and every batch is
+copied into the graph's buffers and replayed, the generators seeded per
+step as above; an epoch prints the graphs it captured (with
+``device_augment`` the raw cases' shapes set them). ``SemanticSeg(capture=
+False)`` runs the eager steps instead; on the CPU and under a mesh the
+steps are eager. Checkpoints hold the optimizer's state as a plain
+optimizer's (``train.state.plain_state_dict``), so a captured run resumes
+on the CPU. ``make_multi_train_step`` is JAX's K steps in one dispatch: on
+a card, the captured step replayed K times.
 """
 from __future__ import annotations
 
@@ -139,9 +150,11 @@ from hdenseformer_tpu_torch.train.state import (
     get_lr_scheduler,
     get_optimizer,
     make_capturable,
+    plain_state_dict,
     set_learning_rate,
 )
 from hdenseformer_tpu_torch.utils import count_params, set_process_title
+from hdenseformer_tpu_torch.utils.graphs import CapturedCall, GraphCache, batch_key
 
 
 @dataclass
@@ -225,6 +238,80 @@ def _step_body(criterion, num_classes: int, augment_fn, state: TrainState, batch
     return out
 
 
+class CapturedTrainStep:
+    """``make_train_step``'s step, on a card captured as a CUDA graph and
+    replayed: JAX's jitted step, one dispatch a step.
+
+    ``step(state, batch, generator[, augment_generator]) -> (state,
+    metrics)``, called as the eager step: the caller seeds the generators
+    before each call (the trainer from ``step_seed`` / ``augment_seed``).
+    The first call for a (model, optimizer, generators, batch names, shapes,
+    dtypes) makes the optimizer capturable (``train.state.make_capturable``:
+    its step counters and rate on the card, where ``set_learning_rate``
+    still reaches them), warms up and captures (``utils.graphs.CapturedCall``,
+    remat's recompute included); every call copies its batch into the
+    graph's buffers and replays. Graphs live in ``graphs``, a
+    ``utils.graphs.GraphCache`` that the eval step may share. On the CPU and
+    under a data-parallel mesh (the collectives run eagerly) it is the eager
+    step.
+    """
+
+    def __init__(self, criterion, num_classes: int, augment_fn=None,
+                 graphs: Optional[GraphCache] = None):
+        self.criterion, self.num_classes, self.augment_fn = criterion, num_classes, augment_fn
+        self.eager = make_train_step(criterion, num_classes, augment_fn)
+        self.graphs = GraphCache() if graphs is None else graphs
+
+    def __call__(self, state: TrainState, batch: Dict, generator: Optional[torch.Generator],
+                 augment_generator: Optional[torch.Generator] = None):
+        if batch["image"].device.type != "cuda" or active_mesh() is not None:
+            return self.eager(state, batch, generator, augment_generator)
+        out = self.prepare(state, batch, generator, augment_generator).replay(batch)
+        state.step += 1
+        return state, out
+
+    def prepare(self, state: TrainState, batch: Dict, generator,
+                augment_generator=None) -> CapturedCall:
+        """The captured call for this state, generators and batch shape,
+        made and warmed up at its first use (on the CPU the body runs
+        directly at each ``replay``)."""
+        key = ("train", id(state.model), id(state.optimizer), id(generator),
+               id(augment_generator)) + batch_key(batch)
+
+        def make(pool) -> CapturedCall:
+            device = batch["image"].device
+            if device.type == "cuda":
+                make_capturable(state.optimizer, device)
+
+            def body(static):
+                return _step_body(self.criterion, self.num_classes, self.augment_fn, state,
+                                  static, generator, augment_generator)
+
+            return CapturedCall(body, batch, (generator, augment_generator),
+                                restore=(state.model, state.optimizer), pool=pool)
+
+        return self.graphs.get(key, make)
+
+
+class CapturedEvalStep:
+    """``make_eval_step``'s step (eval-mode forward, loss, dice and
+    confusion matrix, no gradient), on a card captured as a CUDA graph per
+    (model, batch names, shapes, dtypes) and replayed; on the CPU and under
+    a mesh the eager step."""
+
+    def __init__(self, criterion, num_classes: int, graphs: Optional[GraphCache] = None):
+        self.eager = make_eval_step(criterion, num_classes)
+        self.graphs = GraphCache() if graphs is None else graphs
+
+    def __call__(self, state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        if batch["image"].device.type != "cuda" or active_mesh() is not None:
+            return self.eager(state, batch)
+        key = ("eval", id(state.model)) + batch_key(batch)
+        call = self.graphs.get(key, lambda pool: CapturedCall(
+            lambda static: self.eager(state, static), batch, pool=pool))
+        return call.replay(batch)
+
+
 class MultiTrainStep:
     """K chained train steps; made by ``make_multi_train_step``.
 
@@ -238,144 +325,42 @@ class MultiTrainStep:
     seeds every step and as JAX folds the step into its key: K chained steps
     equal K calls of ``make_train_step`` seeded so.
 
-    On the CPU it is that loop. On a card it runs one step as a CUDA graph
-    (``torch.cuda.CUDAGraph``) replayed K times, with no Python between the
-    launches of a step:
-
-    - the first call for a (model, optimizer, batch shape) warms up: one
-      eager step on a side stream builds the kernels and cuDNN's plans and
-      creates the optimizer's state, and everything it changed (parameters,
-      buffers, optimizer state) is then put back as it was, so the warm-up
-      is not a step of the run (``warmup`` runs it alone);
-    - the optimizer is made capturable (``train.state.make_capturable``):
-      its step counters and learning rate live on the card, where
-      ``set_learning_rate`` still reaches them between calls;
-    - one step is captured on static input buffers; each replay copies
-      batch i into them, seeds the generators (registered with the graph,
-      which reads their seed and offset from the card), and replays;
-    - the kernel wrappers run their Python at capture only, so their
-      launch counts grow by one step's launches, once, at capture.
-
-    A capture that the card refuses raises: there is no eager fallback.
-    Under a data-parallel mesh the step is not captured (the collectives
-    run eagerly): the loop of K steps runs instead.
+    On a card each step is one replay of ``CapturedTrainStep``'s graph, with
+    no Python between the launches of a step; on the CPU and under a
+    data-parallel mesh the eager step runs K times. The kernel wrappers run
+    their Python at the warm-up and the capture only, so their launch counts
+    grow by those steps' launches, once.
     """
 
     def __init__(self, criterion, num_classes: int, augment_fn=None):
-        self.criterion, self.num_classes, self.augment_fn = criterion, num_classes, augment_fn
-        self.single = make_train_step(criterion, num_classes, augment_fn)
-        self._graphs: Dict[tuple, "_CapturedStep"] = {}
+        self.augment_fn = augment_fn
+        self.step = CapturedTrainStep(criterion, num_classes, augment_fn)
+        self._generators: Dict[str, tuple] = {}
 
-    def _generators(self, device) -> tuple:
-        return (torch.Generator(device=device),
+    def generators(self, device) -> tuple:
+        """The (dropout, augmentation or None) generators of ``device``: one
+        pair for every call, as the graphs registered them."""
+        device = torch.device(device)
+        if str(device) not in self._generators:
+            self._generators[str(device)] = (
+                torch.Generator(device=device),
                 torch.Generator(device=device) if self.augment_fn is not None else None)
-
-    def _seed(self, generators, seed: int, step: int) -> None:
-        generators[0].manual_seed(step_seed(seed, step))
-        if generators[1] is not None:
-            generators[1].manual_seed(augment_seed(seed, step))
+        return self._generators[str(device)]
 
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor], seed: int):
-        k = batches["image"].shape[0]
-        device = next(state.model.parameters()).device
-        if device.type != "cuda" or active_mesh() is not None:
-            generators = self._generators(device)
-            stacked = []
-            for i in range(k):
-                self._seed(generators, seed, state.step)
-                state, out = self.single(state, {n: v[i] for n, v in batches.items()},
-                                         *generators)
-                stacked.append(out)
-            return state, {n: torch.stack([o[n] for o in stacked]) for n in stacked[0]}
-        captured = self._captured(state, batches)
+        generators = self.generators(next(state.model.parameters()).device)
         outs = []
-        for i in range(k):
-            outs.append(captured.replay({n: v[i] for n, v in batches.items()}, seed, state.step))
-            state.step += 1
+        for i in range(batches["image"].shape[0]):
+            seed_generators(generators, seed, state.step)
+            state, out = self.step(state, {n: v[i] for n, v in batches.items()}, *generators)
+            outs.append(out)
         return state, {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
 
     def warmup(self, state: TrainState, batches: Dict[str, torch.Tensor]) -> None:
         """The first call's warm-up alone (on a card): builds the kernels and
         the optimizer's state and leaves ``state`` as it was."""
-        self._captured(state, batches, capture=False)
-
-    def _captured(self, state, batches, capture: bool = True) -> "_CapturedStep":
-        key = (id(state.model), id(state.optimizer)) + tuple(
-            (n, tuple(v.shape[1:]), v.dtype) for n, v in sorted(batches.items()))
-        captured = self._graphs.get(key)
-        if captured is None:
-            captured = self._graphs[key] = _CapturedStep(self, state, batches)
-        if capture:
-            captured.capture()
-        return captured
-
-
-class _CapturedStep:
-    """One train step of ``owner`` on ``state`` as a CUDA graph."""
-
-    def __init__(self, owner: MultiTrainStep, state: TrainState, batches: Dict):
-        self.owner, self.state = owner, state
-        device = next(state.model.parameters()).device
-        self.generators = owner._generators(device)
-        self.static = {n: torch.empty_like(v[0]) for n, v in batches.items()}
-        for n, v in batches.items():
-            self.static[n].copy_(v[0])
-        make_capturable(state.optimizer, device)
-        self.graph, self.out = None, None
-        self._warmup()
-
-    def _body(self) -> Dict[str, torch.Tensor]:
-        o = self.owner
-        return _step_body(o.criterion, o.num_classes, o.augment_fn, self.state, self.static,
-                          *self.generators)
-
-    def _warmup(self) -> None:
-        """One eager step on a side stream, then everything it changed put
-        back: parameters, buffers and the optimizer's state (a state the step
-        created is zeroed: Adam's fresh moments and counter)."""
-        model, opt = self.state.model, self.state.optimizer
-        tensors = list(model.parameters()) + list(model.buffers())
-        saved = [t.detach().clone() for t in tensors]
-        before = {p: {n: v.clone() for n, v in st.items() if torch.is_tensor(v)}
-                  for p, st in opt.state.items()}
-        self.owner._seed(self.generators, 0, 0)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._body()
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.no_grad():
-            for t, v in zip(tensors, saved):
-                t.copy_(v)
-            for p, st in opt.state.items():
-                for n, v in st.items():
-                    if not torch.is_tensor(v):
-                        continue
-                    if p in before:
-                        v.copy_(before[p][n])
-                    else:  # created by the warm-up: Adam's moments and counter start at 0
-                        v.zero_()
-        opt.zero_grad(set_to_none=True)
-
-    def capture(self) -> None:
-        if self.graph is not None:
-            return
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            if g is not None:
-                graph.register_generator_state(g)
-        self.owner._seed(self.generators, 0, 0)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.out = self._body()
-        self.graph = graph
-
-    def replay(self, batch: Dict[str, torch.Tensor], seed: int, step: int
-               ) -> Dict[str, torch.Tensor]:
-        for n, v in batch.items():
-            self.static[n].copy_(v, non_blocking=True)
-        self.owner._seed(self.generators, seed, step)
-        self.graph.replay()
-        return {n: v.clone() for n, v in self.out.items()}
+        self.step.prepare(state, {n: v[0] for n, v in batches.items()},
+                          *self.generators(next(state.model.parameters()).device))
 
 
 def make_multi_train_step(criterion: Callable, num_classes: int,
@@ -398,6 +383,14 @@ def make_eval_step(criterion: Callable, num_classes: int):
             return _metrics(criterion, model(batch["image"]), batch, num_classes)
 
     return eval_step
+
+
+def seed_generators(generators: tuple, seed: int, step: int) -> None:
+    """Seed (dropout, augmentation or None) for optimizer step ``step`` of a
+    run seeded ``seed``, as the trainer seeds every step."""
+    generators[0].manual_seed(step_seed(seed, step))
+    if generators[1] is not None:
+        generators[1].manual_seed(augment_seed(seed, step))
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -502,6 +495,9 @@ class SemanticSeg:
 
     ``reader(path, key)`` reads one volume of a case file, for training and
     inference alike (``hdf5_reader``); a subclass may read another format.
+    ``capture`` (the port's own knob) runs the train and eval steps and
+    ``inference_slidingwindow``'s window forward as CUDA graphs on a card;
+    False runs them eagerly, to compare the two.
     """
 
     reader = staticmethod(hdf5_reader)
@@ -545,8 +541,10 @@ class SemanticSeg:
         s2d=None,
         norm_barrier=None,
         shift_pack=None,
+        capture=True,
     ):
         del norm_barrier, shift_pack  # XLA knobs: nothing in the port reads them
+        self.capture = capture
         self.net_name = net_name
         self.encoder_name = encoder_name
         self.lr = lr
@@ -684,7 +682,7 @@ class SemanticSeg:
             state.model.load_state_dict(ckpt["model"])
             has_optimizer = ckpt.get("optimizer") is not None
             if optimizer is not None and has_optimizer:
-                optimizer.load_state_dict(ckpt["optimizer"])
+                optimizer.load_state_dict(plain_state_dict(ckpt["optimizer"]))
         if ckpt_point:
             self.start_epoch = int(ckpt["epoch"]) + 1
             if has_optimizer:
@@ -741,8 +739,13 @@ class SemanticSeg:
 
             augment_generator = torch.Generator(device=self.device)
             train_tfm = Compose([RawChannelsLast()])
-        train_step = make_train_step(criterion, self.num_classes, augment_fn=augment_fn)
-        eval_step = make_eval_step(criterion, self.num_classes)
+        graphs = GraphCache()  # the run's train and eval graphs, one memory pool
+        if self.capture:
+            train_step = CapturedTrainStep(criterion, self.num_classes, augment_fn, graphs)
+            eval_step = CapturedEvalStep(criterion, self.num_classes, graphs)
+        else:
+            train_step = make_train_step(criterion, self.num_classes, augment_fn=augment_fn)
+            eval_step = make_eval_step(criterion, self.num_classes)
         generator = torch.Generator(device=self.device)
 
         train_ds = SegDataset(
@@ -777,10 +780,14 @@ class SemanticSeg:
             if sched is not None:
                 set_learning_rate(state.optimizer, sched.step(prev_val_loss))
 
+            n_graphs = graphs.captured
             state, tr = self._run_epoch(state, train_loader, train_step, epoch,
                                         (generator, augment_generator), train=True, mesh=mesh)
+            tr["graphs_captured"] = graphs.captured - n_graphs
+            n_graphs = graphs.captured
             _, va = self._run_epoch(state, val_loader, eval_step, epoch, None, train=False,
                                     mesh=mesh)
+            va["graphs_captured"] = graphs.captured - n_graphs
             prev_val_loss = va["loss"]
 
             print(f"epoch:{epoch}/{self.n_epoch},train_loss:{tr['loss']:.5f},"
@@ -790,16 +797,17 @@ class SemanticSeg:
                   f"val_run_dice:{va['run_dice']:.5f}")
             print(f"epoch:{epoch}/{self.n_epoch},train_seconds:{tr['seconds']:.3f} "
                   f"({tr['steps']} steps, {tr['loader_wait_seconds']:.3f} s waiting on the "
-                  f"loader),val_seconds:{va['seconds']:.3f}")
+                  f"loader),val_seconds:{va['seconds']:.3f},graphs_captured:"
+                  f"{tr['graphs_captured']} train, {va['graphs_captured']} val")
             writer.add_scalars("data/loss", {"train": tr["loss"], "val": va["loss"]}, epoch)
             writer.add_scalars("data/dice", {"train": tr["dice"], "val": va["dice"]}, epoch)
             writer.add_scalars("data/run_dice", {"train": tr["run_dice"],
                                                  "val": va["run_dice"]}, epoch)
             writer.add_scalar("data/lr", current_learning_rate(state.optimizer), epoch)
             writer.add_scalars("time/train", {k: tr[k] for k in (
-                "seconds", "steps", "loader_wait_seconds")}, epoch)
+                "seconds", "steps", "loader_wait_seconds", "graphs_captured")}, epoch)
             writer.add_scalars("time/val", {k: va[k] for k in (
-                "seconds", "steps", "loader_wait_seconds")}, epoch)
+                "seconds", "steps", "loader_wait_seconds", "graphs_captured")}, epoch)
             for k in history:
                 src, key = (tr, k[6:]) if k.startswith("train_") else (va, k[4:])
                 history[k].append(src[key])
@@ -812,8 +820,8 @@ class SemanticSeg:
                 if lead:
                     print(f"Save as: {fname}")
                     save_checkpoint(os.path.join(output_dir, fname), state.model.state_dict(),
-                                    state.optimizer.state_dict(), epoch, state.step,
-                                    async_save=True)
+                                    plain_state_dict(state.optimizer.state_dict()), epoch,
+                                    state.step, async_save=True)
             if early_stopping.early_stop:
                 print("Early stopping")
                 break
@@ -865,11 +873,8 @@ class SemanticSeg:
             batch = pad_and_mask_batch(batch, self.batch_size, mesh or self.device)
             with mesh or contextlib.nullcontext():
                 if train:
-                    generator, augment_generator = generators
-                    generator.manual_seed(step_seed(self.seed, state.step))
-                    if augment_generator is not None:
-                        augment_generator.manual_seed(augment_seed(self.seed, state.step))
-                    state, metrics = step_fn(state, batch, generator, augment_generator)
+                    seed_generators(generators, self.seed, state.step)
+                    state, metrics = step_fn(state, batch, *generators)
                 else:
                     metrics = step_fn(state, batch)
             pending.append((n, metrics))
@@ -918,5 +923,5 @@ class SemanticSeg:
             patch_size=self.patch_size, step_size=self.step_size,
             img_key=self.key_touple[0],
             window_batch=window_batch, use_gaussian=use_gaussian,
-            mesh=mesh, save_nii=save_nii, reader=self.reader,
+            mesh=mesh, save_nii=save_nii, reader=self.reader, capture=self.capture,
         )

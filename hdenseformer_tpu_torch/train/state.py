@@ -17,7 +17,9 @@ torch's optimizer reads the group's value at each step, and setting it
 waits for nothing on the card. A step captured in a CUDA graph needs the
 optimizer ``make_capturable``: its step counters and learning rate then
 live on the card, and ``set_learning_rate`` writes the rate there, so the
-per-epoch schedule still reaches a replayed step.
+per-epoch schedule still reaches a replayed step. ``plain_state_dict`` is
+the inverse for checkpoints: a saved capturable state loads into a plain
+optimizer, on the CPU too.
 
 Schedules step per epoch with torch semantics, a copy of JAX's: poly
 (1 - e/E)^0.9, MultiStepLR, CosineAnnealingLR, CosineAnnealingWarmRestarts
@@ -65,19 +67,50 @@ def get_optimizer(
 def make_capturable(optimizer: torch.optim.Optimizer, device) -> torch.optim.Optimizer:
     """Make ``optimizer`` capturable in a CUDA graph, in place: Adam's and
     AdamW's ``capturable`` flag with their step counters on ``device``, and
-    every group's rate a tensor there (SGD has no counter: its rate alone).
-    The update is the same arithmetic, with the bias corrections computed on
-    the card."""
+    every group's rate a tensor there. SGD has no counter and no such flag:
+    its default update reads a tensor rate on the host (a sync, which a
+    capture refuses), so its groups take torch's fused update, which reads
+    the rate on the card. The update is the same arithmetic, with the bias
+    corrections computed on the card."""
     device = torch.device(device)
     for group in optimizer.param_groups:
         if "capturable" in group:
             group["capturable"] = True
+        elif isinstance(optimizer, torch.optim.SGD):
+            group["foreach"], group["fused"] = False, True
         if not torch.is_tensor(group["lr"]):
             group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
     for state in optimizer.state.values():
         if torch.is_tensor(state.get("step")) and state["step"].device != device:
             state["step"] = state["step"].to(device, torch.float32)
     return optimizer
+
+
+def plain_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``make_capturable`` for a saved optimizer state: the
+    ``optimizer.state_dict()`` of a capturable optimizer as a plain one's,
+    which loads into an optimizer that was never made capturable, on the
+    CPU too. Each group's ``capturable`` flag goes back to False (SGD's
+    update to torch's default: ``foreach`` and ``fused`` None) and its rate
+    to a host float; the step counters to host float32 tensors, as a plain
+    Adam keeps them. A plain state dict comes back equal."""
+    groups = []
+    for group in state_dict["param_groups"]:
+        group = dict(group)
+        if "capturable" in group:
+            group["capturable"] = False
+        elif group.get("fused"):  # SGD, made capturable
+            group["foreach"], group["fused"] = None, None
+        if torch.is_tensor(group["lr"]):
+            group["lr"] = float(group["lr"])
+        groups.append(group)
+    state = {}
+    for key, st in state_dict["state"].items():
+        st = dict(st)
+        if torch.is_tensor(st.get("step")):
+            st["step"] = st["step"].detach().to("cpu", torch.float32)
+        state[key] = st
+    return dict(state_dict, state=state, param_groups=groups)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -25,7 +25,10 @@ Adam; hdenseformer_tpu_torch.bench.build) on its zero case:
   the most device time, which names the layer behind a library kernel.
 
 Shapes are recorded, so the profiled call's host times (wall, idle share)
-are longer than an unprofiled call's; the device's are not moved.
+are longer than an unprofiled call's; the device's are not moved. The calls
+and steps run eagerly (``capture=False``, the step's ``.eager``), so that
+each kernel is attributed to its operator; the captured step's idle share
+is chip_smoke.py's (its graph and trainer phases).
 
 It needs a CUDA device and exits non-zero without one, or if the profiler
 recorded no device activity.
@@ -102,6 +105,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         state, step, batch, gen = bench.build("cuda", PATCH, args.depth, args.seed)
+        step = step.eager
         net = state.model
 
         def serve():
@@ -116,7 +120,7 @@ def main() -> int:
 
         def serve():
             return predict_volume(net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
-                                  window_batch=WINDOWS)
+                                  window_batch=WINDOWS, capture=False)
 
     for _ in range(2):
         serve()

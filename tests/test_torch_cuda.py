@@ -1207,3 +1207,292 @@ def test_transbts_plain_build_launches_no_kernel(cuda):
                          norm_counts())
     assert launches[False] == (0, 0, 0, (0, 0, 0, 0))
     assert launches[True][1] == 1
+
+
+# --- the trainer's captured steps and serving graphs (utils/graphs.py) -------------------
+
+# every name of get_net at a small size, as tests/test_torch_use_kernels.py
+# builds them: 3-D at 32^3 (the DAUNet family and TransBTS at 16^3), 2-D at
+# 32^2, the smp-style baselines at 64^2 on resnet18
+CAPTURE_NETS = [("HDenseFormer_32", (32,) * 3, None), ("HDenseFormer_16", (32,) * 3, None),
+                ("HDenseFormer_2D_32", (32, 32), None), ("HDenseFormer_2D_16", (32, 32), None),
+                ("hecktor20top1", (32,) * 3, None), ("unet_3d", (16,) * 3, None),
+                ("da_unet", (16,) * 3, None), ("se_unet", (16,) * 3, None),
+                ("da_se_unet", (16,) * 3, None), ("res_da_se_unet", (16,) * 3, None),
+                ("TransBTS", (16,) * 3, None), ("unetr", (32,) * 3, None),
+                ("unet", (64, 64), "resnet18"), ("unet++", (64, 64), "resnet18"),
+                ("deeplabv3+", (64, 64), "resnet18")]
+CAPTURE_LR = 1e-3
+
+
+def _capture_case(cuda, name, shape, encoder, batch: int = 2, optimizer: str = "Adam"):
+    """(make_state, batches of 2 steps, the preset's loss): get_net's
+    defaults (remat on), fp32, ``optimizer`` (Adam) with coupled L2; the
+    Hecktor21 and PI-CAI22 presets' FocalLoss, deep supervision for
+    HDenseFormer."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    def make_state():
+        net = get_net(name, 2, 2, shape, transformer_depth=4, encoder_name=encoder,
+                      device=cuda)
+        init_weights(net, torch.Generator().manual_seed(0))
+        return TrainState(net, get_optimizer(optimizer, CAPTURE_LR, weight_decay=1e-4,
+                                             params=net.parameters()))
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    inner = tuple(slice(s // 4, 3 * s // 4) for s in shape)
+    batches = []
+    for i in range(2):
+        label = torch.zeros((batch,) + shape + (2,), device=cuda)
+        label[..., 0] = 1
+        label[(slice(None),) + inner] = torch.tensor([0.0, 1.0], device=cuda)
+        image = torch.randn((batch,) + shape + (2,), generator=g, device=cuda)
+        image[(slice(None),) + inner + (0,)] += 2.0
+        batches.append({"image": image, "label": label,
+                        "weight": torch.tensor([1.0] * (batch - i) + [0.0] * i, device=cuda)})
+    return make_state, batches, get_loss("FocalLoss", use_ds="DenseFormer" in name)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+@pytest.mark.parametrize("name,shape,encoder", CAPTURE_NETS)
+def test_captured_train_and_eval_steps_equal_eager(cuda, deterministic_cudnn, name, shape,
+                                                   encoder):
+    """Two train steps of every model of get_net captured as one CUDA graph
+    (``CapturedTrainStep``, the trainer's step: the second batch's last
+    sample masked by weight 0) against two eager steps from the same
+    weights, batches and seeds, with the graph phase's bars: the first loss within
+    1e-6 relative (the same arithmetic), the second within 1e-4 or 3x the
+    spread of eager steps on the input moved by one fp32 rounding step
+    (Adam turns rounding into whole-lr moves, and a BatchNorm bottleneck
+    that normalises two values a channel amplifies them), the parameters
+    within 2 lr a step, and a BatchNorm model's running statistics moved by
+    the captured steps (at least half as far as by the eager ones) and
+    within 1e-3 of that distance or 3x the moved input's spread of them.
+    Then the captured eval step against the eager one on the trained state,
+    within 1e-6."""
+    _hold_captured_against_eager(cuda, name, shape, encoder, "Adam")
+
+
+@pytest.mark.parametrize("optimizer", ["Adam", "AdamW", "SGD"])
+def test_captured_steps_equal_eager_for_each_optimizer(cuda, deterministic_cudnn, optimizer):
+    """Each optimizer of get_optimizer in the trainer's captured step
+    (``make_capturable``: Adam's and AdamW's capturable update, SGD's fused
+    one, each reading its rate on the card), HDenseFormer_16 with remat,
+    held to the bars of ``test_captured_train_and_eval_steps_equal_eager``."""
+    _hold_captured_against_eager(cuda, "HDenseFormer_16", (32,) * 3, None, optimizer)
+
+
+def _hold_captured_against_eager(cuda, name, shape, encoder, optimizer):
+    from hdenseformer_tpu_torch.train.loop import (
+        CapturedEvalStep,
+        CapturedTrainStep,
+        make_eval_step,
+        make_train_step,
+        seed_generators,
+    )
+    from hdenseformer_tpu_torch.utils.graphs import GraphCache
+
+    make_state, batches, crit = _capture_case(cuda, name, shape, encoder, optimizer=optimizer)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    moved = [dict(b, image=b["image"] * (1 + 2.0 ** -23 * torch.randn(
+        b["image"].shape, generator=g, device=cuda))) for b in batches]
+    runs = {}
+    for run, captured, data in (("captured", True, batches), ("eager", False, batches),
+                                ("moved", False, moved)):
+        state, graphs = make_state(), GraphCache()
+        initial = {n: b.detach().clone() for n, b in state.model.named_buffers()
+                   if b.is_floating_point()}
+        step = CapturedTrainStep(crit, 2, graphs=graphs) if captured else make_train_step(crit, 2)
+        gens, losses = (torch.Generator(device=cuda), None), []
+        for batch in data:
+            seed_generators(gens, 7, state.step)
+            state, out = step(state, batch, *gens)
+            losses.append(out["loss"])
+        evaluate = CapturedEvalStep(crit, 2, graphs) if captured else make_eval_step(crit, 2)
+        runs[run] = dict(state=state, losses=torch.stack(losses).tolist(), initial=initial,
+                         graphs=graphs, eval=evaluate(state, batches[0]),
+                         eager_eval=make_eval_step(crit, 2)(state, batches[0]),
+                         buffers=dict(state.model.named_buffers()))
+    cap, eager, mov = runs["captured"], runs["eager"], runs["moved"]
+    assert cap["graphs"].captured == 2 and cap["state"].step == eager["state"].step == 2
+    torch.testing.assert_close(cap["losses"][0], eager["losses"][0], rtol=1e-6, atol=0)
+    spread = abs(mov["losses"][1] - eager["losses"][1]) / abs(eager["losses"][1])
+    torch.testing.assert_close(cap["losses"][1], eager["losses"][1],
+                               rtol=max(1e-4, 3 * spread), atol=0)
+    for (n, p), q in zip(cap["state"].model.named_parameters(),
+                         eager["state"].model.parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=2 * 2 * CAPTURE_LR, msg=n)
+    for n, b in cap["buffers"].items():
+        if n in cap["initial"]:
+            ref, start = eager["buffers"][n], eager["initial"][n]
+            moved_by = float((ref - start).norm())
+            assert float((b - start).norm()) >= 0.5 * moved_by, (n, moved_by)
+            bar = max(1e-3 * moved_by, 3 * float((mov["buffers"][n] - ref).norm()))
+            assert float((b - ref).norm()) <= bar, (n, moved_by, bar)
+    for n, v in cap["eval"].items():
+        torch.testing.assert_close(v, cap["eager_eval"][n], rtol=1e-6, atol=0, msg=n)
+
+
+@pytest.mark.parametrize("loss", ["Cross_Entropy", "TopKLoss", "DiceLoss", "CEPlusDice",
+                                  "FLPlusDice"])
+def test_class_weighted_losses_capture(cuda, deterministic_cudnn, loss):
+    """Each loss of get_loss that takes a ``class_weight`` (its vector made
+    on the card once, not copied from the host at each step) in a captured
+    train step of unet_3d at 16^3: the first loss equal to the eager step's
+    within 1e-6."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.train.loop import CapturedTrainStep, make_train_step
+
+    make_state, batches, _ = _capture_case(cuda, "unet_3d", (16,) * 3, None)
+    crit = get_loss(loss, class_weight=[0.25, 1.0], topk=10)
+    got = [CapturedTrainStep(crit, 2)(make_state(), batches[1], torch.Generator(device=cuda)),
+           make_train_step(crit, 2)(make_state(), batches[1], torch.Generator(device=cuda))]
+    torch.testing.assert_close(got[0][1]["loss"], got[1][1]["loss"], rtol=1e-6, atol=0)
+
+
+def _grads(net, x, generator) -> dict:
+    """A remat forward and backward in training: the loss and every gradient."""
+    net.train()
+    for p in net.parameters():
+        p.grad = None
+    outs = net(x, generator=generator)
+    outs = outs if isinstance(outs, (list, tuple)) else [outs]
+    loss = sum(o.float().square().mean() for o in outs)
+    loss.backward()
+    return {"loss": loss.detach(), **{n: p.grad for n, p in net.named_parameters()
+                                      if p.grad is not None}}
+
+
+@pytest.mark.parametrize("name", ["HDenseFormer_16", "hecktor20top1"])
+def test_remat_under_capture_draws_the_forward_masks(cuda, deterministic_cudnn, name):
+    """A remat forward and backward (HDenseFormer_16 with dropout 0.5 in its
+    checkpointed attention blocks; Hecktor20Top1's 22 checkpointed blocks)
+    captured once and replayed with two dropout seeds, against the eager
+    remat pass seeded alike: the loss and every gradient within 1e-4 of the
+    gradient's largest magnitude (fp32 rounding summed over the network: up
+    to 1.1e-5 observed, Hecktor20Top1's bottleneck weights), where a
+    recompute that drew other masks than the forward moves HDenseFormer's
+    by O(1) of it (the eager pass of another seed moves the loss by more
+    than 1e-3). The generator ends where the eager pass leaves it."""
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.utils.graphs import CapturedCall
+
+    net = get_net(name, 2, 2, (32,) * 3, transformer_depth=4, device=cuda)
+    init_weights(net, torch.Generator().manual_seed(0))
+    assert net.remat
+    x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    gen = torch.Generator(device=cuda)
+    call = CapturedCall(lambda s: _grads(net, s["x"], gen), {"x": x}, (gen,))
+    if name == "HDenseFormer_16":
+        assert call.rng is not None and len(call.rng.offsets) == 2  # one per modality path
+    for seed in (11, 12):
+        gen.manual_seed(seed)
+        got = call.replay({"x": x})
+        ref_gen = torch.Generator(device=cuda).manual_seed(seed)
+        want = _grads(net, x, ref_gen)
+        assert gen.get_offset() == ref_gen.get_offset()
+        other = _grads(net, x, torch.Generator(device=cuda).manual_seed(seed + 10))
+        for n, v in want.items():
+            if n in ZERO_GRADIENT:  # a true gradient of zero: rounding noise either way
+                continue
+            scale = float(v.abs().max()) or 1.0
+            err = float((got[n] - v).abs().max())
+            assert err <= 1e-4 * scale, (seed, n, err, scale)
+        if name == "HDenseFormer_16":
+            assert float((other["loss"] - want["loss"]).abs()) > 1e-3 * float(want["loss"])
+
+
+def test_captured_predict_volume_equals_eager(cuda):
+    """``predict_volume`` with its captured window forward (the default on a
+    card) against ``capture=False``: HDenseFormer_16 (32^3 patches, depth 4)
+    on a 2 x 48 x 40 x 44 volume, window batch 4 (the last batch padded):
+    the labels equal wherever the eager accumulator's top-two margin
+    exceeds 0.1 and on at least 99.9 % of the voxels; a second volume of
+    the same lattice replays the model's one graph."""
+    from hdenseformer_tpu_torch.infer import sliding
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    net = get_net("HDenseFormer_16", 2, 2, (32,) * 3, transformer_depth=4, device=cuda)
+    init_weights(net, torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(2)
+    volumes = [torch.randn(2, 48, 40, 44, generator=rng).numpy() for _ in range(2)]
+    for image in volumes:
+        got = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4)
+        want = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                      capture=False)
+        acc = _eager_accumulator(net, image)
+        top = acc.topk(2, dim=-1).values
+        decided = (top[..., 0] - top[..., 1] > 0.1).cpu().numpy()
+        assert got.shape == want.shape == image.shape[1:]
+        assert (got == want)[decided].all() and (got == want).mean() >= 0.999
+    assert sliding._WINDOW_GRAPHS[net].captured == 1
+
+
+def test_captured_window_forward_follows_rebound_parameters(cuda):
+    """A model whose parameters are rebound after its first captured window
+    forward (``load_state_dict(assign=True)``, the head's class-1 bias moved
+    by 2, the old tensors still alive, so that a stale graph would read
+    them) is captured anew: its probabilities equal the eager forward's of
+    the new weights within 1e-4, and differ from the old ones by more than
+    0.05; the model holds one graph, the new one."""
+    from hdenseformer_tpu_torch.infer import sliding
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+
+    net = get_net("HDenseFormer_16", 2, 2, (32,) * 3, transformer_depth=4, device=cuda).eval()
+    init_weights(net, torch.Generator().manual_seed(0))
+    windows = torch.randn(4, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(2),
+                          device=cuda)
+    with torch.inference_mode():
+        old = sliding._captured_probs(net, windows)
+        kept = net.state_dict()
+        new = {n: v.clone() for n, v in kept.items()}
+        new["head.bias"][1] += 2.0
+        net.load_state_dict(new, assign=True)
+        got = sliding._captured_probs(net, windows)
+        want = sliding._window_probs(net, windows)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((old - want).abs().max()) > 0.05
+    assert sliding._WINDOW_GRAPHS[net].captured == 1 and len(kept)
+
+
+def _eager_accumulator(net, image):
+    import numpy as np
+
+    from hdenseformer_tpu_torch.infer import sliding
+
+    image_cl = np.moveaxis(image, 0, -1)
+    spatial = image_cl.shape[:-1]
+    tgt = sliding._lattice_pad_targets(spatial, (32,) * 3, (16,) * 3)
+    volume = torch.zeros(tuple(tgt) + image_cl.shape[-1:], device="cuda")
+    volume[tuple(slice(0, s) for s in spatial)] = torch.from_numpy(
+        np.ascontiguousarray(image_cl)).cuda()
+    origins = sliding._origins_array(sliding.cal_steps(spatial, (32,) * 3, (16,) * 3))
+    acc = sliding.accumulate_windows(net, volume, origins, np.ones(len(origins), np.float32),
+                                     (32,) * 3, 2, None, 1, capture=False)
+    return acc[tuple(slice(0, s) for s in spatial)]
+
+
+def test_refused_capture_raises(cuda):
+    """A body that reads a value on the host cannot be captured: the capture
+    raises (there is no eager fallback)."""
+    from hdenseformer_tpu_torch.utils.graphs import CapturedCall
+
+    x = torch.ones(4, device=cuda)
+    call = CapturedCall(lambda s: {"y": s["x"] * float(s["x"].sum())}, {"x": x})
+    with pytest.raises(RuntimeError):
+        call.replay({"x": x})
