@@ -53,13 +53,18 @@ removed at the end):
    default), packed through the plain versions, and fine through the
    kernels; then packed against fine in fp32 at 64^3;
 3. serving: predict_volume on a synthetic 200^3 two-channel volume (patch
-   144^3, step 72^3, window_batch 8, one model call of 8 windows), its
-   window forward captured as a CUDA graph at the first call (the default
-   on a card): first call, then captured and eager (``capture=False``)
-   calls in turns, p50 and peak device memory of each, launch counts (a
-   warm-up's and a capture's at the first call, none at a replay), the
-   captured labels equal to the eager ones wherever the margin exceeds 0.1,
-   and the labels against the plain path's; 3b. the same for Hecktor20Top1;
+   144^3, step 72^3, window_batch 8, one model call of 8 windows), the
+   whole call (window gather, forward, accumulation, argmax) captured as
+   one CUDA graph of its lattice cell at the first call (the default on a
+   card): first call, then captured and eager (``capture=False``) calls in
+   turns, p50 and peak device memory of each, launch counts (a warm-up's
+   and a capture's at the first call, none at a replay), the CUDA
+   runtime's launches of a warm call (one graph launch, no kernel launch),
+   the captured labels equal to the eager ones on every voxel; a 190^3
+   volume in the same cell, then 200 x 200 x 144 and 190 x 196 x 120
+   (shorter than the patch, in the cell of the volume before), each equal
+   to eager, one graph a cell; and the labels against the plain path's;
+   3b. the same for Hecktor20Top1;
 4. training: one train step of HDenseFormer_32 at 64^3, depth 4, through
    the kernels and through the plain versions from the same weights and
    dropout seed, in fp32 and in bf16, beside the plain path on an input
@@ -87,9 +92,12 @@ removed at the end):
 4d. data parallel (``parallel/mesh.py``) on the one card: two gloo
    processes of this script (the JAX package's env contract), bench.py's
    model at batch 1 a rank, two steps against one process's batch-2 steps;
-   the same two steps under torchrun's env with NCCL at world size 1; a
-   200^3 volume's windows split over the two ranks against one process;
-   launches checked on each rank;
+   a 200^3 volume's windows split over the two ranks (``capture=False``)
+   against one process; each rank's ``capture=True`` calls refused (gloo
+   cannot be captured); then under torchrun's env NCCL at world size 1 with
+   the collectives run (``always_reduce``): the captured train steps, eval
+   step and ``predict_volume(mesh=...)`` against the eager ones on the same
+   mesh, steps timed in turns; launches checked on each rank;
 4p. the packed levels (space-to-depth, ``ops/s2d.py``), which get_net's
    default ``s2d=None`` runs in every phase, as JAX's does: (a) the shifted
    InstanceNorm forward and backward kernels against their plain versions
@@ -141,8 +149,9 @@ removed at the end):
    running statistic moved, no kernel of the port); then the 2-D journey:
    one epoch of HDenseFormer_2D_32 through the trainer on 72 synthetic
    slice cases (.npy; captured, then in turns eager and eager on moved
-   inputs, as phase 5), ``predict_case_2d`` of two 3 x 30 x 400^2 volumes
-   (seconds a volume, slices/s; labels equal to a direct argmax of the
+   inputs, as phase 5), ``predict_case_2d`` of two 3 x 30 x 400^2 volumes,
+   its chunk captured as one graph, and eagerly in turns (seconds a volume
+   of each, slices/s; labels equal to eager's and to a direct argmax of the
    model's logits on the same preprocessed slices) and their dice and HD95;
 5. the trainer: 6 synthetic 152^3 cases (3 patients x 2), written as .hdf5
    where h5py imports and driven through the CLI (``cli.main``), else as
@@ -1088,21 +1097,58 @@ def synthetic_volume(seed: int, size: int = VOLUME) -> np.ndarray:
     return np.stack([ct, pet])
 
 
+# other volumes of serve-200's run, each in the lattice cell of the call
+# before it: 190^3 in 200^3's cell (216^3, 8 windows; other origins), then
+# 200 x 200 x 144 (a new cell: 216 x 216 x 144, 4 windows) and 190 x 196 x
+# 120, shorter than the patch in its last dim, whose windows read the 24
+# pad slices the volume before filled in the call's buffers
+CELL_VOLUMES = (("190", (190, 190, 190)), ("200x200x144", (200, 200, 144)),
+                ("190x196x120", (190, 196, 120)))
+RUNTIME_LAUNCHES = {"graph": ("cudaGraphLaunch", "cuGraphLaunch"),
+                    "kernel": ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                               "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")}
+
+
+def runtime_launches(fn) -> dict:
+    """The CUDA runtime's graph launches, kernel launches and copies of one
+    call of ``fn``, read from torch.profiler's runtime events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {k: 0 for k in list(RUNTIME_LAUNCHES) + ["memcpy", "memset"]}
+    for e in prof.key_averages():
+        for k, names in RUNTIME_LAUNCHES.items():
+            if e.key in names:
+                counts[k] += e.count
+        if e.key.startswith(("cudaMemcpy", "cuMemcpy")):
+            counts["memcpy"] += e.count
+        if e.key.startswith(("cudaMemset", "cuMemset")):
+            counts["memset"] += e.count
+    return counts
+
+
 def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
     """predict_volume of a 200^3 volume as ``-m inf-sw`` serves it: the
-    model's window forward captured at the first call (its warm-up and
-    capture count two forwards' launches; later calls replay and count
+    whole call (window gather, forward, accumulation, argmax) captured as
+    one graph of the volume's lattice cell at the first call (its warm-up
+    and capture count two forwards' launches; later calls replay and count
     none), then captured and eager (``capture=False``) calls in turns: p50
-    of each, peak memory of each, the labels of the two equal wherever the
-    eager accumulator's top-two margin exceeds 0.1; and the plain path's
+    of each, peak memory of each, the labels of the two equal on every
+    voxel; the CUDA runtime's launches of one warm call of each (captured:
+    one graph launch and no kernel launch); CELL_VOLUMES captured against
+    eager, equal on every voxel, one graph a cell; and the plain path's
     labels, agreeing on 99 % of the voxels. Returns the first call's
     launches."""
+    from hdenseformer_tpu_torch.utils.graphs import model_graphs
+
     image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
 
-    def serve(model, capture=True):
+    def serve(model, capture=True, volume=image):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        labels = predict_volume(model, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
+        labels = predict_volume(model, volume, (PATCH,) * 3, (STEP,) * 3, N_CLS,
                                 window_batch=WINDOWS, capture=capture)
         return labels, (time.perf_counter() - t0) * 1e3
 
@@ -1125,6 +1171,19 @@ def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
         if not np.array_equal(again, labels if mode == "captured" else eager_labels):
             fail(f"repeated {mode} serving calls gave different labels")
     warm = {mode: [ms for m, ms in turns if m == mode] for mode in per_call}
+    runtime = {mode: runtime_launches(lambda: serve(net, mode == "captured"))
+               for mode in ("captured", "eager")}
+    graphs = [model_graphs(net).captured]
+    cells = {}
+    for i, (name, shape) in enumerate(CELL_VOLUMES):
+        vol = PETandCTNormalize()({"image": synthetic_volume(args.seed + 1 + i)[
+            (slice(None),) + tuple(slice(0, n) for n in shape)]})["image"]
+        got, ms = serve(net, volume=vol)
+        want, eager_ms = serve(net, False, vol)
+        graphs.append(model_graphs(net).captured)
+        cells[name] = dict(shape=list(shape), first_call_ms=ms, eager_ms=eager_ms,
+                           labels_equal_eager=float((got == want).mean()),
+                           graphs=graphs[-1], foreground=float(got.mean()))
     acc = single_accumulator(net, image)
     top = acc.topk(2, dim=-1).values
     decided = (top[..., 0] - top[..., 1] > 0.1).cpu().numpy()
@@ -1143,7 +1202,8 @@ def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
          max_memory_allocated_bytes=peaks["captured"],
          eager_max_memory_allocated_bytes=peaks["eager"],
          launches_first_call=first_counts, launches_per_warm_call=per_call,
-         eager_launches_first_call=eager_first_counts,
+         eager_launches_first_call=eager_first_counts, runtime_per_warm_call=runtime,
+         graphs_after=graphs, cells=cells,
          labels_equal_eager=float(same.mean()), decided_fraction=float(decided.mean()),
          labels_equal_eager_margin_gt_0p1=float(same[decided].mean()),
          plain_path_ms=plain_ms, label_agreement_vs_plain=agree)
@@ -1155,8 +1215,13 @@ def phase_serving(args, net, plain, tag: str, expect: dict) -> dict:
             or any(c != expect for c in per_call["eager"])):
         fail(f"{tag} launched {first_counts} at capture, {per_call} in turns, expected "
              f"{expect} a forward")
-    if not same[decided].all():
-        fail(f"{tag}: captured and eager labels differ where the margin exceeds 0.1")
+    if not same.all():
+        fail(f"{tag}: captured and eager labels differ on {int((~same).sum())} voxels")
+    if runtime["captured"]["graph"] != 1 or runtime["captured"]["kernel"] != 0:
+        fail(f"{tag}: a warm captured call issued {runtime['captured']}, expected one graph "
+             "launch and no kernel launch")
+    if graphs != [1, 1, 2, 2] or any(c["labels_equal_eager"] != 1.0 for c in cells.values()):
+        fail(f"{tag}: graphs after each cell {graphs} (expected [1, 1, 2, 2]), cells {cells}")
     if agree < 0.99:
         fail(f"{tag} labels agree with the plain path on {agree} of voxels, under 0.99")
     return first_counts
@@ -1583,13 +1648,16 @@ def dp_global_batch(args, nudge: float = 0.0) -> dict:
     return batch
 
 
-def dp_steps(args, device, mesh=None, nudge: float = 0.0) -> dict:
+def dp_steps(args, device, mesh=None, nudge: float = 0.0, capture: bool = False) -> dict:
     """Two train steps of bench.py's model on the global batch of two cases
     (this rank's share under ``mesh``), dropout seeded per step as the
-    trainer seeds it: the losses, launches and the parameters after. The
-    steps run eagerly (the collectives of a mesh are not captured)."""
+    trainer seeds it: the losses, launches and the parameters after, and
+    what a later step needs (state, step, batch, generator). The steps run
+    eagerly, or with ``capture`` as the trainer's captured step (under an
+    NCCL mesh with the collectives inside the graph)."""
     state, step, _, _ = bench.build(device, PATCH, args.depth, args.seed)
-    step = step.eager
+    if not capture:
+        step = step.eager
     host = dp_global_batch(args, nudge)
     batch = pad_and_mask_batch(host, 2, mesh or device)
     gen = torch.Generator(device=device)
@@ -1600,8 +1668,58 @@ def dp_steps(args, device, mesh=None, nudge: float = 0.0) -> dict:
             gen.manual_seed(step_seed(args.seed, state.step))
             _, out = step(state, batch, gen)
             losses.append(float(out["loss"]))
-    return dict(losses=losses, launches=read_counts(),
+    return dict(losses=losses, launches=read_counts(), state=state, step=step, batch=batch,
+                gen=gen,
                 params={n: p.detach().float().cpu() for n, p in state.model.named_parameters()})
+
+
+def scalars(metrics: dict) -> dict:
+    return {k: v.cpu().tolist() for k, v in metrics.items()}
+
+
+def dp_nccl_capture(args, mesh) -> dict:
+    """The NCCL world-1 rank's captured calls against the eager ones on the
+    same mesh (``always_reduce``: the collectives run, each the identity):
+    two train steps each way from the same weights (the captured graph
+    holds the global sums, forward and backward, and the gradients'
+    all-reduce), then steps of the two in turns, each timed to its loss;
+    the eval step, captured and eager, on the eager run's state; and
+    ``predict_volume(mesh=...)`` of a 200^3 volume captured (its
+    accumulator's all-reduce in the graph) against ``capture=False``, in
+    turns."""
+    runs = {mode: dp_steps(args, mesh.device, mesh, capture=mode == "captured")
+            for mode in ("eager", "captured")}
+    step_ms = {"eager": [], "captured": []}
+    with mesh:
+        for mode in ("eager", "captured", "captured", "eager", "eager", "captured"):
+            run = runs[mode]
+            run["gen"].manual_seed(step_seed(args.seed, run["state"].step))
+            t0 = time.perf_counter()
+            _, out = run["step"](run["state"], run["batch"], run["gen"])
+            float(out["loss"])
+            step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        ev = train_loop.CapturedEvalStep(get_loss("FocalLoss", use_ds=True), N_CLS)
+        state, batch = runs["eager"]["state"], runs["eager"]["batch"]
+        evals = {"eager": scalars(ev.eager(state, batch)), "captured": scalars(ev(state, batch))}
+    net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
+                  dtype=torch.bfloat16, device=mesh.device)
+    init_weights(net, torch.Generator().manual_seed(args.seed))
+    image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
+    reset_counts()
+    labels, serve_ms = {}, {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels[mode] = predict_volume(net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
+                                      window_batch=WINDOWS, mesh=mesh,
+                                      capture=mode == "captured")
+        serve_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    serve_counts = read_counts()
+    return dict(
+        losses={m: r["losses"] for m, r in runs.items()},
+        launches={m: r["launches"] for m, r in runs.items()}, step_ms=step_ms, eval=evals,
+        serve_labels_equal=float((labels["captured"] == labels["eager"]).mean()),
+        serve_ms=serve_ms, serve_launches=serve_counts)
 
 
 def dp_worker(args) -> int:
@@ -1613,34 +1731,49 @@ def dp_worker(args) -> int:
     if args.dp_worker == "nccl":
         if not maybe_distributed_init("cuda"):
             fail("no launch contract in the environment")
-        mesh = make_mesh(1)
-        run = dp_steps(args, mesh.device, mesh)
+        mesh = make_mesh(1, always_reduce=True)  # one card: the collectives run, at world 1
         t = torch.ones(3, device=mesh.device) * (mesh.rank + 1)
         torch.distributed.all_reduce(t)
+        run = dp_nccl_capture(args, mesh)
         print(json.dumps(dict(rank=mesh.rank, world=mesh.world_size,
-                              backend=torch.distributed.get_backend(), losses=run["losses"],
-                              launches=run["launches"], all_reduce=t.tolist())), flush=True)
+                              backend=torch.distributed.get_backend(), all_reduce=t.tolist(),
+                              **run)), flush=True)
         torch.distributed.destroy_process_group()
         return 0
     if not maybe_distributed_init("cuda", backend="gloo"):
         fail("no launch contract in the environment")
     mesh = make_mesh(2, "cuda:0")  # both ranks on the one card
-    run = dp_steps(args, mesh.device, mesh)
-    if mesh.rank == 0:
-        torch.save(run["params"], os.path.join(DP_WORK, "params.pt"))
     net = get_net("HDenseFormer_32", 2, N_CLS, (PATCH,) * 3, transformer_depth=args.depth,
                   dtype=torch.bfloat16, device=mesh.device)
     init_weights(net, torch.Generator().manual_seed(args.seed))
     image = PETandCTNormalize()({"image": synthetic_volume(args.seed)})["image"]
+    refused = {}  # gloo's collectives cannot be captured: capture=True raises on a card
+    state = TrainState(net, get_optimizer("Adam", 1e-3, params=net.parameters()))
+    step = train_loop.CapturedTrainStep(get_loss("FocalLoss", use_ds=True), N_CLS)
+    for call, fn in (("predict_volume", lambda: predict_volume(
+            net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS, window_batch=WINDOWS, mesh=mesh)),
+                     ("train_step", lambda: step(state, pad_and_mask_batch(
+                         dp_global_batch(args), 2, mesh), torch.Generator(device="cuda")))):
+        try:
+            with mesh:
+                fn()
+            refused[call] = "ran"
+        except RuntimeError as e:
+            refused[call] = str(e)
+    del state, step
+    run = dp_steps(args, mesh.device, mesh)
+    if mesh.rank == 0:
+        torch.save(run["params"], os.path.join(DP_WORK, "params.pt"))
     reset_counts()
     labels = predict_volume(net, image, (PATCH,) * 3, (STEP,) * 3, N_CLS,
-                            window_batch=WINDOWS, mesh=mesh)
+                            window_batch=WINDOWS, mesh=mesh, capture=False)
     serve_counts = read_counts()
     if mesh.rank == 0:
         np.save(os.path.join(DP_WORK, "labels.npy"), labels)
     print(json.dumps(dict(rank=mesh.rank, world=mesh.world_size,
                           backend=torch.distributed.get_backend(), losses=run["losses"],
-                          launches=run["launches"], serve_launches=serve_counts)), flush=True)
+                          launches=run["launches"], serve_launches=serve_counts,
+                          refused=refused)), flush=True)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return 0
@@ -1694,11 +1827,18 @@ def phase_data_parallel(args) -> dict:
     batch-2 steps (losses within phase 4's bf16 bar, 1e-3 relative, or 3x
     the spread of one process on an input moved by one bf16 step; the
     parameter updates, worst and median tensor, within 3x that spread's);
-    then the same two steps through ``maybe_distributed_init`` under
-    torchrun's env, NCCL at world size 1, and an NCCL all-reduce; then ``predict_volume(mesh=...)`` of a 200^3
-    volume over the two ranks against one process (argmax agreement
-    >= 0.99999 where the single run's accumulated top-two margin > 0.1).
-    Each rank's launches are checked. Returns the launches by path."""
+    then ``predict_volume(mesh=..., capture=False)`` of a 200^3 volume over
+    the two ranks against one process (argmax agreement >= 0.99999 where the
+    single run's accumulated top-two margin > 0.1); each gloo rank's
+    ``capture=True`` calls refused (gloo's collectives run through the
+    host). Then through ``maybe_distributed_init`` under torchrun's env,
+    NCCL at world size 1 with ``always_reduce`` (``dp_nccl_capture``): an
+    NCCL all-reduce, the captured train steps against the eager ones on the
+    same mesh (first loss equal, the second within the bf16 bar above),
+    timed in turns, the captured eval step against the eager one (loss
+    within that bar), and the captured ``predict_volume(mesh=...)`` against
+    ``capture=False`` (labels equal on every voxel). Each rank's launches
+    are checked. Returns the launches by path."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     shutil.rmtree(DP_WORK, ignore_errors=True)
@@ -1741,7 +1881,8 @@ def phase_data_parallel(args) -> dict:
                moved_update_rel_worst=spread[-1], moved_update_rel_median=spread[len(spread) // 2],
                launches_by_rank=[r["launches"] for r in ranks],
                serve_launches_by_rank=[r["serve_launches"] for r in ranks],
-               nccl_world_1=nccl, sharded_200_agreement=float(same.mean()),
+               refused_by_rank=[r["refused"] for r in ranks], nccl_world_1=nccl,
+               sharded_200_agreement=float(same.mean()),
                sharded_200_agreement_margin_gt_0p1=float(same[decided].mean()),
                decided_fraction=float(decided.mean()), gloo_s=gloo_s, nccl_s=nccl_s,
                seconds=time.perf_counter() - t0)
@@ -1753,16 +1894,27 @@ def phase_data_parallel(args) -> dict:
     if errs[-1] > 3 * spread[-1] or errs[len(errs) // 2] > 3 * spread[len(spread) // 2]:
         fail(f"two ranks against one process: updates {errs[-1]}, {errs[len(errs) // 2]} "
              f"against 3x {spread[-1]}, {spread[len(spread) // 2]}")
-    if any(c != expect_step for c in [r["launches"] for r in ranks] + [
-            nccl["launches"], one["launches"]]):
+    if any(c != expect_step for c in [r["launches"] for r in ranks] + list(
+            nccl["launches"].values()) + [one["launches"]]):
         fail(f"data-parallel steps launched {[r['launches'] for r in ranks]}, NCCL "
-             f"{nccl['launches']}, one process {one['launches']}; expected {expect_step}")
+             f"{nccl['launches']}, one process {one['launches']}; expected {expect_step} "
+             "(captured: the warm-up's and the capture's)")
     if any(r["serve_launches"] != expect_serve for r in ranks):
         fail(f"sharded serving launched {[r['serve_launches'] for r in ranks]}, expected "
              f"{expect_serve} a rank (its 4 windows in one call)")
-    if nccl["backend"] != "nccl" or nccl["all_reduce"] != [1.0, 1.0, 1.0] or not np.isfinite(
-            nccl["losses"]).all():
-        fail(f"NCCL world of one: {nccl}")
+    if any("capture=False" not in r["refused"][call] for r in ranks for call in r["refused"]):
+        fail(f"gloo on a card with capture=True: {[r['refused'] for r in ranks]}, expected "
+             "refusals that name capture=False")
+    eager, captured = nccl["losses"]["eager"], nccl["losses"]["captured"]
+    eval_rel = abs(nccl["eval"]["captured"]["loss"] - nccl["eval"]["eager"]["loss"]) / abs(
+        nccl["eval"]["eager"]["loss"])
+    if (nccl["backend"] != "nccl" or nccl["all_reduce"] != [1.0, 1.0, 1.0]
+            or not np.isfinite(eager + captured).all() or captured[0] != eager[0]
+            or abs(captured[1] - eager[1]) / abs(eager[1]) > loss_bar or eval_rel > loss_bar
+            or nccl["serve_labels_equal"] != 1.0
+            or nccl["serve_launches"] != {k: 4 * v for k, v in expect_serve.items()}):
+        fail(f"NCCL world of one, captured against eager (loss bar {loss_bar}, serving "
+             f"launches expected 4x {expect_serve}): {nccl}")
     if rec["sharded_200_agreement_margin_gt_0p1"] < 0.99999:
         fail(f"sharded 200^3 labels agree with one process on {same[decided].mean()} of the "
              "decided voxels")
@@ -1771,7 +1923,9 @@ def phase_data_parallel(args) -> dict:
     torch.cuda.empty_cache()
     by_rank = {k: sum(r["launches"][k] + r["serve_launches"][k] for r in ranks)
                for k in KERNELS}
-    return {"data-parallel-2-ranks": by_rank, "data-parallel-nccl-1": nccl["launches"]}
+    return {"data-parallel-2-ranks": by_rank,
+            "data-parallel-nccl-1": {k: nccl["launches"]["captured"][k] + nccl["serve_launches"][k]
+                                     for k in KERNELS}}
 
 
 def single_accumulator(net, image) -> torch.Tensor:
@@ -1875,16 +2029,18 @@ def pass_times(fn, passes, iters: int) -> dict:
 
 
 def in_turns(fns: dict, passes, iters: int) -> dict:
-    """``pass_times`` of each of ``fns`` (two), in turns a, b, b, a: per name
-    both readings' ms, and the faster reading's ms and passes (a reading now
-    and then runs slow, for both kernels alike)."""
+    """``pass_times`` of each of ``fns`` (two), in turns a, b, b, a, a, b: per
+    name the three readings' ms, and the median reading's ms and passes (a
+    reading now and then runs slow, for both kernels alike, and one profile
+    of the shifted forward once read 0.48x the other, under its byte
+    bound)."""
     a, b = fns
     readings = {a: [], b: []}
-    for name in (a, b, b, a):
+    for name in (a, b, b, a, a, b):
         readings[name].append(pass_times(fns[name], passes, iters))
     out = {}
     for name, rs in readings.items():
-        best = min(rs, key=lambda r: sum(r.values()))
+        best = sorted(rs, key=lambda r: sum(r.values()))[1]
         out[name] = dict(ms=sum(best.values()), readings_ms=[sum(r.values()) for r in rs],
                          passes_ms=best)
     return out
@@ -2656,11 +2812,14 @@ def phase_2d_journey(args, work: str) -> dict:
     """The 2-D journey at PI-CAI22: HDenseFormer_2D_32 trains one epoch of fold
     1 of 3 on JOURNEY_SLICES synthetic slice cases (``.npy`` directories, the
     trainer with the preset's host transforms 1, 6, 7, 10); then
-    ``predict_case_2d`` of 2 synthetic volumes of 30 x 400^2 (chunks of 24
-    and 6, each slice resized to 384^2 and the labels back to 400^2): seconds
-    a volume, slices/s, and labels equal to a direct argmax of the model's
-    logits on the same preprocessed slices, resized back on the host; then
-    dice and HD95 per volume. Returns the launches of the run."""
+    ``predict_case_2d`` of 2 synthetic volumes of 30 x 400^2 (chunks of 24,
+    the last 6 padded to 24; each slice resized to 384^2 and the labels back
+    to 400^2), captured (one graph for every chunk: its warm-up and capture
+    count two forwards' launches) and eager (``capture=False``) in turns:
+    seconds a volume of each, slices/s, labels of the two equal, and equal
+    to a direct argmax of the model's logits on the same preprocessed
+    slices, chunked and padded alike, resized back on the host; then dice
+    and HD95 per volume. Returns the launches of the run."""
     from hdenseformer_tpu_torch.infer.slices import predict_case_2d, preprocess_slices
 
     t0 = time.perf_counter()
@@ -2689,47 +2848,62 @@ def phase_2d_journey(args, work: str) -> dict:
     finally:
         os.chdir(cwd)
     model = seg.state.model.eval()
-    reset_counts()
-    volumes, rows = [], []
+    volumes, rows = {"captured": [], "eager": []}, []
+    predict_counts = {}
     for i in range(2):
         image, gt = mr_slices(args.seed + 200 + i, JOURNEY_VOLUME)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pred = predict_case_2d(model, image, (SLICE, SLICE), N_CLS, SLICE_CH,
-                               slice_batch=SLICE_BATCH)
-        torch.cuda.synchronize()
-        volumes.append(time.perf_counter() - t)
+        preds = {}
+        for mode in ("captured", "eager") if i == 0 else ("eager", "captured"):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            preds[mode] = predict_case_2d(model, image, (SLICE, SLICE), N_CLS, SLICE_CH,
+                                          slice_batch=SLICE_BATCH, capture=mode == "captured")
+            torch.cuda.synchronize()
+            volumes[mode].append(time.perf_counter() - t)
+            counts = read_counts()
+            predict_counts[mode] = {k: predict_counts.get(mode, {}).get(k, 0) + v
+                                    for k, v in counts.items()}
+        pred = preds["captured"]
         rows.append(dict(dice=multi_dice(gt, pred, 1)[1], hd95=multi_hd(gt, pred, 1)[1],
-                         image=image, pred=pred))
-    predict_counts = read_counts()
-    # a direct argmax of the model's logits on the same slices, chunk by chunk
+                         image=image, pred=pred,
+                         equal_eager=bool(np.array_equal(pred, preds["eager"]))))
+    # a direct argmax of the model's logits on the same slices, chunk by chunk,
+    # the last chunk padded with zeros as predict_case_2d pads it
     direct_equal = []
     d, h, w = JOURNEY_VOLUME
     idx_h = np.minimum(np.floor(np.arange(h) * SLICE / h).astype(int), SLICE - 1)
     idx_w = np.minimum(np.floor(np.arange(w) * SLICE / w).astype(int), SLICE - 1)
+    chunks = -(-d // SLICE_BATCH)
     with torch.inference_mode():
         for row in rows:
             stack = preprocess_slices(row.pop("image"), (SLICE, SLICE), N_CLS, SLICE_CH)
+            stack = np.concatenate([stack, np.zeros((chunks * SLICE_BATCH - d,)
+                                                    + stack.shape[1:], stack.dtype)])
             labels = np.concatenate([
                 model(torch.from_numpy(stack[s:s + SLICE_BATCH]).cuda())[0].float()
-                .argmax(-1).cpu().numpy() for s in range(0, d, SLICE_BATCH)])
+                .argmax(-1).cpu().numpy() for s in range(0, len(stack), SLICE_BATCH)])[:d]
             direct = labels[:, idx_h[:, None], idx_w[None, :]].astype(np.uint8)
             direct_equal.append(bool(np.array_equal(direct, row.pop("pred"))))
-    chunks = -(-d // SLICE_BATCH)
-    want = {k: 2 * chunks * v for k, v in hdf2d_expect(args).items()}
+    forward = hdf2d_expect(args)
+    want = {"captured": {k: 2 * v for k, v in forward.items()},
+            "eager": {k: 2 * chunks * v for k, v in forward.items()}}
     rec = dict(net="HDenseFormer_2D_32", case_format="npy", slices=JOURNEY_SLICES,
                train_cases=len(train), val_cases=len(val), epochs=epochs, train_s=train_s,
                launches_train_captured=train_counts, volume=[SLICE_CH, *JOURNEY_VOLUME],
-               seconds_per_volume=volumes, slices_per_s=[d / s for s in volumes],
+               seconds_per_volume=volumes["captured"], eager_seconds_per_volume=volumes["eager"],
+               slices_per_s=[d / s for s in volumes["captured"]],
                launches_predict=predict_counts, labels_equal_direct_argmax=direct_equal,
                eval_rows=rows, seconds=time.perf_counter() - t0)
     emit("journey_2d", **rec)
-    if predict_counts != want or not all(direct_equal):
+    if (predict_counts != want or not all(direct_equal)
+            or not all(r["equal_eager"] for r in rows)):
         fail(f"predict_case_2d launched {predict_counts} (expected {want}); labels equal to "
-             f"the direct argmax: {direct_equal}")
+             f"the direct argmax: {direct_equal}, captured equal to eager: "
+             f"{[r['equal_eager'] for r in rows]}")
     if not np.isfinite(epochs[0]["train_loss"]) or len(rows) != 2:
         fail(f"the 2-D journey: epochs {epochs}, eval rows {rows}")
-    return {k: train_counts[k] + predict_counts[k] for k in KERNELS}
+    return {k: train_counts[k] + predict_counts["captured"][k] for k in KERNELS}
 
 
 def npy_reader(path: str, key: str) -> np.ndarray:

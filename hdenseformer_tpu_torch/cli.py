@@ -239,7 +239,7 @@ def run_predict_2d(cfg, args) -> list:
     written = eval_dir_2d(
         state.model, args.test_path or cfg.test_path, save_path,
         input_shape=cfg.input_shape, num_classes=cfg.num_classes,
-        channels=cfg.channels, img_key=cfg.keys[0],
+        channels=cfg.channels, img_key=cfg.keys[0], capture=seg.capture,
     )
     print(f"wrote {len(written)} prediction volumes to {save_path}")
     return written

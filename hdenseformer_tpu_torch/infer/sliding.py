@@ -5,34 +5,45 @@ Counterpart of ``hdenseformer_tpu/infer/sliding.py``:
 - the same nnUNet-style window grid (``cal_steps``), gaussian importance map
   (``get_gaussian``, off by default) and lattice padding
   (``_lattice_pad_targets``), copied exactly;
-- the volume lives on the device; windows are sliced from it,
-  ``window_batch`` at a time, and the tail of the origin list is padded with
-  zero-weight windows so every model call has the same batch;
+- the volume lives on the device; windows are gathered from it by origins
+  that are device data, ``window_batch`` at a time, and the tail of the
+  origin list is padded with zero-weight windows so every model call has
+  the same batch;
 - each window's full-resolution logits are softmaxed in fp32 and
   accumulated with no visit-count accumulator: the count (and the gaussian
   weight) is the same for every class at a voxel, so it cannot change the
   argmax;
 - the argmax is taken on the device and shipped to the host as uint8.
 
-JAX scans the windows inside one executable. On a card the port captures
-the model's forward and the fp32 softmax of one window batch as a CUDA
-graph per (model, window-batch shape) on a static input buffer
-(``utils.graphs``), kept with the model, and every batch of every volume
-replays it; the slicing of the windows and the accumulation stay Python
-around it (eight slices and eight adds a batch of 8). ``capture=False``, the
-CPU and a ``mesh`` run the eager forward. With a data-parallel ``mesh``
-(``parallel/mesh.py``: one process a card) the origin list is padded to
-``n_batches * world * window_batch`` and each rank runs its contiguous
-share; the ranks' fp32 accumulators are summed by ``all_reduce`` and every
-rank takes the same argmax, as JAX's ``psum`` over its shard-mapped windows.
+JAX compiles the whole call into one executable per lattice cell, the
+origins traced data. The port's call is one body (``_call_body``): the
+accumulator zeroed, for each window batch the gather by device offsets
+(origin plus ``arange(patch)`` a dim), the forward, the weighted fp32
+probabilities added window by window at the same offsets, then the argmax
+and the uint8 cast; under a mesh the accumulator's ``all_reduce`` sits
+before the argmax, as JAX's ``psum`` in its ``shard_map``. No step reads a
+value on the host. With ``capture`` (the default) the body runs as a
+``utils.graphs.CapturedCall`` kept with the model (``model_graphs``), one
+per (padded shape, channels, window count, window batch, gaussian, patch,
+classes): on a card one CUDA graph replayed by every volume of the cell,
+the volume, origins and weights copied into its static buffers; on the CPU
+the same body on the same static buffers, without a graph.
+``capture=False`` runs the body on fresh tensors. The crop and the copy to
+the host stay outside, as JAX crops on the host.
+
+With a data-parallel ``mesh`` (``parallel/mesh.py``: one process a card)
+the origin list is padded to ``n_batches * world * window_batch`` and each
+rank runs its contiguous share; the ranks' fp32 accumulators are summed by
+``all_reduce`` and every rank takes the same argmax. On a card the mesh's
+call is captured with its ``all_reduce`` under NCCL; under gloo the caller
+passes ``capture=False`` (``parallel.mesh.check_capturable``).
 """
 from __future__ import annotations
 
 import glob
-import itertools
 import os
 import weakref
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,12 +51,8 @@ import torch.distributed as dist
 
 from hdenseformer_tpu_torch.data.io import hdf5_reader, write_nifti
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
-from hdenseformer_tpu_torch.utils.graphs import CapturedCall, GraphCache, batch_key
-
-# each model's captured window forwards; a graph holds no reference to its
-# model, so both go when the model does
-_WINDOW_GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = (
-    weakref.WeakKeyDictionary())
+from hdenseformer_tpu_torch.parallel.mesh import check_capturable
+from hdenseformer_tpu_torch.utils.graphs import CapturedCall, batch_key, model_graphs
 
 
 def cal_steps(
@@ -111,23 +118,77 @@ def _window_probs(model: torch.nn.Module, windows: torch.Tensor) -> torch.Tensor
     return torch.softmax(logits.float(), dim=-1)
 
 
-def _captured_probs(model: torch.nn.Module, windows: torch.Tensor) -> torch.Tensor:
-    """``_window_probs`` replayed from the model's graph of this window-batch
-    shape (captured at its first call). A graph reads the parameters and
-    buffers at the addresses they had at its capture: where they were
-    rebound since (``.to(dtype)``, ``load_state_dict(assign=True)``), the
-    model's graphs are dropped and captured anew."""
-    tensors = tuple((t.data_ptr(), t.dtype)
-                    for t in itertools.chain(model.parameters(), model.buffers()))
-    graphs = _WINDOW_GRAPHS.get(model)
-    if graphs is None or any(key[2] != tensors for key in graphs.calls):
-        graphs = _WINDOW_GRAPHS[model] = GraphCache()
-    batch = {"windows": windows}
+def _window_index(origins: torch.Tensor, patch_size: Sequence[int]) -> tuple:
+    """One index tensor a spatial dim of the voxels of ``origins``' (n, nsp)
+    windows, each window's origin (on the device) plus ``arange(patch)``,
+    shaped to broadcast to (n, *patch)."""
+    n, nsp = origins.shape[0], len(patch_size)
+    index = []
+    for d, p in enumerate(patch_size):
+        shape = [n] + [1] * nsp
+        shape[1 + d] = p
+        index.append((origins[:, d, None] + torch.arange(p, device=origins.device))
+                     .view(shape))
+    return tuple(index)
+
+
+def _call_body(model: torch.nn.Module, static: Dict[str, torch.Tensor],
+               patch_size: Sequence[int], num_classes: int, wb: int, mesh,
+               output: str) -> Dict[str, torch.Tensor]:
+    """The whole sliding-window call on ``static``: "volume" (*spatial, C),
+    "origins" (Nw, nsp) int64, "weights" (Nw,) and optionally "importance"
+    (*patch). ``output`` "acc" returns the accumulator, "labels" its argmax
+    as uint8 (after the mesh's ``all_reduce`` where ``mesh`` reduces)."""
+    volume, origins, weights = static["volume"], static["origins"], static["weights"]
+    importance = static.get("importance")
+    acc = torch.zeros(tuple(volume.shape[:-1]) + (num_classes,), dtype=torch.float32,
+                      device=volume.device)
+    ones = (1,) * (len(patch_size) + 1)
+    for start in range(0, origins.shape[0], wb):
+        index = _window_index(origins[start:start + wb], patch_size)
+        probs = _window_probs(model, volume[index])
+        contrib = probs * weights[start:start + wb].view((-1,) + ones)
+        if importance is not None:
+            contrib = contrib * importance[..., None]
+        for i in range(contrib.shape[0]):  # windows of a batch may overlap: one at a time
+            box = tuple(t[i] for t in index)
+            acc[box] += contrib[i]
+    if output == "acc":
+        return {"acc": acc}
+    if mesh is not None and mesh.reduces:
+        dist.all_reduce(acc)
+    return {"labels": acc.argmax(dim=-1).to(torch.uint8)}
+
+
+def _captured(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+              patch_size: Sequence[int], num_classes: int, wb: int, mesh,
+              output: str) -> CapturedCall:
+    """The model's ``_call_body`` call of ``batch``'s shapes (a lattice
+    cell), made at its first use; ``batch``'s tensors give only the shapes
+    and dtypes (meta tensors will do)."""
+    device = next(model.parameters()).device
+    check_capturable(mesh)
+    # every rank of a mesh serves the same volume: one key, captured on the same call
+    key = ("sliding", output, tuple(patch_size), num_classes, wb, model.training,
+           mesh is not None and mesh.reduces) + batch_key(batch)
     ref = weakref.ref(model)  # the body runs at warm-up and capture only
-    key = ("windows", model.training, tensors) + batch_key(batch)
-    call = graphs.get(key, lambda pool: CapturedCall(
-        lambda static: {"probs": _window_probs(ref(), static["windows"])}, batch, pool=pool))
-    return call.replay(batch)["probs"]
+
+    def make(pool) -> CapturedCall:
+        example = {n: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                   for n, v in batch.items()}
+        return CapturedCall(lambda static: _call_body(ref(), static, patch_size, num_classes,
+                                                      wb, mesh, output), example, pool=pool)
+
+    return model_graphs(model).get(key, make)
+
+
+def _window_batch(origins: np.ndarray, weights: np.ndarray,
+                  importance: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    batch = {"origins": torch.from_numpy(np.asarray(origins, np.int64)),
+             "weights": torch.from_numpy(np.asarray(weights, np.float32))}
+    if importance is not None:
+        batch["importance"] = importance
+    return batch
 
 
 @torch.inference_mode()
@@ -147,29 +208,33 @@ def accumulate_windows(
     ``image`` is the (D, H, W, C) volume on the device; ``origins`` (Nw, 3)
     and ``weights`` (Nw,) are host arrays with Nw a multiple of
     ``window_batch``. A zero-weight window runs through the model with its
-    batch and adds nothing. On a card with ``capture`` each window batch is
-    one replay of the model's captured forward.
+    batch and adds nothing. ``predict_volume``'s body without the argmax;
+    with ``capture`` on a card one replay of its graph.
     """
     if len(origins) % window_batch:
         raise ValueError(f"{len(origins)} origins are not a multiple of {window_batch}")
-    acc = torch.zeros(tuple(image.shape[:-1]) + (num_classes,), dtype=torch.float32,
-                      device=image.device)
-    imp = None if importance is None else importance[..., None]
-    forward = _captured_probs if capture and image.device.type == "cuda" else _window_probs
-    for start in range(0, len(origins), window_batch):
-        boxes = [
-            tuple(slice(int(o), int(o) + p) for o, p in zip(origin, patch_size))
-            for origin in origins[start:start + window_batch]
-        ]
-        probs = forward(model, torch.stack([image[box] for box in boxes]))
-        for i, (box, w) in enumerate(zip(boxes, weights[start:start + window_batch])):
-            if w == 0:
-                continue
-            contrib = probs[i] * float(w)
-            if imp is not None:
-                contrib = contrib * imp
-            acc[box].add_(contrib)
-    return acc
+    batch = dict(volume=image, **_window_batch(origins, weights, importance))
+    if capture:
+        call = _captured(model, batch, patch_size, num_classes, window_batch, None, "acc")
+        return call.replay(batch)["acc"]
+    return _call_body(model, {n: v.to(image.device) for n, v in batch.items()}, patch_size,
+                      num_classes, window_batch, None, "acc")["acc"]
+
+
+def _host_volume(call: CapturedCall, image: np.ndarray) -> torch.Tensor:
+    """The (C, *spatial) ``image`` channels-last in the call's host buffer of
+    its padded volume (pinned on a card; made at the call's first use), the
+    rest of the buffer zeroed: a larger volume of the same cell may have
+    filled it before."""
+    if not hasattr(call, "host_volume"):
+        v = call.static["volume"]
+        call.host_volume = torch.empty(v.shape, dtype=v.dtype, pin_memory=call.on_card)
+    buf = call.host_volume.numpy()
+    spatial = image.shape[1:]
+    buf[tuple(slice(0, s) for s in spatial)] = np.moveaxis(image, 0, -1)
+    for d, s in enumerate(spatial):
+        buf[(slice(None),) * d + (slice(s, None),)] = 0
+    return call.host_volume
 
 
 def predict_volume(
@@ -194,27 +259,23 @@ def predict_volume(
     computed on the original size, so windows never read the pad and the
     labels are those of the unpadded run. With ``mesh`` (every rank calls
     with the same volume) each rank runs its share of the windows and all
-    return the labels of the whole volume. ``capture`` (on a card, without
-    ``mesh``) replays the model's captured window forward
-    (``accumulate_windows``).
+    return the labels of the whole volume. ``capture`` replays the model's
+    graph of the volume's lattice cell on a card (module docstring); under
+    a gloo mesh on a card it raises: pass ``capture=False``.
     """
     device = next(model.parameters()).device
     patch_size = tuple(patch_size)
-    image_cl = np.moveaxis(np.asarray(image, np.float32), 0, -1)  # (D, H, W, C)
-    orig_spatial = image_cl.shape[:-1]
+    image = np.asarray(image, np.float32)
+    orig_spatial = image.shape[1:]
     if pad_to_lattice:
         tgt = _lattice_pad_targets(orig_spatial, patch_size, step_size)
     else:
         tgt = [max(p, s) for p, s in zip(patch_size, orig_spatial)]
-    volume = torch.zeros(tuple(tgt) + image_cl.shape[-1:], dtype=torch.float32, device=device)
     crop = tuple(slice(0, s) for s in orig_spatial)
-    volume[crop] = torch.from_numpy(np.ascontiguousarray(image_cl)).to(device)
 
     origins = _origins_array(cal_steps(orig_spatial, patch_size, step_size))
     weights = np.ones((origins.shape[0],), np.float32)
-    importance = (
-        torch.from_numpy(get_gaussian(patch_size)).to(device) if use_gaussian else None
-    )
+    importance = torch.from_numpy(get_gaussian(patch_size)) if use_gaussian else None
     n_dev = 1 if mesh is None else mesh.world_size
     # clamp wb to a rank's window count: a larger batch only adds zero-weight windows
     wb = max(1, min(window_batch, -(-len(origins) // n_dev)))
@@ -227,13 +288,21 @@ def predict_volume(
         share = slice(mesh.rank * n_batches * wb, (mesh.rank + 1) * n_batches * wb)
         origins, weights = origins[share], weights[share]
 
-    acc = accumulate_windows(model, volume, origins, weights, patch_size, num_classes,
-                             importance, wb, capture=capture and mesh is None)
-    if n_dev > 1:
-        with torch.inference_mode():  # acc is an inference tensor
-            dist.all_reduce(acc)
-    labels = acc.argmax(dim=-1).to(torch.uint8).cpu().numpy()
-    return labels[crop].astype(np.int32)
+    batch = _window_batch(origins, weights, importance)
+    batch["volume"] = torch.empty(tuple(tgt) + image.shape[:1], device="meta")
+    with torch.inference_mode():
+        if capture:
+            call = _captured(model, batch, patch_size, num_classes, wb, mesh, "labels")
+            batch["volume"] = _host_volume(call, image)
+            labels = call.replay(batch)["labels"]
+        else:
+            volume = torch.zeros(batch["volume"].shape, dtype=torch.float32, device=device)
+            volume[crop] = torch.from_numpy(np.ascontiguousarray(np.moveaxis(image, 0, -1))
+                                            ).to(device)
+            batch = {n: v.to(device) for n, v in dict(batch, volume=volume).items()}
+            labels = _call_body(model, batch, patch_size, num_classes, wb, mesh,
+                                "labels")["labels"]
+    return labels.cpu().numpy()[crop].astype(np.int32)
 
 
 def inference_slidingwindow(

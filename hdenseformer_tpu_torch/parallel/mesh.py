@@ -34,7 +34,15 @@ gloo (which has no CUDA all-gather: ``global_cat`` is an all-reduce of a
 zero-padded buffer).
 
 Outside a mesh, or with one process, every helper is the identity and the
-port computes exactly what it computes without this module.
+port computes exactly what it computes without this module. A mesh made
+with ``always_reduce`` runs the collectives at world size 1 too (each one
+the identity): how one card exercises a data-parallel step's collectives.
+
+On a card the data-parallel steps and ``predict_volume(mesh=...)`` are
+captured as CUDA graphs with their collectives inside, JAX's one SPMD
+program a step (``utils/graphs.py``). NCCL's collectives capture; gloo's
+run through the host and cannot, so a capture under gloo on a card raises
+(``check_capturable``): the caller passes ``capture=False``.
 """
 from __future__ import annotations
 
@@ -54,10 +62,18 @@ class Mesh:
     group): ``rank``, ``world_size`` and ``device``. ``with mesh:`` makes the
     batch reductions of the block global (module docstring)."""
 
-    def __init__(self, rank: int, world_size: int, device: torch.device):
+    def __init__(self, rank: int, world_size: int, device: torch.device,
+                 always_reduce: bool = False):
         self.rank, self.world_size = rank, world_size
         self.device = torch.device(device)
+        self.always_reduce = always_reduce
         self._tokens: List[contextvars.Token] = []
+
+    @property
+    def reduces(self) -> bool:
+        """Whether the block's reductions run the collectives: with more
+        than one rank, or with ``always_reduce``."""
+        return self.world_size > 1 or self.always_reduce
 
     def __enter__(self) -> "Mesh":
         self._tokens.append(_ACTIVE.set(self))
@@ -80,10 +96,23 @@ class Mesh:
 
 
 def active_mesh() -> Optional[Mesh]:
-    """The mesh of the enclosing ``with mesh:`` block with more than one
-    rank, else None."""
+    """The mesh of the enclosing ``with mesh:`` block where it reduces (more
+    than one rank, or ``always_reduce``), else None."""
     mesh = _ACTIVE.get()
-    return mesh if mesh is not None and mesh.world_size > 1 else None
+    return mesh if mesh is not None and mesh.reduces else None
+
+
+def check_capturable(mesh: Optional[Mesh]) -> None:
+    """Raise where a CUDA graph would hold collectives it cannot capture: a
+    reducing ``mesh`` on a card whose backend is not NCCL (gloo's
+    collectives run through the host)."""
+    if mesh is None or not mesh.reduces or mesh.device.type != "cuda":
+        return
+    backend = dist.get_backend() if dist.is_initialized() else None
+    if backend != "nccl":
+        raise RuntimeError(
+            f"a CUDA graph cannot capture the {backend} backend's collectives (they run "
+            "through the host): pass capture=False, or use NCCL on the card")
 
 
 def _local_rank() -> int:
@@ -160,19 +189,21 @@ def local_mesh_devices(n: Optional[int] = None) -> list:
     return devs
 
 
-def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, device=None,
+              always_reduce: bool = False) -> Mesh:
     """The data-parallel mesh of this process over the default process
     group (one process of one rank where none is initialised).
     ``n_devices`` None takes the world as it is; any other value must be the
     world size. ``device`` is this rank's (``local_device``: None is the
-    card, and raises without one; ``"cpu"`` is the host)."""
+    card, and raises without one; ``"cpu"`` is the host). ``always_reduce``
+    runs the collectives at world size 1 too (``Mesh``)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices is not None and n_devices != world:
         raise ValueError(
             f"a mesh of {n_devices} devices needs {n_devices} processes, one a device "
             f"(torchrun --nproc-per-node {n_devices}), but the world has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    return Mesh(rank, world, local_device(device))
+    return Mesh(rank, world, local_device(device), always_reduce)
 
 
 def shard_batch(mesh: Mesh, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -259,7 +290,7 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> No
     """Average the gradients of ``params`` over the mesh's ranks, in place,
     as one flat all-reduce."""
     grads = [p.grad for p in params if p.grad is not None]
-    if mesh.world_size == 1 or not grads:
+    if not mesh.reduces or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)

@@ -72,9 +72,12 @@ each step of a (model, optimizer, batch shape) is captured once, remat
 included, train and eval graphs in one memory pool, and every batch is
 copied into the graph's buffers and replayed, the generators seeded per
 step as above; an epoch prints the graphs it captured (with
-``device_augment`` the raw cases' shapes set them). ``SemanticSeg(capture=
-False)`` runs the eager steps instead; on the CPU and under a mesh the
-steps are eager. Checkpoints hold the optimizer's state as a plain
+``device_augment`` the raw cases' shapes set them). Under a data-parallel
+mesh the steps are captured with their collectives inside, JAX's one SPMD
+program a step, where the backend is NCCL; under gloo on a card a
+captured step raises (``SemanticSeg(capture=False)`` then). ``SemanticSeg(
+capture=False)`` runs the eager steps; on the CPU the steps are eager.
+Checkpoints hold the optimizer's state as a plain
 optimizer's (``train.state.plain_state_dict``), so a captured run resumes
 on the CPU. ``make_multi_train_step`` is JAX's K steps in one dispatch: on
 a card, the captured step replayed K times.
@@ -132,6 +135,7 @@ from hdenseformer_tpu_torch.parallel.mesh import (
     Mesh,
     active_mesh,
     all_reduce_gradients,
+    check_capturable,
     make_mesh,
     shard_batch,
 )
@@ -251,9 +255,17 @@ class CapturedTrainStep:
     still reaches them), warms up and captures (``utils.graphs.CapturedCall``,
     remat's recompute included); every call copies its batch into the
     graph's buffers and replays. Graphs live in ``graphs``, a
-    ``utils.graphs.GraphCache`` that the eval step may share. On the CPU and
-    under a data-parallel mesh (the collectives run eagerly) it is the eager
-    step.
+    ``utils.graphs.GraphCache`` that the eval step may share. On the CPU it
+    is the eager step.
+
+    Under a data-parallel mesh (NCCL) the graph holds the step's collectives:
+    the global sums of the loss, dice, confusion matrix and BatchNorm
+    statistics, forward and backward, and the gradients' all-reduce. Every
+    rank captures on the same call: its key holds the shapes of
+    ``pad_and_mask_batch``'s share, the same on every rank, and the
+    warm-up's whole step (collectives included, the NCCL communicator made
+    there) runs on every rank in lockstep. Under gloo on a card it raises
+    (``parallel.mesh.check_capturable``).
     """
 
     def __init__(self, criterion, num_classes: int, augment_fn=None,
@@ -264,7 +276,7 @@ class CapturedTrainStep:
 
     def __call__(self, state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                  augment_generator: Optional[torch.Generator] = None):
-        if batch["image"].device.type != "cuda" or active_mesh() is not None:
+        if batch["image"].device.type != "cuda":
             return self.eager(state, batch, generator, augment_generator)
         out = self.prepare(state, batch, generator, augment_generator).replay(batch)
         state.step += 1
@@ -275,6 +287,7 @@ class CapturedTrainStep:
         """The captured call for this state, generators and batch shape,
         made and warmed up at its first use (on the CPU the body runs
         directly at each ``replay``)."""
+        check_capturable(active_mesh())
         key = ("train", id(state.model), id(state.optimizer), id(generator),
                id(augment_generator)) + batch_key(batch)
 
@@ -296,20 +309,24 @@ class CapturedTrainStep:
 class CapturedEvalStep:
     """``make_eval_step``'s step (eval-mode forward, loss, dice and
     confusion matrix, no gradient), on a card captured as a CUDA graph per
-    (model, batch names, shapes, dtypes) and replayed; on the CPU and under
-    a mesh the eager step."""
+    (model, batch names, shapes, dtypes) and replayed, under an NCCL mesh
+    with its global sums inside (as ``CapturedTrainStep``); on the CPU the
+    eager step. ``prepare`` gives the call, as the train step's."""
 
     def __init__(self, criterion, num_classes: int, graphs: Optional[GraphCache] = None):
         self.eager = make_eval_step(criterion, num_classes)
         self.graphs = GraphCache() if graphs is None else graphs
 
     def __call__(self, state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        if batch["image"].device.type != "cuda" or active_mesh() is not None:
+        if batch["image"].device.type != "cuda":
             return self.eager(state, batch)
+        return self.prepare(state, batch).replay(batch)
+
+    def prepare(self, state: TrainState, batch: Dict) -> CapturedCall:
+        check_capturable(active_mesh())
         key = ("eval", id(state.model)) + batch_key(batch)
-        call = self.graphs.get(key, lambda pool: CapturedCall(
+        return self.graphs.get(key, lambda pool: CapturedCall(
             lambda static: self.eager(state, static), batch, pool=pool))
-        return call.replay(batch)
 
 
 class MultiTrainStep:
@@ -326,10 +343,10 @@ class MultiTrainStep:
     equal K calls of ``make_train_step`` seeded so.
 
     On a card each step is one replay of ``CapturedTrainStep``'s graph, with
-    no Python between the launches of a step; on the CPU and under a
-    data-parallel mesh the eager step runs K times. The kernel wrappers run
-    their Python at the warm-up and the capture only, so their launch counts
-    grow by those steps' launches, once.
+    no Python between the launches of a step, under an NCCL mesh with its
+    collectives inside; on the CPU the eager step runs K times. The kernel
+    wrappers run their Python at the warm-up and the capture only, so their
+    launch counts grow by those steps' launches, once.
     """
 
     def __init__(self, criterion, num_classes: int, augment_fn=None):
@@ -495,9 +512,11 @@ class SemanticSeg:
 
     ``reader(path, key)`` reads one volume of a case file, for training and
     inference alike (``hdf5_reader``); a subclass may read another format.
-    ``capture`` (the port's own knob) runs the train and eval steps and
-    ``inference_slidingwindow``'s window forward as CUDA graphs on a card;
-    False runs them eagerly, to compare the two.
+    ``capture`` (the port's own knob) runs the train and eval steps,
+    ``inference_slidingwindow``'s whole call per lattice cell and
+    ``-m predict-2d``'s slice chunks as CUDA graphs on a card, under a
+    data-parallel mesh with NCCL's collectives inside; False runs them
+    eagerly, to compare the two, and is required under gloo on a card.
     """
 
     reader = staticmethod(hdf5_reader)

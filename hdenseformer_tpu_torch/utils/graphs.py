@@ -33,11 +33,25 @@ pool: a run's train and eval graphs never run at once, and separate pools
 would add their peaks. A graph keeps the addresses of the tensors it reads
 and writes: an optimizer state loaded after its capture (``load_state_dict``
 makes new tensors) needs a new cache, so the trainer captures only after
-``load_pretrained``.
+``load_pretrained``. ``model_graphs`` is a model's serving cache (the
+sliding-window call per lattice cell, the 2-D slice chunks), dropped when
+the model's parameters are rebound.
+
+Under a data-parallel mesh whose backend is NCCL the collectives of a body
+are captured with it (``parallel.mesh.check_capturable`` refuses gloo on a
+card). Every rank must then capture on the same call, or one rank captures
+while another replays and the collectives never meet: the callers key their
+graphs by shapes that agree on every rank (``pad_and_mask_batch``'s global
+batch shapes, the lattice cell of a volume every rank serves), and each
+rank's warm-up runs its collectives in the same order, which also creates
+the NCCL communicator before the capture.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
+import weakref
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -115,9 +129,15 @@ class CapturedCall:
         opt.zero_grad(set_to_none=True)
 
     def capture(self) -> None:
-        """Capture the body once (on a card; nothing on the CPU)."""
+        """Capture the body once (on a card; nothing on the CPU). Python's
+        cyclic garbage is collected first: a dead call left in a reference
+        cycle (a step and the cache that holds its graphs refer to each
+        other) still holds its CUDA graph, and were the collector to destroy
+        that graph while the stream captures, the capture would be
+        invalidated."""
         if self.graph is not None or not self.on_card:
             return
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
@@ -147,6 +167,7 @@ class GraphCache:
     def __init__(self):
         self.calls: Dict[tuple, CapturedCall] = {}
         self.pool = None
+        self.tensors: tuple = ()  # model_graphs: the addresses the graphs read
 
     @property
     def captured(self) -> int:
@@ -160,3 +181,23 @@ class GraphCache:
                 self.pool = torch.cuda.graph_pool_handle()
             call = self.calls[key] = make(self.pool)
         return call
+
+
+# each model's serving graphs; a graph holds no reference to its model, so
+# both go when the model does
+_MODEL_GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = (
+    weakref.WeakKeyDictionary())
+
+
+def model_graphs(model: torch.nn.Module) -> GraphCache:
+    """The model's serving graphs. A graph reads the parameters and buffers
+    at the addresses they had at its capture: where they were rebound since
+    (``.to(dtype)``, ``load_state_dict(assign=True)``), the model's graphs
+    are dropped and a new cache made."""
+    tensors = tuple((t.data_ptr(), t.dtype)
+                    for t in itertools.chain(model.parameters(), model.buffers()))
+    graphs = _MODEL_GRAPHS.get(model)
+    if graphs is None or graphs.tensors != tensors:
+        graphs = _MODEL_GRAPHS[model] = GraphCache()
+        graphs.tensors = tensors
+    return graphs

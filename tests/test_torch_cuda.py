@@ -11,6 +11,7 @@ convolution otherwise runs in TF32 on the card.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1293,7 +1294,11 @@ def test_captured_steps_equal_eager_for_each_optimizer(cuda, deterministic_cudnn
     _hold_captured_against_eager(cuda, "HDenseFormer_16", (32,) * 3, None, optimizer)
 
 
-def _hold_captured_against_eager(cuda, name, shape, encoder, optimizer):
+def _hold_captured_against_eager(cuda, name, shape, encoder, optimizer, mesh=None):
+    """The bars above; under ``mesh`` every step and eval of the three runs
+    runs inside it."""
+    import contextlib
+
     from hdenseformer_tpu_torch.train.loop import (
         CapturedEvalStep,
         CapturedTrainStep,
@@ -1315,15 +1320,16 @@ def _hold_captured_against_eager(cuda, name, shape, encoder, optimizer):
                    if b.is_floating_point()}
         step = CapturedTrainStep(crit, 2, graphs=graphs) if captured else make_train_step(crit, 2)
         gens, losses = (torch.Generator(device=cuda), None), []
-        for batch in data:
-            seed_generators(gens, 7, state.step)
-            state, out = step(state, batch, *gens)
-            losses.append(out["loss"])
-        evaluate = CapturedEvalStep(crit, 2, graphs) if captured else make_eval_step(crit, 2)
-        runs[run] = dict(state=state, losses=torch.stack(losses).tolist(), initial=initial,
-                         graphs=graphs, eval=evaluate(state, batches[0]),
-                         eager_eval=make_eval_step(crit, 2)(state, batches[0]),
-                         buffers=dict(state.model.named_buffers()))
+        with mesh or contextlib.nullcontext():
+            for batch in data:
+                seed_generators(gens, 7, state.step)
+                state, out = step(state, batch, *gens)
+                losses.append(out["loss"])
+            evaluate = CapturedEvalStep(crit, 2, graphs) if captured else make_eval_step(crit, 2)
+            runs[run] = dict(state=state, losses=torch.stack(losses).tolist(), initial=initial,
+                             graphs=graphs, eval=evaluate(state, batches[0]),
+                             eager_eval=make_eval_step(crit, 2)(state, batches[0]),
+                             buffers=dict(state.model.named_buffers()))
     cap, eager, mov = runs["captured"], runs["eager"], runs["moved"]
     assert cap["graphs"].captured == 2 and cap["state"].step == eager["state"].step == 2
     torch.testing.assert_close(cap["losses"][0], eager["losses"][0], rtol=1e-6, atol=0)
@@ -1416,75 +1422,229 @@ def test_remat_under_capture_draws_the_forward_masks(cuda, deterministic_cudnn, 
 
 
 def test_captured_predict_volume_equals_eager(cuda):
-    """``predict_volume`` with its captured window forward (the default on a
-    card) against ``capture=False``: HDenseFormer_16 (32^3 patches, depth 4)
-    on a 2 x 48 x 40 x 44 volume, window batch 4 (the last batch padded):
-    the labels equal wherever the eager accumulator's top-two margin
-    exceeds 0.1 and on at least 99.9 % of the voxels; a second volume of
-    the same lattice replays the model's one graph."""
+    """``predict_volume``'s whole call captured as one graph of the lattice
+    cell (the default on a card) against ``capture=False``: HDenseFormer_16
+    (32^3 patches, depth 4) on two 2 x 48 x 40 x 44 volumes, window batch 4
+    (the last batch padded): the labels equal on every voxel (the same
+    kernels on the same inputs); the second volume replays the model's one
+    graph."""
     from hdenseformer_tpu_torch.infer import sliding
-    from hdenseformer_tpu_torch.models import get_net
-    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.utils.graphs import model_graphs
 
-    net = get_net("HDenseFormer_16", 2, 2, (32,) * 3, transformer_depth=4, device=cuda)
-    init_weights(net, torch.Generator().manual_seed(0))
+    net = _serving_net(cuda)
     rng = torch.Generator().manual_seed(2)
     volumes = [torch.randn(2, 48, 40, 44, generator=rng).numpy() for _ in range(2)]
     for image in volumes:
         got = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4)
         want = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
                                       capture=False)
-        acc = _eager_accumulator(net, image)
-        top = acc.topk(2, dim=-1).values
-        decided = (top[..., 0] - top[..., 1] > 0.1).cpu().numpy()
         assert got.shape == want.shape == image.shape[1:]
-        assert (got == want)[decided].all() and (got == want).mean() >= 0.999
-    assert sliding._WINDOW_GRAPHS[net].captured == 1
+        assert (got == want).all()
+    assert model_graphs(net).captured == 1
 
 
-def test_captured_window_forward_follows_rebound_parameters(cuda):
-    """A model whose parameters are rebound after its first captured window
-    forward (``load_state_dict(assign=True)``, the head's class-1 bias moved
-    by 2, the old tensors still alive, so that a stale graph would read
-    them) is captured anew: its probabilities equal the eager forward's of
-    the new weights within 1e-4, and differ from the old ones by more than
-    0.05; the model holds one graph, the new one."""
-    from hdenseformer_tpu_torch.infer import sliding
+def _serving_net(cuda):
     from hdenseformer_tpu_torch.models import get_net
     from hdenseformer_tpu_torch.models.layers import init_weights
 
-    net = get_net("HDenseFormer_16", 2, 2, (32,) * 3, transformer_depth=4, device=cuda).eval()
+    net = get_net("HDenseFormer_16", 2, 2, (32,) * 3, transformer_depth=4, device=cuda)
     init_weights(net, torch.Generator().manual_seed(0))
-    windows = torch.randn(4, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(2),
-                          device=cuda)
+    return net
+
+
+def test_serving_graph_reads_zeros_in_the_pad_after_a_larger_volume(cuda):
+    """The stale-pad trap on the card: 44 x 40 x 20 after 48 x 48 x 32 (one
+    lattice cell: 48 x 48 x 32, 4 windows), whose windows read the 12 pad
+    slices that the larger volume (values around 3) filled in the graph's
+    buffers: each equal to ``capture=False`` on every voxel, one graph."""
+    from hdenseformer_tpu_torch.infer import sliding
+    from hdenseformer_tpu_torch.utils.graphs import model_graphs
+
+    net = _serving_net(cuda)
+    rng = torch.Generator().manual_seed(3)
+    big = 3.0 + torch.randn(2, 48, 48, 32, generator=rng).numpy()
+    short = torch.randn(2, 44, 40, 20, generator=rng).numpy()
+    for image in (big, short):
+        got = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4)
+        want = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                      capture=False)
+        assert got.shape == image.shape[1:] and (got == want).all()
+    assert model_graphs(net).captured == 1
+
+
+def test_serving_graph_is_one_launch_a_call(cuda):
+    """A warm captured ``predict_volume`` call issues one graph launch and no
+    kernel launch (the volume, origins and weights copied in, the labels
+    out); the eager call launches its kernels one by one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdenseformer_tpu_torch.infer import sliding
+
+    net = _serving_net(cuda)
+    image = torch.randn(2, 48, 40, 44, generator=torch.Generator().manual_seed(2)).numpy()
+    counts = {}
+    for capture in (True, False):
+        sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                               capture=capture)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                   capture=capture)
+        events = {e.key: e.count for e in prof.key_averages()}
+        counts[capture] = (events.get("cudaGraphLaunch", 0),
+                           sum(n for k, n in events.items() if "LaunchKernel" in k
+                               or "LaunchCooperativeKernel" in k))
+    assert counts[True] == (1, 0), counts
+    assert counts[False][0] == 0 and counts[False][1] > 100, counts
+
+
+def test_captured_window_forward_follows_rebound_parameters(cuda):
+    """A model whose parameters are rebound after its first captured call
+    (``load_state_dict(assign=True)``, the head's class-1 bias moved by 2,
+    the old tensors still alive, so that a stale graph would read them) is
+    captured anew: the accumulator of ``accumulate_windows`` (one replay of
+    the whole-call graph) equals the eager one of the new weights within
+    1e-4, and differs from the old one by more than 0.05; the model holds
+    one graph, the new one."""
+    from hdenseformer_tpu_torch.infer import sliding
+    from hdenseformer_tpu_torch.utils.graphs import model_graphs
+
+    net = _serving_net(cuda).eval()
+    volume = torch.randn(48, 48, 48, 2, generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    origins = sliding._origins_array(sliding.cal_steps((48,) * 3, (32,) * 3, (16,) * 3))
+    args = (volume, origins, np.ones(len(origins), np.float32), (32,) * 3, 2, None, 4)
     with torch.inference_mode():
-        old = sliding._captured_probs(net, windows)
+        old = sliding.accumulate_windows(net, *args)
         kept = net.state_dict()
         new = {n: v.clone() for n, v in kept.items()}
         new["head.bias"][1] += 2.0
         net.load_state_dict(new, assign=True)
-        got = sliding._captured_probs(net, windows)
-        want = sliding._window_probs(net, windows)
+        got = sliding.accumulate_windows(net, *args)
+        want = sliding.accumulate_windows(net, *args, capture=False)
     assert float((got - want).abs().max()) <= 1e-4
     assert float((old - want).abs().max()) > 0.05
-    assert sliding._WINDOW_GRAPHS[net].captured == 1 and len(kept)
+    assert model_graphs(net).captured == 1 and len(kept)
 
 
-def _eager_accumulator(net, image):
-    import numpy as np
+def _world_of_one(backend: str, monkeypatch):
+    """A process group of one rank in this process (``tcp://`` on a free
+    local port) and its mesh on the card with ``always_reduce``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hdenseformer_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    return make_mesh(1, "cuda:0", always_reduce=True)
+
+
+def test_mesh_capture_under_gloo_on_a_card_raises(cuda, monkeypatch):
+    """gloo's collectives run through the host: under a gloo mesh on the
+    card, ``predict_volume`` and the captured train and eval steps raise an
+    error that names ``capture=False``, before any work; ``capture=False``
+    serves, and the labels equal those without a mesh."""
+    import torch.distributed as dist
+
+    from hdenseformer_tpu_torch.infer import sliding
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.train.loop import CapturedEvalStep, CapturedTrainStep, TrainState
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    net = _serving_net(cuda)
+    image = torch.randn(2, 48, 40, 44, generator=torch.Generator().manual_seed(2)).numpy()
+    mesh = _world_of_one("gloo", monkeypatch)
+    try:
+        state = TrainState(net, get_optimizer("Adam", 1e-3, params=net.parameters()))
+        crit = get_loss("FocalLoss", use_ds=True)
+        batch = {"image": torch.zeros(1, 32, 32, 32, 2, device=cuda),
+                 "label": torch.zeros(1, 32, 32, 32, 2, device=cuda)}
+        with mesh:
+            with pytest.raises(RuntimeError, match="capture=False"):
+                CapturedTrainStep(crit, 2)(state, batch, torch.Generator(device=cuda))
+            with pytest.raises(RuntimeError, match="capture=False"):
+                CapturedEvalStep(crit, 2)(state, batch)
+        with pytest.raises(RuntimeError, match="capture=False"):
+            sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4, mesh=mesh)
+        assert not state.optimizer.state
+        got = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                     mesh=mesh, capture=False)
+    finally:
+        dist.destroy_process_group()
+    want = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                  capture=False)
+    assert (got == want).all()
+
+
+@pytest.mark.parametrize("name,shape", [("HDenseFormer_16", (32,) * 3), ("da_unet", (16,) * 3)])
+def test_mesh_capture_nccl_steps_equal_eager(cuda, deterministic_cudnn, monkeypatch, name,
+                                            shape):
+    """NCCL at world 1 with ``always_reduce`` (the collectives run, each the
+    identity): the captured train and eval steps, their global sums
+    (forward and backward, BatchNorm's statistics for da_unet) and the
+    gradients' all-reduce inside the graph, against the eager steps on the
+    same mesh, at ``test_captured_train_and_eval_steps_equal_eager``'s bars."""
+    import torch.distributed as dist
+
+    mesh = _world_of_one("nccl", monkeypatch)
+    try:
+        _hold_captured_against_eager(cuda, name, shape, None, "Adam", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_capture_nccl_predict_volume_equals_eager(cuda, monkeypatch):
+    """``predict_volume(mesh=...)`` under NCCL at world 1 with
+    ``always_reduce``: the accumulator's all-reduce inside the graph; the
+    labels equal ``capture=False``'s on the same mesh and those without a
+    mesh on every voxel."""
+    import torch.distributed as dist
 
     from hdenseformer_tpu_torch.infer import sliding
 
-    image_cl = np.moveaxis(image, 0, -1)
-    spatial = image_cl.shape[:-1]
-    tgt = sliding._lattice_pad_targets(spatial, (32,) * 3, (16,) * 3)
-    volume = torch.zeros(tuple(tgt) + image_cl.shape[-1:], device="cuda")
-    volume[tuple(slice(0, s) for s in spatial)] = torch.from_numpy(
-        np.ascontiguousarray(image_cl)).cuda()
-    origins = sliding._origins_array(sliding.cal_steps(spatial, (32,) * 3, (16,) * 3))
-    acc = sliding.accumulate_windows(net, volume, origins, np.ones(len(origins), np.float32),
-                                     (32,) * 3, 2, None, 1, capture=False)
-    return acc[tuple(slice(0, s) for s in spatial)]
+    net = _serving_net(cuda)
+    image = torch.randn(2, 48, 40, 44, generator=torch.Generator().manual_seed(2)).numpy()
+    mesh = _world_of_one("nccl", monkeypatch)
+    try:
+        got = [sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4,
+                                      mesh=mesh, capture=capture) for capture in (True, False)]
+    finally:
+        dist.destroy_process_group()
+    want = sliding.predict_volume(net, image, (32,) * 3, (16,) * 3, 2, window_batch=4)
+    assert all((g == want).all() for g in got)
+
+
+def test_capture_outlives_dead_graphs_in_reference_cycles(cuda):
+    """A captured call that dies in a reference cycle keeps its CUDA graph
+    until Python's cyclic collector runs; were the collector to destroy it
+    while another call captures, that capture would be invalidated. A
+    second call whose body runs the collector (as an allocation may)
+    captures and replays: ``CapturedCall.capture`` collects first."""
+    import gc
+    import weakref
+
+    from hdenseformer_tpu_torch.utils.graphs import CapturedCall
+
+    x = torch.arange(1024.0, device=cuda)
+    old = CapturedCall(lambda s: {"y": s["x"] * 2}, {"x": x})
+    old.replay({"x": x})
+
+    def body(s):
+        gc.collect()
+        return {"y": s["x"] + 1}
+
+    call = CapturedCall(body, {"x": x})
+    cycle = [old]
+    cycle.append(cycle)  # the only reference to the old call, in a cycle
+    dead = weakref.ref(old)
+    del old, cycle
+    out = call.replay({"x": x})
+    assert dead() is None and call.graph is not None and torch.equal(out["y"], x + 1)
 
 
 def test_refused_capture_raises(cuda):

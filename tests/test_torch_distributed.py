@@ -31,9 +31,6 @@ the same bars. The two ranks' metrics and parameters are equal bit for bit.
 """
 import json
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -81,10 +78,10 @@ from torch_dp_worker import (  # noqa: E402
     build,
     criterion,
     optimizer,
+    spawn,
 )
 from torch_port_util import random_jax_variables  # noqa: E402
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {
     "batch4": dict(net="hdf2d", n=4, loss="FocalLoss", dropout=0.0, seed=0),
     "remainder": dict(net="hdf2d", n=3, loss="FocalLoss", dropout=0.0, seed=0),
@@ -147,23 +144,6 @@ def _write_cases(root) -> None:
         save_as_hdf5(ball.astype(np.uint8), str(root / "h5" / f"{pid}.hdf5"), "seg")
 
 
-def _spawn(work) -> list:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
-                   GLOO_SOCKET_IFNAME="lo",  # keep gloo on the loopback interface
-                   PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]),
-                   OMP_NUM_THREADS="2")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_dp_worker.py"), str(work)],
-            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    return procs
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Everything both worlds computed: the two ranks' (read from their
@@ -189,7 +169,7 @@ def run(tmp_path_factory):
     np.save(work / "volume.npy", volume)
     _write_cases(work)
     os.makedirs(work / "cli")
-    procs = _spawn(work)
+    procs = spawn(work)
     try:
         single, jax_runs = {}, {}
         for name, case in CASES.items():
