@@ -1,0 +1,48 @@
+"""Weights made from the run's seed, on the run's device, for both sides.
+
+One ``torch.rand`` over every parameter at once from a generator on the
+device, then each parameter's slice scaled in place: a conv or dense kernel
+U(-b, b) with b = 1 / sqrt(fan_in) (its dims after the first), its bias the
+same b, the token positions U(-0.02, 0.02), a norm's scale 1 + U(-0.1, 0.1)
+and its shift U(-0.1, 0.1). The names and shapes are the reference model's,
+which mirror the system's: ``load_state_dict(strict=True)`` into the system
+checks that they agree.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from portbench.traffic import derive_seed
+
+
+def make(shapes: Dict[str, tuple], seed: int, device) -> Dict[str, torch.Tensor]:
+    """{name: fp32 tensor on ``device``} for the named ``shapes``, in order."""
+    total = sum(math.prod(s) for s in shapes.values())
+    gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "weights"))
+    flat = torch.rand(total, generator=gen, device=device)
+    out, start, bounds = {}, 0, {}
+    for name, shape in shapes.items():
+        n = math.prod(shape)
+        u = flat[start:start + n].view(shape)
+        start += n
+        module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if len(shape) >= 2 and leaf == "weight":
+            bounds[module] = 1.0 / math.sqrt(math.prod(shape[1:]))
+            u.mul_(2 * bounds[module]).sub_(bounds[module])
+        elif leaf == "pos_embed":
+            u.mul_(0.04).sub_(0.02)
+        elif leaf == "bias" and module in bounds:
+            u.mul_(2 * bounds[module]).sub_(bounds[module])
+        elif leaf == "weight":  # a norm's scale
+            u.mul_(0.2).add_(0.9)
+        else:  # a norm's shift
+            u.mul_(0.2).sub_(0.1)
+        out[name] = u
+    return out
+
+
+def shapes_of(model: torch.nn.Module) -> Dict[str, tuple]:
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
