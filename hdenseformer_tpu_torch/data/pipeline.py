@@ -12,9 +12,17 @@ the JAX package), with its two properties:
 
 Batches are channels-last float32 numpy arrays; ``train/loop.py``'s
 ``pad_and_mask_batch`` pads them and moves them to the card.
+
+Spans (``utils.profiling``): ``loader.sample`` ((epoch, index), on the pool's
+threads), and on the producer thread ``loader.epoch_start`` (the pool's
+start up to the first batch handed over), ``loader.stack`` and
+``loader.put_wait`` (blocked on a full queue), each keyed by (epoch, batch);
+counters ``loader.samples`` and ``loader.empty_takes`` (a take that found
+no batch ready).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -25,6 +33,7 @@ import numpy as np
 
 from hdenseformer_tpu_torch.data.io import hdf5_reader
 from hdenseformer_tpu_torch.data.transforms import remap_roi_labels
+from hdenseformer_tpu_torch.utils.profiling import count, span
 
 
 def get_cross_validation_by_sample(
@@ -134,8 +143,10 @@ class BatchLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _load_one(self, epoch: int, index: int) -> dict:
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch, index]))
-        return self.dataset.get(index, rng)
+        count("loader.samples")
+        with span("loader.sample", (epoch, index)):
+            rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch, index]))
+            return self.dataset.get(index, rng)
 
     def _batches(self, epoch: int):
         n = len(self.dataset)
@@ -176,14 +187,20 @@ class BatchLoader:
 
         def producer():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idx_batch in self._batches(epoch):
-                        if cancel.is_set():
-                            return
-                        samples = list(
-                            pool.map(lambda i: self._load_one(epoch, int(i)), idx_batch)
-                        )
-                        put(self._stack(samples, idx_batch))
+                with contextlib.ExitStack() as starting:
+                    starting.enter_context(span("loader.epoch_start", (epoch, 0)))
+                    with ThreadPoolExecutor(self.num_workers) as pool:
+                        for b, idx_batch in enumerate(self._batches(epoch)):
+                            if cancel.is_set():
+                                return
+                            samples = list(
+                                pool.map(lambda i: self._load_one(epoch, int(i)), idx_batch)
+                            )
+                            with span("loader.stack", (epoch, b)):
+                                batch = self._stack(samples, idx_batch)
+                            starting.close()  # ends loader.epoch_start
+                            with span("loader.put_wait", (epoch, b)):
+                                put(batch)
             except Exception as e:  # handed to the consumer, which raises it
                 put(e)
             finally:
@@ -193,7 +210,11 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    count("loader.empty_takes")
+                    item = q.get()
                 if item is done:
                     break
                 if isinstance(item, Exception):

@@ -21,6 +21,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 from scipy import ndimage
 
+from hdenseformer_tpu_torch.utils.profiling import span
+
 
 def resize_half_pixel(
     image: np.ndarray,
@@ -100,20 +102,23 @@ class MRNormalize:
 
 
 class PETandCTNormalize:
-    """ch0: CT clip +-w then /w; ch1: PET z-score."""
+    """ch0: CT clip +-w then /w; ch1: PET z-score (span ``transform.normalize``,
+the serving path's host preprocessing)."""
 
     def __init__(self, mean: float = 0.0, w: float = 1024.0):
         self.mean = mean
         self.w = w
 
     def __call__(self, sample, rng=None):
-        image = sample["image"].astype(np.float32)
-        image[0] = (np.clip(image[0], self.mean - self.w, self.mean + self.w) - self.mean) / self.w
-        m = np.mean(image[1])
-        s = np.std(image[1])
-        image[1] = (image[1] - m) / (s + 1e-3)
-        sample["image"] = image
-        return sample
+        with span("transform.normalize"):
+            image = sample["image"].astype(np.float32)
+            image[0] = (np.clip(image[0], self.mean - self.w, self.mean + self.w)
+                        - self.mean) / self.w
+            m = np.mean(image[1])
+            s = np.std(image[1])
+            image[1] = (image[1] - m) / (s + 1e-3)
+            sample["image"] = image
+            return sample
 
 
 class CropResize:

@@ -37,6 +37,14 @@ rank runs its contiguous share; the ranks' fp32 accumulators are summed by
 ``all_reduce`` and every rank takes the same argmax. On a card the mesh's
 call is captured with its ``all_reduce`` under NCCL; under gloo the caller
 passes ``capture=False`` (``parallel.mesh.check_capturable``).
+
+``predict_volume``'s spans (``utils.profiling``): ``serve.call``, keyed by
+the volume's lattice cell, around ``serve.plan`` (origins, window padding,
+the graph's lookup), ``serve.stage`` (the volume into the host buffer, or
+to the device without ``capture``), ``graph.replay``, ``serve.fetch`` (the
+labels' copy to the host: the host waits there for the card) and
+``serve.crop``; counters ``serve.volumes``, ``serve.windows`` (real),
+``serve.windows_run`` (with the zero-weight pads) and ``serve.staged_bytes``.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from hdenseformer_tpu_torch.data.io import hdf5_reader, write_nifti
 from hdenseformer_tpu_torch.data.transforms import PETandCTNormalize
 from hdenseformer_tpu_torch.parallel.mesh import check_capturable
 from hdenseformer_tpu_torch.utils.graphs import CapturedCall, batch_key, model_graphs
+from hdenseformer_tpu_torch.utils.profiling import count, span
 
 
 def cal_steps(
@@ -273,36 +282,54 @@ def predict_volume(
         tgt = [max(p, s) for p, s in zip(patch_size, orig_spatial)]
     crop = tuple(slice(0, s) for s in orig_spatial)
 
-    origins = _origins_array(cal_steps(orig_spatial, patch_size, step_size))
-    weights = np.ones((origins.shape[0],), np.float32)
-    importance = torch.from_numpy(get_gaussian(patch_size)) if use_gaussian else None
-    n_dev = 1 if mesh is None else mesh.world_size
-    # clamp wb to a rank's window count: a larger batch only adds zero-weight windows
-    wb = max(1, min(window_batch, -(-len(origins) // n_dev)))
-    n_batches = -(-len(origins) // (n_dev * wb))
-    n_pad = n_batches * n_dev * wb - len(origins)
-    if n_pad:
-        origins = np.concatenate([origins, np.zeros((n_pad, len(patch_size)), np.int32)])
-        weights = np.concatenate([weights, np.zeros((n_pad,), np.float32)])
-    if n_dev > 1:  # this rank's contiguous share, as JAX's P(axis) sharding
-        share = slice(mesh.rank * n_batches * wb, (mesh.rank + 1) * n_batches * wb)
-        origins, weights = origins[share], weights[share]
+    with span("serve.call", tuple(tgt)):
+        with span("serve.plan"):
+            origins = _origins_array(cal_steps(orig_spatial, patch_size, step_size))
+            n_windows = len(origins)
+            weights = np.ones((origins.shape[0],), np.float32)
+            importance = torch.from_numpy(get_gaussian(patch_size)) if use_gaussian else None
+            n_dev = 1 if mesh is None else mesh.world_size
+            # clamp wb to a rank's window count: a larger batch only adds zero-weight windows
+            wb = max(1, min(window_batch, -(-len(origins) // n_dev)))
+            n_batches = -(-len(origins) // (n_dev * wb))
+            n_pad = n_batches * n_dev * wb - len(origins)
+            if n_pad:
+                origins = np.concatenate([origins, np.zeros((n_pad, len(patch_size)), np.int32)])
+                weights = np.concatenate([weights, np.zeros((n_pad,), np.float32)])
+            if n_dev > 1:  # this rank's contiguous share, as JAX's P(axis) sharding
+                share = slice(mesh.rank * n_batches * wb, (mesh.rank + 1) * n_batches * wb)
+                origins, weights = origins[share], weights[share]
 
-    batch = _window_batch(origins, weights, importance)
-    batch["volume"] = torch.empty(tuple(tgt) + image.shape[:1], device="meta")
-    with torch.inference_mode():
-        if capture:
-            call = _captured(model, batch, patch_size, num_classes, wb, mesh, "labels")
-            batch["volume"] = _host_volume(call, image)
-            labels = call.replay(batch)["labels"]
-        else:
-            volume = torch.zeros(batch["volume"].shape, dtype=torch.float32, device=device)
-            volume[crop] = torch.from_numpy(np.ascontiguousarray(np.moveaxis(image, 0, -1))
-                                            ).to(device)
-            batch = {n: v.to(device) for n, v in dict(batch, volume=volume).items()}
-            labels = _call_body(model, batch, patch_size, num_classes, wb, mesh,
-                                "labels")["labels"]
-    return labels.cpu().numpy()[crop].astype(np.int32)
+            batch = _window_batch(origins, weights, importance)
+            batch["volume"] = torch.empty(tuple(tgt) + image.shape[:1], device="meta")
+            if capture:
+                with torch.inference_mode():
+                    call = _captured(model, batch, patch_size, num_classes, wb, mesh,
+                                     "labels")
+        with torch.inference_mode():
+            if capture:
+                with span("serve.stage"):
+                    batch["volume"] = _host_volume(call, image)
+                staged = batch["volume"].nbytes
+                labels = call.replay(batch)["labels"]
+            else:
+                with span("serve.stage"):
+                    volume = torch.zeros(batch["volume"].shape, dtype=torch.float32,
+                                         device=device)
+                    volume[crop] = torch.from_numpy(
+                        np.ascontiguousarray(np.moveaxis(image, 0, -1))).to(device)
+                    batch = {n: v.to(device) for n, v in dict(batch, volume=volume).items()}
+                staged = volume.nbytes
+                labels = _call_body(model, batch, patch_size, num_classes, wb, mesh,
+                                    "labels")["labels"]
+        count("serve.volumes")
+        count("serve.windows", n_windows)
+        count("serve.windows_run", len(origins))
+        count("serve.staged_bytes", staged)
+        with span("serve.fetch"):
+            labels = labels.cpu()
+        with span("serve.crop"):
+            return labels.numpy()[crop].astype(np.int32)
 
 
 def inference_slidingwindow(

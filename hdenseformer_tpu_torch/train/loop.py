@@ -77,6 +77,10 @@ mesh the steps are captured with their collectives inside, JAX's one SPMD
 program a step, where the backend is NCCL; under gloo on a card a
 captured step raises (``SemanticSeg(capture=False)`` then). ``SemanticSeg(
 capture=False)`` runs the eager steps; on the CPU the steps are eager.
+Spans (``utils.profiling``): ``train.step`` / ``eval.step`` around a
+step's call (key building, then ``graph.replay``), and in ``_run_epoch``
+``train.loader_wait``, ``train.batch`` (``pad_and_mask_batch``),
+``train.seed`` and ``train.drain`` (the metric drains and their prints).
 Checkpoints hold the optimizer's state as a plain
 optimizer's (``train.state.plain_state_dict``), so a captured run resumes
 on the CPU. ``make_multi_train_step`` is JAX's K steps in one dispatch: on
@@ -85,6 +89,7 @@ a card, the captured step replayed K times.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
 import shutil
@@ -159,6 +164,7 @@ from hdenseformer_tpu_torch.train.state import (
 )
 from hdenseformer_tpu_torch.utils import count_params, set_process_title
 from hdenseformer_tpu_torch.utils.graphs import CapturedCall, GraphCache, batch_key
+from hdenseformer_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -276,11 +282,12 @@ class CapturedTrainStep:
 
     def __call__(self, state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                  augment_generator: Optional[torch.Generator] = None):
-        if batch["image"].device.type != "cuda":
-            return self.eager(state, batch, generator, augment_generator)
-        out = self.prepare(state, batch, generator, augment_generator).replay(batch)
-        state.step += 1
-        return state, out
+        with span("train.step", state.step):
+            if batch["image"].device.type != "cuda":
+                return self.eager(state, batch, generator, augment_generator)
+            out = self.prepare(state, batch, generator, augment_generator).replay(batch)
+            state.step += 1
+            return state, out
 
     def prepare(self, state: TrainState, batch: Dict, generator,
                 augment_generator=None) -> CapturedCall:
@@ -316,11 +323,13 @@ class CapturedEvalStep:
     def __init__(self, criterion, num_classes: int, graphs: Optional[GraphCache] = None):
         self.eager = make_eval_step(criterion, num_classes)
         self.graphs = GraphCache() if graphs is None else graphs
+        self.calls = itertools.count()  # the eval.step spans' keys
 
     def __call__(self, state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        if batch["image"].device.type != "cuda":
-            return self.eager(state, batch)
-        return self.prepare(state, batch).replay(batch)
+        with span("eval.step", next(self.calls)):
+            if batch["image"].device.type != "cuda":
+                return self.eager(state, batch)
+            return self.prepare(state, batch).replay(batch)
 
     def prepare(self, state: TrainState, batch: Dict) -> CapturedCall:
         check_capturable(active_mesh())
@@ -882,32 +891,38 @@ class SemanticSeg:
         t0 = time.perf_counter()
         wait, steps = 0.0, 0
         batches = iter(loader.epoch(epoch))
-        while True:
+        while True:  # spans keyed by (epoch, step of the epoch)
             t_wait = time.perf_counter()
-            batch = next(batches, None)
+            with span("train.loader_wait", (epoch, steps)):
+                batch = next(batches, None)
             wait += time.perf_counter() - t_wait
             if batch is None:
                 break
             n = batch["image"].shape[0]
-            batch = pad_and_mask_batch(batch, self.batch_size, mesh or self.device)
+            with span("train.batch", (epoch, steps)):
+                batch = pad_and_mask_batch(batch, self.batch_size, mesh or self.device)
             with mesh or contextlib.nullcontext():
                 if train:
-                    seed_generators(generators, self.seed, state.step)
+                    with span("train.seed", (epoch, steps)):
+                        seed_generators(generators, self.seed, state.step)
                     state, metrics = step_fn(state, batch, *generators)
                 else:
                     metrics = step_fn(state, batch)
             pending.append((n, metrics))
             if train:
                 if self.global_step % 10 == 0:
-                    drain()
-                    rd, dice_list = run_dice.compute_dice()
-                    print("Category Dice: ", dice_list)
-                    print(f"epoch:{epoch}/{self.n_epoch},step:{steps},"
-                          f"train_loss:{loss_meter.val:.5f},train_dice:{dice_meter.val:.5f},"
-                          f"run_dice:{rd:.5f},lr:{current_learning_rate(state.optimizer)}")
+                    with span("train.drain", (epoch, steps)):
+                        drain()
+                        rd, dice_list = run_dice.compute_dice()
+                        print("Category Dice: ", dice_list)
+                        print(f"epoch:{epoch}/{self.n_epoch},step:{steps},"
+                              f"train_loss:{loss_meter.val:.5f},"
+                              f"train_dice:{dice_meter.val:.5f},run_dice:{rd:.5f},"
+                              f"lr:{current_learning_rate(state.optimizer)}")
                 self.global_step += 1
             steps += 1
-        drain()
+        with span("train.drain", (epoch, steps)):
+            drain()
         return state, {"loss": loss_meter.avg, "dice": dice_meter.avg,
                        "run_dice": run_dice.compute_dice()[0],
                        "seconds": time.perf_counter() - t0, "steps": steps,

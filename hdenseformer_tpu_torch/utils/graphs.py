@@ -28,6 +28,13 @@ the eager step). A capture the card refuses raises; nothing falls back to
 the eager body on a card. The kernel wrappers count their launches in
 Python, so under a graph they count the warm-up's and the capture's, once.
 
+Spans (``utils.profiling``), each keyed by the graph's key: ``graph.warmup``
+(the call made: static buffers and the eager run), ``graph.capture``, and
+``graph.replay`` with ``graph.copy_in`` (the copies into the static
+buffers) and ``graph.launch`` (the dropout states' sync and the launch; on
+the CPU the body) as children, the output clones its own time. Counters
+``graphs.captured`` and ``graphs.replayed``.
+
 ``GraphCache`` holds the captured calls of a run by key, all in one memory
 pool: a run's train and eval graphs never run at once, and separate pools
 would add their peaks. A graph keeps the addresses of the tensors it reads
@@ -57,6 +64,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from hdenseformer_tpu_torch.models.hdenseformer import RematGraphRng
+from hdenseformer_tpu_torch.utils.profiling import count, span
 
 
 def batch_key(batch: Dict[str, torch.Tensor]) -> tuple:
@@ -87,6 +95,7 @@ class CapturedCall:
                     and dropout.device.type == "cuda" else None)
         self.pool = pool
         self.graph, self.out = None, None
+        self.key = None  # the GraphCache's key, for the spans
         self._warmup(restore)
 
     def _warmup(self, restore: Optional[tuple]) -> None:
@@ -137,27 +146,36 @@ class CapturedCall:
         invalidated."""
         if self.graph is not None or not self.on_card:
             return
-        gc.collect()
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        rng = self.rng.capturing(graph) if self.rng else contextlib.nullcontext()
-        with rng, torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-            self.out = self.body(self.static)
-        self.graph = graph
+        with span("graph.capture", self.key):
+            gc.collect()
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            rng = self.rng.capturing(graph) if self.rng else contextlib.nullcontext()
+            with rng, torch.cuda.graph(graph, pool=self.pool,
+                                       capture_error_mode="thread_local"):
+                self.out = self.body(self.static)
+            self.graph = graph
+        count("graphs.captured")
 
     def replay(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The body on ``batch``: copied into the static buffers, then the
         graph replayed (on the CPU the body called); clones of its outputs."""
-        for n, v in batch.items():
-            self.static[n].copy_(v, non_blocking=True)
-        if not self.on_card:
-            return {n: v.clone() for n, v in self.body(self.static).items()}
-        self.capture()
-        if self.rng is not None:
-            self.rng.sync()
-        self.graph.replay()
-        return {n: v.clone() for n, v in self.out.items()}
+        count("graphs.replayed")
+        with span("graph.replay", self.key):
+            with span("graph.copy_in", self.key):
+                for n, v in batch.items():
+                    self.static[n].copy_(v, non_blocking=True)
+            if not self.on_card:
+                with span("graph.launch", self.key):
+                    out = self.body(self.static)
+                return {n: v.clone() for n, v in out.items()}
+            self.capture()
+            with span("graph.launch", self.key):
+                if self.rng is not None:
+                    self.rng.sync()
+                self.graph.replay()
+            return {n: v.clone() for n, v in self.out.items()}
 
 
 class GraphCache:
@@ -179,7 +197,9 @@ class GraphCache:
         if call is None:
             if self.pool is None and torch.cuda.is_available():
                 self.pool = torch.cuda.graph_pool_handle()
-            call = self.calls[key] = make(self.pool)
+            with span("graph.warmup", key):
+                call = self.calls[key] = make(self.pool)
+            call.key = key
         return call
 
 

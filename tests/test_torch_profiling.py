@@ -1,6 +1,7 @@
 """``utils/profiling.py`` of the port and the CLI's ``--profile``, on the CPU.
 
-``profiler_trace(dir)`` writes a Chrome trace (JSON) of its block and
+``profiler_trace(dir)`` writes a Chrome trace (JSON) of its block, the
+program's spans in it and its counters beside it, and
 ``profiler_trace(None)`` traces nothing; ``Timer`` times its block; the
 re-exports of ``utils`` are JAX's names. ``-m train --profile DIR`` traces
 the fold's training (JAX's CLI traces the whole ``trainer()`` call) and
@@ -82,9 +83,14 @@ def test_cli_profile_traces_training_and_changes_nothing(cases, tmp_path, monkey
         os.makedirs(tmp_path / tag)
         monkeypatch.chdir(tmp_path / tag)
         (runs[tag],) = cli.main(CLI + ["--data-path", cases] + extra)
-    traces = os.listdir(tmp_path / "trace")
+    written = sorted(os.listdir(tmp_path / "trace"))
+    traces = [n for n in written if n.startswith("trace.")]
     assert len(traces) == 1 and traces[0].endswith(".json")
+    assert written == ["counters." + traces[0][len("trace."):], traces[0]]
     with open(tmp_path / "trace" / traces[0]) as f:
-        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
     assert any("conv" in n for n in names)  # the model's convolutions ran under it
+    program = {e["name"] for e in events if e.get("cat") == "program"}
+    assert {"train.step", "train.loader_wait", "loader.sample", "eval.step"} <= program
     assert runs["profiled"] == runs["plain"]  # losses and dice, bit for bit
