@@ -103,7 +103,17 @@ class MRNormalize:
 
 class PETandCTNormalize:
     """ch0: CT clip +-w then /w; ch1: PET z-score (span ``transform.normalize``,
-the serving path's host preprocessing)."""
+the serving path's host preprocessing).
+
+The result is a fresh float32 array, as ``astype(np.float32)`` would make it
+(channels from 2 on copied unchanged), with the same bits: the same float32
+operations in the same order, the statistics numpy's own reductions. It is
+written in place, a few rows at a time so that a row's later operations find
+it in the cache. A float32 C-contiguous input is read where it lies, and
+then the PET channel's squared deviations, which ``np.std`` would make anew,
+go where the CT channel's output will be. Any other input is cast into the
+output first, in ``astype``'s memory order, so that the statistics reduce
+over the same layout."""
 
     def __init__(self, mean: float = 0.0, w: float = 1024.0):
         self.mean = mean
@@ -111,14 +121,37 @@ the serving path's host preprocessing)."""
 
     def __call__(self, sample, rng=None):
         with span("transform.normalize"):
-            image = sample["image"].astype(np.float32)
-            image[0] = (np.clip(image[0], self.mean - self.w, self.mean + self.w)
-                        - self.mean) / self.w
-            m = np.mean(image[1])
-            s = np.std(image[1])
-            image[1] = (image[1] - m) / (s + 1e-3)
-            sample["image"] = image
+            image = sample["image"]
+            if image.dtype == np.float32 and image.flags.c_contiguous:
+                out, src = np.empty(image.shape, np.float32), image
+                out[2:] = image[2:]
+            else:
+                out = np.empty_like(image, dtype=np.float32)
+                np.copyto(out, image, casting="unsafe")
+                src = out
+            ct, pet = out[0], out[1]
+            m = np.mean(src[1])
+            squares = ct if src is image else np.empty_like(pet)
+            rows = _row_blocks(pet.shape)
+            for r in rows:
+                np.subtract(src[1][r], m, out=pet[r])
+                np.multiply(pet[r], pet[r], out=squares[r])
+            # np.std's arithmetic: the sum over the count in float64, then float32
+            var = np.float32(np.add.reduce(squares, axis=None) / np.intp(pet.size))
+            scale = np.sqrt(var) + 1e-3
+            for r in rows:
+                np.clip(src[0][r], self.mean - self.w, self.mean + self.w, out=ct[r])
+                ct[r] -= self.mean
+                ct[r] /= self.w
+                pet[r] /= scale
+            sample["image"] = out
             return sample
+
+
+def _row_blocks(shape: Tuple[int, ...], elements: int = 1 << 16) -> list:
+    """Slices of ``shape``'s first axis of about ``elements`` elements each."""
+    rows = max(1, elements // max(1, int(np.prod(shape[1:]))))
+    return [slice(a, a + rows) for a in range(0, shape[0], rows)]
 
 
 class CropResize:

@@ -26,10 +26,19 @@ value on the host. With ``capture`` (the default) the body runs as a
 ``utils.graphs.CapturedCall`` kept with the model (``model_graphs``), one
 per (padded shape, channels, window count, window batch, gaussian, patch,
 classes): on a card one CUDA graph replayed by every volume of the cell,
-the volume, origins and weights copied into its static buffers; on the CPU
-the same body on the same static buffers, without a graph.
+the volume, its extent, origins and weights copied into its static
+buffers; on the CPU the same body on the same static buffers, without a
+graph.
 ``capture=False`` runs the body on fresh tensors. The crop and the copy to
 the host stay outside, as JAX crops on the host.
+
+The host stages the (C, *spatial) volume as it lies, channels-first: one
+copy from the array straight to the start of the storage of the call's
+(C, *padded) buffer on the device (``_stage``). The body starts on the card:
+it gathers the staged volume channels-last by the volume's extent (device
+data) and zeroes what lies outside it, where a larger volume of the same
+cell may have left its values, so that every window reads the lattice pad
+as zeros.
 
 With a data-parallel ``mesh`` (``parallel/mesh.py``: one process a card)
 the origin list is padded to ``n_batches * world * window_batch`` and each
@@ -40,11 +49,13 @@ passes ``capture=False`` (``parallel.mesh.check_capturable``).
 
 ``predict_volume``'s spans (``utils.profiling``): ``serve.call``, keyed by
 the volume's lattice cell, around ``serve.plan`` (origins, window padding,
-the graph's lookup), ``serve.stage`` (the volume into the host buffer, or
-to the device without ``capture``), ``graph.replay``, ``serve.fetch`` (the
-labels' copy to the host: the host waits there for the card) and
-``serve.crop``; counters ``serve.volumes``, ``serve.windows`` (real),
-``serve.windows_run`` (with the zero-weight pads) and ``serve.staged_bytes``.
+the graph's lookup), ``serve.stage`` (the channels-first volume's copy to
+the device), ``graph.replay``, ``serve.fetch`` (the labels' copy to the
+host: the host waits there for the card) and ``serve.crop``; counters
+``serve.volumes``, ``serve.windows`` (real), ``serve.windows_run`` (with the
+zero-weight pads), ``serve.staged_bytes`` (what crosses to the device) and
+``serve.pad_volumes`` (volumes smaller than their cell, whose pad the card
+zeroed).
 """
 from __future__ import annotations
 
@@ -141,14 +152,37 @@ def _window_index(origins: torch.Tensor, patch_size: Sequence[int]) -> tuple:
     return tuple(index)
 
 
+def _channels_last(staged: torch.Tensor, extent: torch.Tensor) -> torch.Tensor:
+    """The volume staged in ``staged``'s (C, *padded) storage, as (*padded,
+    C): its (C, *extent) values lie contiguous at the start of the storage
+    (``extent`` (nsp,) is device data, ``_stage``), and a voxel outside the
+    extent reads zero, whatever a larger volume of the same cell left there."""
+    channels, spatial = staged.shape[0], staged.shape[1:]
+    nsp = len(spatial)
+    index, inside, stride = 0, None, 1
+    for d in reversed(range(nsp)):
+        shape = [1] * (nsp + 1)
+        shape[d] = spatial[d]
+        at = torch.arange(spatial[d], device=staged.device).view(shape)
+        index = index + at * stride
+        below = at < extent[d]
+        inside = below if inside is None else inside & below
+        stride = stride * extent[d]
+    channel = torch.arange(channels, device=staged.device).view([1] * nsp + [channels])
+    return torch.where(inside, staged.view(-1)[index + channel * stride], 0.0)
+
+
 def _call_body(model: torch.nn.Module, static: Dict[str, torch.Tensor],
                patch_size: Sequence[int], num_classes: int, wb: int, mesh,
                output: str) -> Dict[str, torch.Tensor]:
     """The whole sliding-window call on ``static``: "volume" (*spatial, C),
+    or "staged" (C, *spatial) with "extent" (nsp,) int64 (``_channels_last``),
     "origins" (Nw, nsp) int64, "weights" (Nw,) and optionally "importance"
     (*patch). ``output`` "acc" returns the accumulator, "labels" its argmax
     as uint8 (after the mesh's ``all_reduce`` where ``mesh`` reduces)."""
-    volume, origins, weights = static["volume"], static["origins"], static["weights"]
+    volume = (_channels_last(static["staged"], static["extent"]) if "staged" in static
+              else static["volume"])
+    origins, weights = static["origins"], static["weights"]
     importance = static.get("importance")
     acc = torch.zeros(tuple(volume.shape[:-1]) + (num_classes,), dtype=torch.float32,
                       device=volume.device)
@@ -230,20 +264,13 @@ def accumulate_windows(
                       num_classes, window_batch, None, "acc")["acc"]
 
 
-def _host_volume(call: CapturedCall, image: np.ndarray) -> torch.Tensor:
-    """The (C, *spatial) ``image`` channels-last in the call's host buffer of
-    its padded volume (pinned on a card; made at the call's first use), the
-    rest of the buffer zeroed: a larger volume of the same cell may have
-    filled it before."""
-    if not hasattr(call, "host_volume"):
-        v = call.static["volume"]
-        call.host_volume = torch.empty(v.shape, dtype=v.dtype, pin_memory=call.on_card)
-    buf = call.host_volume.numpy()
-    spatial = image.shape[1:]
-    buf[tuple(slice(0, s) for s in spatial)] = np.moveaxis(image, 0, -1)
-    for d, s in enumerate(spatial):
-        buf[(slice(None),) * d + (slice(s, None),)] = 0
-    return call.host_volume
+def _stage(staged: torch.Tensor, image: np.ndarray) -> int:
+    """The (C, *spatial) ``image`` as it lies, channels-first, copied to the
+    start of the (C, *padded) ``staged`` buffer's storage (from the array
+    straight to the device on a card); the bytes copied."""
+    flat = torch.from_numpy(np.ascontiguousarray(image)).view(-1)
+    staged.view(-1)[:flat.numel()].copy_(flat, non_blocking=True)
+    return flat.nbytes
 
 
 def predict_volume(
@@ -301,31 +328,31 @@ def predict_volume(
                 origins, weights = origins[share], weights[share]
 
             batch = _window_batch(origins, weights, importance)
-            batch["volume"] = torch.empty(tuple(tgt) + image.shape[:1], device="meta")
+            batch["extent"] = torch.tensor(orig_spatial, dtype=torch.int64)
+            shape = image.shape[:1] + tuple(tgt)  # the staged volume's buffer
             if capture:
                 with torch.inference_mode():
-                    call = _captured(model, batch, patch_size, num_classes, wb, mesh,
+                    example = dict(batch, staged=torch.empty(shape, device="meta"))
+                    call = _captured(model, example, patch_size, num_classes, wb, mesh,
                                      "labels")
         with torch.inference_mode():
             if capture:
                 with span("serve.stage"):
-                    batch["volume"] = _host_volume(call, image)
-                staged = batch["volume"].nbytes
+                    staged = _stage(call.static["staged"], image)
                 labels = call.replay(batch)["labels"]
             else:
                 with span("serve.stage"):
-                    volume = torch.zeros(batch["volume"].shape, dtype=torch.float32,
-                                         device=device)
-                    volume[crop] = torch.from_numpy(
-                        np.ascontiguousarray(np.moveaxis(image, 0, -1))).to(device)
-                    batch = {n: v.to(device) for n, v in dict(batch, volume=volume).items()}
-                staged = volume.nbytes
+                    batch = {n: v.to(device) for n, v in batch.items()}
+                    batch["staged"] = torch.empty(shape, dtype=torch.float32, device=device)
+                    staged = _stage(batch["staged"], image)
                 labels = _call_body(model, batch, patch_size, num_classes, wb, mesh,
                                     "labels")["labels"]
         count("serve.volumes")
         count("serve.windows", n_windows)
         count("serve.windows_run", len(origins))
         count("serve.staged_bytes", staged)
+        if tuple(orig_spatial) != tuple(tgt):
+            count("serve.pad_volumes")
         with span("serve.fetch"):
             labels = labels.cpu()
         with span("serve.crop"):

@@ -74,6 +74,58 @@ def test_transform_matches_jax_bitwise(name, seed):
         np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
 
 
+def _pet_ct_input(kind):
+    """A CT+PET image of another kind than float32 C-contiguous: CT values
+    past the +-1024 window, so that the clip bites."""
+    rng = np.random.RandomState(6)
+    shape = (12, 10, 14)
+    ct = rng.randn(*shape) * 900 + 40
+    pet = rng.exponential(1.0, shape) + 8
+    if kind == "int16":
+        return np.stack([ct, pet * 100]).astype(np.int16)
+    if kind == "float64":
+        return np.stack([ct, pet])
+    if kind == "strided":
+        return np.stack([ct, pet]).astype(np.float32)[:, ::2, :, 1::3]
+    if kind == "permuted":
+        return np.stack([ct, pet]).astype(np.float32).transpose(0, 3, 1, 2)
+    if kind == "three_channels":
+        return np.stack([ct, pet, rng.randn(*shape) * 1e4]).astype(np.float32)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["int16", "float64", "strided", "permuted",
+                                  "three_channels"])
+def test_pet_ct_normalize_matches_jax_bitwise_on_any_input(kind):
+    """The port's normalisation (a fresh output, in-place ufuncs) against
+    JAX's (``astype`` then new arrays) on inputs it does not read in place:
+    the same bits, the input left as it was, an output of its own, and the
+    channels from 2 on unchanged."""
+    image = _pet_ct_input(kind)
+    if kind in ("strided", "permuted"):
+        assert not image.flags.c_contiguous
+    kept = image.copy()
+    ref = jtf.PETandCTNormalize()({"image": image})["image"]
+    got = ttf.PETandCTNormalize()({"image": image})["image"]
+    np.testing.assert_array_equal(image, kept)
+    assert got.dtype == ref.dtype == np.float32 and got.strides == ref.strides
+    np.testing.assert_array_equal(got, ref)
+    assert not np.shares_memory(got, image)
+    if kind == "three_channels":
+        np.testing.assert_array_equal(got[2], image[2])
+
+
+def test_pet_ct_normalize_leaves_a_float32_input_alone():
+    """A float32 C-contiguous input (the serving path's) is read where it
+    lies: unchanged after the call, and the output shares no memory with it."""
+    image = _sample(7)["image"]
+    kept = image.copy()
+    got = ttf.PETandCTNormalize()({"image": image})["image"]
+    np.testing.assert_array_equal(image, kept)
+    assert not np.shares_memory(got, image) and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, jtf.PETandCTNormalize()({"image": kept})["image"])
+
+
 def test_resize_helpers_and_roi_remap_match_jax_bitwise():
     rng = np.random.RandomState(3)
     vol = rng.rand(9, 11, 7).astype(np.float32)

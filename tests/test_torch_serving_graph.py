@@ -13,8 +13,9 @@ functions on the same weights (``weights.py``):
   other origins, the same call); a volume of 48 x 48 x 32 and then one
   shorter than the patch in one dim (44 x 40 x 20) in the same cell, whose
   windows read the pad that the larger volume filled (the stale-pad trap);
-  gaussian weighting on; ``window_batch`` 1, and 3 (8 windows padded to 9
-  with a zero-weight window). Labels equal to JAX's on every voxel whose
+  a volume that fills its cell (48 x 48 x 32) and one with permuted
+  spatial strides; gaussian weighting on; ``window_batch`` 1, and 3 (8
+  windows padded to 9 with a zero-weight window). Labels equal to JAX's on every voxel whose
   top-two margin in the port's eager accumulator exceeds 1e-4 of the
   window weight (at least 95 % of them), and equal to ``capture=False``'s
   on every voxel; the accumulator of ``accumulate_windows`` equal to its
@@ -38,6 +39,7 @@ from hdenseformer_tpu_torch.infer import sliding as ts  # noqa: E402
 from hdenseformer_tpu_torch.infer import slices  # noqa: E402
 from hdenseformer_tpu_torch.models.hdenseformer import HDenseFormer  # noqa: E402
 from hdenseformer_tpu_torch.utils.graphs import model_graphs  # noqa: E402
+from hdenseformer_tpu_torch.utils.profiling import tracing  # noqa: E402
 from hdenseformer_tpu_torch.weights import load_jax_params  # noqa: E402
 from torch_port_util import random_jax_params  # noqa: E402
 
@@ -131,6 +133,44 @@ def test_short_volume_after_a_larger_one_reads_zeros_in_the_pad(models):
     n = _calls(port)
     _check(models, _volume(4, short))
     assert _calls(port) == n
+
+
+def test_volume_that_fills_its_cell_is_staged_without_a_pad(models):
+    """48 x 48 x 32 is its own lattice cell: its labels as JAX's and
+    ``capture=False``'s, and ``serve.pad_volumes`` does not count it."""
+    shape = (48, 48, 32)
+    assert ts._lattice_pad_targets(shape, PATCH, STEP) == list(shape)
+    with tracing() as rec:
+        _check(models, _volume(7, shape))
+    assert rec.counters["serve.volumes"] == 2  # captured and capture=False
+    assert "serve.pad_volumes" not in rec.counters
+
+
+def test_non_contiguous_volume_serves_as_its_contiguous_copy(models):
+    """A (C, *spatial) view with permuted spatial strides: the labels as
+    JAX's, ``capture=False``'s and the contiguous copy's, on every voxel."""
+    port = models[2]
+    vol = _volume(8, (36, 48, 40)).transpose(0, 2, 1, 3)
+    assert vol.shape == (2, 48, 36, 40) and not vol.flags.c_contiguous
+    _check(models, vol)
+    got, copy = (ts.predict_volume(port, v, PATCH, STEP, N_CLS, window_batch=4)
+                 for v in (vol, np.ascontiguousarray(vol)))
+    np.testing.assert_array_equal(got, copy)
+
+
+@pytest.mark.parametrize("capture", [True, False], ids=["captured", "eager"])
+def test_pad_volumes_counts_the_short_volume_and_not_the_full_one(models, capture):
+    """``test_short_volume_after_a_larger_one_reads_zeros_in_the_pad``'s two
+    volumes: the larger one fills the cell (48 x 48 x 32), the shorter one
+    does not, and only it is counted."""
+    port = models[2]
+    counts = []
+    for shape, seed in (((48, 48, 32), 3), ((44, 40, 20), 4)):
+        with tracing() as rec:
+            ts.predict_volume(port, _volume(seed, shape), PATCH, STEP, N_CLS, window_batch=4,
+                              capture=capture)
+        counts.append(rec.counters.get("serve.pad_volumes", 0))
+    assert counts == [0, 1]
 
 
 @pytest.mark.parametrize("wb,gauss", [(4, True), (1, False), (3, False)],
