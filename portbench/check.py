@@ -83,7 +83,7 @@ def loss_gap(prog: dict, ref: dict) -> float:
 def augment_gap(got: list, want: list) -> float:
     """``got``: the batches fed to the step ("image", "label" one-hot);
     ``want``: the reference's ("image", "onehot"). Batches of another
-    count or shape read 1, the widest gap of values in [0, 1]."""
+    count or shape read 1, the widest gap of a one-hot label."""
     if len(got) != len(want):
         return 1.0
     gap = 0.0

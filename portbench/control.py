@@ -32,17 +32,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch  # noqa: E402
 
-from portbench import check, run, spec, traffic, weights  # noqa: E402
+from portbench import check, families, run, spec, traffic, weights  # noqa: E402
 from portbench.drivers.serve import sample_of  # noqa: E402
 from portbench.drivers.train import case_batch, host_batches  # noqa: E402
 from portbench.reference import augment, exact  # noqa: E402
-from portbench.reference import model as ref_model  # noqa: E402
 from portbench.reference import serve as ref_serve  # noqa: E402
 from portbench.reference.train import run_steps  # noqa: E402
 
 
+# the flips' axes swapped (W for H), as the host feed's planted fault: 2-D
+# image axes, 3-D label axes (``reference.augment2d``, ``reference.augment3d``)
+SWAPPED_FLIPS = {2: (-2, -1), 3: (2, 1)}
+
+
 def train_controls(config: dict, mix: dict, seed: int, device) -> dict:
-    tr, b = config["train"], config["train"]["batch_size"]
+    tr, b, family = config["train"], config["train"]["batch_size"], families.of(config)
     store = {f"case{i:04d}": c for i, c in
              enumerate(traffic.train_cases(dict(mix, cases=3 * b), seed, device))}
     if mix["device_augment"]:
@@ -50,16 +54,18 @@ def train_controls(config: dict, mix: dict, seed: int, device) -> dict:
         device_augment = functools.partial(augment.augment, patch=tuple(config["patch_size"]),
                                            num_classes=config["model"]["num_classes"])
     else:
-        batches, device_augment = host_batches(store, config, seed, device), None
+        batches, device_augment = host_batches(store, config, mix, seed, device), None
     swapped = (None if mix["device_augment"] else
-               host_batches(store, config, seed, device, flip_axes=(-2, -1)))
-    start = weights.make(weights.shapes_of(ref_model.build(config, "meta")), seed, device)
+               host_batches(store, config, mix, seed, device, flip_axes=SWAPPED_FLIPS[
+                   len(config["model"]["image_size"])]))
+    start, buffers = weights.start(config, seed, device)
 
     def steps(precision, half_batch=False):
-        net = ref_model.build(config, device)
-        net.load_state_dict(start)
+        net = family.build(config, device)
+        net.load_state_dict({**start, **buffers}, strict=True)
         return run_steps(net.set_precision(precision), batches, seed, tr["lr"],
-                         tr["weight_decay"], device_augment, half_batch=half_batch)
+                         tr["weight_decay"], device_augment, half_batch=half_batch,
+                         loss_fn=family.loss)
 
     out = {}
     with exact():
@@ -77,11 +83,11 @@ def serve_controls(config: dict, mix: dict, seed: int, device) -> dict:
     m = config["model"]
     patch, step, ncls = tuple(config["patch_size"]), tuple(config["step_size"]), m["num_classes"]
     pool = traffic.serve_pool(mix, seed, device)
-    start = weights.make(weights.shapes_of(ref_model.build(config, "meta")), seed, device)
+    start, buffers = weights.start(config, seed, device)
     out = {"bf16": [], "fp8": [], "flipped_block": []}
     with exact():
-        net = ref_model.build(config, device)
-        net.load_state_dict(start)
+        net = families.of(config).build(config, device)
+        net.load_state_dict({**start, **buffers}, strict=True)
         for i in sample_of(pool, mix, seed):
             volume = ref_serve.normalize(pool[i][0], device)
             probs = ref_serve.mean_probs(net.set_precision("fp32"), volume, patch, step, ncls)

@@ -3,14 +3,16 @@
 ``window_batch``), as ``inference_slidingwindow`` serves a case without its
 file I/O.
 
-Set-up builds the model as ``get_net`` does with the benchmark's weights,
+Set-up builds the model as ``get_net`` does with the benchmark's weights and
+the family's starting buffers (``weights.start``),
 makes the mix's pool of volumes and serves one volume of each lattice cell
 the pool falls in, which warms up and captures that cell's call. The window
 serves the pool round and round until ``seconds`` have passed and ends with
 the volume in flight then. A volume's latency runs from the start of its
 normalisation to its int32 labels on the host.
 
-After the window the system is freed, and the reference serves a sample of
+After the window the system is freed, and the family's reference model
+serves a sample of
 the finished volumes drawn from the seed (the largest volume among them)
 and judges the labels they were last served.
 """
@@ -23,10 +25,9 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, flops, roofline, traffic, weights
+from portbench import check, families, flops, roofline, traffic, weights
 from portbench.drivers import Context, memory_peak, reset_memory_peak, sync
 from portbench.reference import exact
-from portbench.reference import model as ref_model
 from portbench.reference import serve as ref_serve
 from portbench.trace import profiled, span, summarize
 
@@ -52,15 +53,15 @@ def run(ctx: Context) -> dict:
     from hdenseformer_tpu_torch.models import get_net
 
     cfg, mix, dev = ctx.config, ctx.mix, ctx.device
-    m = cfg["model"]
+    m, family = cfg["model"], families.of(cfg)
     phases = {"imports": time.perf_counter() - ctx.t_start}
     patch, step, ncls = tuple(cfg["patch_size"]), tuple(cfg["step_size"]), m["num_classes"]
     model = get_net(m["name"], m["in_channels"], ncls, tuple(m["image_size"]),
-                    transformer_depth=m["transformer_depth"],
                     dtype=torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else None,
-                    remat=cfg["remat"], s2d=cfg["s2d"], device=dev)
-    start = weights.make(weights.shapes_of(ref_model.build(cfg, "meta")), ctx.seed, dev)
-    model.load_state_dict(start, strict=True)
+                    remat=cfg["remat"], s2d=cfg["s2d"], device=dev,
+                    **family.system_kwargs(cfg))
+    start, buffers = weights.start(cfg, ctx.seed, dev)
+    model.load_state_dict({**start, **buffers}, strict=True)
     model.eval()
     phases["built"] = time.perf_counter() - ctx.t_start
     pool = traffic.serve_pool(mix, ctx.seed, dev)
@@ -86,7 +87,7 @@ def run(ctx: Context) -> dict:
     phases["warmed"] = time.perf_counter() - ctx.t_start
     windows = [len(ref_serve.origins(image.shape[1:], patch, step)) for image, _ in pool]
     window_flops = flops.count(cfg, 1, train=False)
-    window_bound = (roofline.forward_bound_s(cfg, 1, roofline.sm_clock_hz())
+    window_bound = (family.forward_bound_s(cfg, 1, roofline.sm_clock_hz())
                     if ctx.on_card else None)
     sample = sample_of(pool, mix, ctx.seed)
     served = {}
@@ -109,7 +110,7 @@ def run(ctx: Context) -> dict:
                 served[i] = labels
         window_s = time.perf_counter() - t0
     window_peak = memory_peak(dev)
-    summary = summarize(prof["prof"], window_s) if ctx.trace else None
+    summary = summarize(prof["prof"], window_s, family.kernel_patterns()) if ctx.trace else None
 
     del model, serve
     gc.collect()
@@ -117,8 +118,8 @@ def run(ctx: Context) -> dict:
         torch.cuda.empty_cache()
     gaps = []
     with exact():
-        net = ref_model.build(cfg, dev)
-        net.load_state_dict(start)
+        net = family.build(cfg, dev)
+        net.load_state_dict({**start, **buffers}, strict=True)
         for i in sample:
             if i not in served:
                 continue

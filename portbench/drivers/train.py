@@ -1,25 +1,28 @@
 """The training window: ``SemanticSeg._run_epoch`` epoch after epoch.
 
 Set-up builds the trainer's objects as ``SemanticSeg.trainer`` does (the
-model, Adam with coupled L2, the deep-supervision loss, the captured train
+model, Adam with coupled L2, the configuration's loss, the captured train
 step, the generators, the shuffling loader over the cases and its
-transforms) with the benchmark's weights, then runs epoch 0 through the
+transforms) with the benchmark's weights and the family's starting buffers
+(``weights.start``), then runs epoch 0 through the
 same call and feed as the window: its first step warms up and captures the
 step, and its first three steps are recorded for the check. The window
 runs epochs 1, 2, ... with the poly rate set per epoch, until ``seconds``
 have passed; it ends with the epoch in which they did, so every step of
 every epoch counts.
 
-The mix's ``device_augment`` picks the feed. True (3-D): the loader ships
-the raw cases and the step augments them on the device; the recorded
-batches are named by a fingerprint of each raw image. False (2-D): the
-loader's threads augment each sample on the host (``transform_2d``); the
-reference works the batches out again from the loader's seeding rule and
-its own augmentation, and ``augment_gap`` says how far the recorded
-batches lie from them.
+The mix's ``device_augment`` picks the feed. True (3-D only): the loader
+ships the raw cases and the step augments them on the device; the recorded
+batches are named by a fingerprint of each raw image. False: the loader's
+threads augment each sample on the host (the configuration's
+``transform_2d``, or the mix's ``transform_3d``); the reference works the
+batches out again from the loader's seeding rule and its own augmentation
+(``reference.augment2d``, ``reference.augment3d``), and ``augment_gap``
+says how far the recorded batches lie from them.
 
-After the window the system is freed and the reference runs the three
-recorded steps from the same weights on the same samples.
+After the window the system is freed and the family's reference model runs
+the three recorded steps from the same weights and buffers on the same
+samples, with the family's loss.
 """
 from __future__ import annotations
 
@@ -30,10 +33,9 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, flops, roofline, traffic, weights
+from portbench import check, families, flops, roofline, traffic, weights
 from portbench.drivers import Context, memory_peak, reset_memory_peak, sync
-from portbench.reference import augment, augment2d, exact
-from portbench.reference import model as ref_model
+from portbench.reference import augment, augment2d, augment3d, exact
 from portbench.reference.train import run_steps
 from portbench.trace import profiled, span, summarize
 
@@ -97,17 +99,26 @@ def case_batch(store: dict, paths, device) -> dict:
             "weight": torch.ones(len(paths), device=device)}
 
 
-def host_batches(store: dict, cfg: dict, seed: int, device, steps: int = RECORDED,
-                 flip_axes=(-1, -2)) -> list:
+def host_batches(store: dict, cfg: dict, mix: dict, seed: int, device, steps: int = RECORDED,
+                 sample_rng=augment2d.sample_rng, **augment_kw) -> list:
     """The first ``steps`` batches of epoch 0 of the host-augmented feed, as
     the reference works them out: the loader's order and each sample's
-    generator, then ``reference.augment2d`` (``flip_axes`` as there)."""
-    tr, paths = cfg["train"], sorted(store)
+    generator ``sample_rng(seed, epoch, index)``, then ``reference.augment2d``
+    with the configuration's ``transform_2d`` or ``reference.augment3d`` with
+    the mix's ``transform_3d`` (``augment_kw`` such as ``flip_axes`` as
+    there)."""
+    tr, paths, ncls = cfg["train"], sorted(store), cfg["model"]["num_classes"]
     order = augment2d.epoch_order(len(paths), seed, 0)
+    if len(cfg["model"]["image_size"]) == 2:
+        augment_fn = functools.partial(augment2d.augment, transforms=tr["transform_2d"],
+                                       num_classes=ncls, **augment_kw)
+    else:
+        augment_fn = functools.partial(augment3d.augment, transforms=mix["transform_3d"],
+                                       num_classes=ncls, patch=tuple(cfg["patch_size"]),
+                                       **augment_kw)
     out = []
     for t in range(steps):
-        rows = [augment2d.augment(*store[paths[i]], augment2d.sample_rng(seed, 0, int(i)),
-                                  tr["transform_2d"], cfg["model"]["num_classes"], flip_axes)
+        rows = [augment_fn(*store[paths[i]], sample_rng(seed, 0, int(i)))
                 for i in order[t * tr["batch_size"]:(t + 1) * tr["batch_size"]]]
         out.append({"image": torch.from_numpy(np.stack([r[0] for r in rows])).to(device),
                     "onehot": torch.from_numpy(np.stack([r[1] for r in rows])).to(device),
@@ -126,10 +137,10 @@ def run(ctx: Context) -> dict:
     from hdenseformer_tpu_torch.utils.graphs import GraphCache
 
     cfg, mix, dev, tr = ctx.config, ctx.mix, ctx.device, ctx.config["train"]
-    m = cfg["model"]
-    on_device = mix["device_augment"]
-    if on_device != (len(m["image_size"]) == 3):
-        raise ValueError("the 3-D cells augment on the device, the 2-D cells on the host")
+    m, family = cfg["model"], families.of(cfg)
+    on_device, is_3d = mix["device_augment"], len(m["image_size"]) == 3
+    if on_device and not is_3d:
+        raise ValueError("the system augments on the device in 3-D only")
     phases = {"imports": time.perf_counter() - ctx.t_start}
     store = {f"case{i:04d}": c for i, c in enumerate(traffic.train_cases(mix, ctx.seed, dev))}
     phases["cases"] = time.perf_counter() - ctx.t_start
@@ -142,12 +153,12 @@ def run(ctx: Context) -> dict:
         roi_number=None, input_shape=tuple(m["image_size"]), batch_size=tr["batch_size"],
         num_workers=mix["num_workers"], device=dev, lr=tr["lr"], n_epoch=tr["n_epoch"],
         weight_decay=tr["weight_decay"], use_fp16=cfg["compute_dtype"] == "bfloat16",
-        transform_2d=tr.get("transform_2d"), patch_size=tuple(cfg["patch_size"]),
-        step_size=tuple(cfg["step_size"]), transformer_depth=m["transformer_depth"],
+        transform_2d=tr.get("transform_2d"), transform_3d=mix.get("transform_3d"),
+        patch_size=tuple(cfg["patch_size"]), step_size=tuple(cfg["step_size"]),
         key_touple=tuple(cfg["keys"]), seed=ctx.seed, device_augment=on_device,
-        remat=cfg["remat"], s2d=cfg["s2d"], capture=True)
-    start = weights.make(weights.shapes_of(ref_model.build(cfg, "meta")), ctx.seed, dev)
-    seg.model.load_state_dict(start, strict=True)
+        remat=cfg["remat"], s2d=cfg["s2d"], capture=True, **family.system_kwargs(cfg))
+    start, buffers = weights.start(cfg, ctx.seed, dev)
+    seg.model.load_state_dict({**start, **buffers}, strict=True)
     state = TrainState(seg.model, get_optimizer(tr["optimizer"], tr["lr"],
                                                 weight_decay=tr["weight_decay"],
                                                 params=seg.model.parameters()))
@@ -162,7 +173,8 @@ def run(ctx: Context) -> dict:
         recorder_prints = {tuple(image[0, 0, 0, :8].tolist()): path
                            for path, (image, _) in store.items()}
     else:
-        augment_fn, transform = None, Compose(seg.train_transform_2d)
+        augment_fn = None
+        transform = Compose(seg.train_transform_3d if is_3d else seg.train_transform_2d)
         generators = (torch.Generator(device=dev), None)
         recorder_prints = None
     step = CapturedTrainStep(criterion, ncls, augment_fn, GraphCache())
@@ -186,8 +198,7 @@ def run(ctx: Context) -> dict:
     recorded = {"losses": [float(v) for v in recorder.losses], "batches": recorder.batches,
                 "first_grads": recorder.first_moment, "params": recorder.params}
     step_flops = flops.count(cfg, tr["batch_size"], train=True)
-    step_bound = (roofline.train_step_bound_s(cfg, tr["batch_size"],
-                                              roofline.sm_clock_hz())
+    step_bound = (family.train_step_bound_s(cfg, tr["batch_size"], roofline.sm_clock_hz())
                   if ctx.on_card else None)
     sync(dev)
     setup_peak = memory_peak(dev)
@@ -210,13 +221,13 @@ def run(ctx: Context) -> dict:
         sync(dev)
         window_s = time.perf_counter() - t0
     window_peak = memory_peak(dev)
-    summary = summarize(prof["prof"], window_s) if ctx.trace else None
+    summary = summarize(prof["prof"], window_s, family.kernel_patterns()) if ctx.trace else None
 
     del seg, state, step, loader, recorder, spanned_step, criterion, generators
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    readings, diagnostics = _check(ctx, recorded, store, start, lr0)
+    readings, diagnostics = _check(ctx, recorded, store, start, buffers, lr0)
     diagnostics["setup_phases_s"] = phases
     return {"kind": "train", "setup_s": setup_s, "window_s": window_s, "units": steps,
             "attempted": steps, "failed": 0, "samples": samples, "loader_wait_s": wait,
@@ -227,10 +238,11 @@ def run(ctx: Context) -> dict:
             "trace": summary, "readings": readings, "diagnostics": diagnostics}
 
 
-def _check(ctx: Context, recorded: dict, store: dict, start: dict, lr: float) -> tuple:
+def _check(ctx: Context, recorded: dict, store: dict, start: dict, buffers: dict, lr: float
+           ) -> tuple:
     """The reference's three steps on the recorded batches; (readings,
     diagnostics)."""
-    cfg, dev = ctx.config, ctx.device
+    cfg, dev, family = ctx.config, ctx.device, families.of(ctx.config)
     tr, ncls = cfg["train"], cfg["model"]["num_classes"]
     diagnostics, device_augment, fed = {}, None, {}
     if ctx.mix["device_augment"]:
@@ -240,12 +252,13 @@ def _check(ctx: Context, recorded: dict, store: dict, start: dict, lr: float) ->
         device_augment = functools.partial(augment.augment, patch=tuple(cfg["patch_size"]),
                                            num_classes=ncls)
     else:
-        batches = host_batches(store, cfg, ctx.seed, dev)
+        batches = host_batches(store, cfg, ctx.mix, ctx.seed, dev)
         fed["augment_gap"] = check.augment_gap(recorded["batches"], batches)
     with exact():
-        net = ref_model.build(cfg, dev)
-        net.load_state_dict(start)
-        ref = run_steps(net, batches, ctx.seed, lr, tr["weight_decay"], device_augment)
+        net = family.build(cfg, dev)
+        net.load_state_dict({**start, **buffers}, strict=True)
+        ref = run_steps(net, batches, ctx.seed, lr, tr["weight_decay"], device_augment,
+                        loss_fn=family.loss)
     gaps = check.leaf_gaps(recorded["first_grads"], ref["first_grads"], list(start))
     diagnostics["grad_gap_every_leaf"] = max(gaps.values())
     print("portbench: widest gradient gaps", sorted(gaps.items(), key=lambda kv: -kv[1])[:4])

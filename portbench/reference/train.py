@@ -1,5 +1,6 @@
-"""The train step of the configurations: the deep-supervision focal loss, its
-gradients and Adam with coupled L2, for the first steps of a run.
+"""The train step of the configurations: a family's loss (HDenseFormer's
+deep-supervision focal loss below), its gradients and Adam with coupled L2,
+for the first steps of a run.
 
 Step t (from 0) draws its augmentation from a generator on the device
 seeded ``augment_seed(seed, t)`` and its dropout masks from one seeded
@@ -52,7 +53,7 @@ def ds_loss(outs: Sequence[torch.Tensor], target: torch.Tensor, weight: torch.Te
 
 def run_steps(net: torch.nn.Module, batches: List[Dict[str, torch.Tensor]], seed: int,
               lr: float, weight_decay: float, device_augment: Optional[Callable] = None,
-              half_batch: bool = False) -> dict:
+              half_batch: bool = False, loss_fn: Callable = ds_loss) -> dict:
     """``len(batches)`` steps from the model's present weights, trained in
     place. Each batch holds the sample "weight" (B,) and, with
     ``device_augment(generator, image, label) -> (image, onehot)``, the raw
@@ -62,7 +63,10 @@ def run_steps(net: torch.nn.Module, batches: List[Dict[str, torch.Tensor]], seed
     gradients as the optimizer took them (L2 term included) and the
     weights after the last. ``half_batch`` is a planted fault: each step
     learns from the first half of its rows alone, its loss scaled up to the
-    whole batch's."""
+    whole batch's. ``loss_fn(outs, onehot, weight)`` is the family's loss
+    (the deep-supervision focal loss above by default). The net's buffers,
+    such as running statistics, start as loaded and move as its forward
+    in training moves them."""
     params = dict(net.named_parameters())
     m = {n: torch.zeros_like(p) for n, p in params.items()}
     v = {n: torch.zeros_like(p) for n, p in params.items()}
@@ -81,7 +85,7 @@ def run_steps(net: torch.nn.Module, batches: List[Dict[str, torch.Tensor]], seed
         if half_batch:
             keep = image.shape[0] // 2
             image, onehot, weight = image[:keep], onehot[:keep], weight[:keep] * 2.0
-        loss = ds_loss(net(image, drop), onehot, weight)
+        loss = loss_fn(net(image, drop), onehot, weight)
         grads = torch.autograd.grad(loss, list(params.values()))
         losses.append(float(loss.detach()))
         with torch.no_grad():

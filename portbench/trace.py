@@ -6,19 +6,17 @@ profiler they cost a few microseconds. ``summarize`` reads the profiler's
 raw events once: the device's busy time as the union of its operations'
 intervals (the operations of one graph may overlap), the idle gaps between
 them, each named by the innermost harness span open at its middle, the time
-by device operation, and the time of the system's hand-written kernels
-(``portbench/kernels.json``: a substring of the kernel's name).
+by device operation, and the time of the kernels that a pattern names (a
+substring of the kernel's name): those whose bound the configuration's
+family gives (``portbench.families``).
 """
 from __future__ import annotations
 
 import contextlib
-import json
-from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-KERNELS = Path(__file__).resolve().parent / "kernels.json"
 SPAN = "portbench."
 
 
@@ -83,15 +81,10 @@ def idle_gaps(busy: List[tuple], spans: List[tuple], start: float, end: float
     return out
 
 
-def kernel_patterns() -> List[str]:
-    with open(KERNELS) as f:
-        return json.load(f)["hand_written"]
-
-
-def summarize(prof, window_s: float) -> Optional[dict]:
-    """busy_s, kernel_s (the hand-written kernels), idle by span and time by
-    device operation over the profile; None where it saw no device
-    operation."""
+def summarize(prof, window_s: float, patterns: Sequence[str] = ()) -> Optional[dict]:
+    """busy_s, kernel_s (the kernels that ``patterns`` name; 0 where none
+    does), idle by span and time by device operation over the profile; None
+    where it saw no device operation."""
     device, spans = [], []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -103,7 +96,6 @@ def summarize(prof, window_s: float) -> Optional[dict]:
             device.append((e.start_ns(), e.end_ns(), name))
     if not device:
         return None
-    patterns = kernel_patterns()
     by_op: Dict[str, float] = {}
     kernel_ns = 0
     for a, b, name in device:

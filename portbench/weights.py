@@ -7,14 +7,18 @@ same b, the token positions U(-0.02, 0.02), a norm's scale 1 + U(-0.1, 0.1)
 and its shift U(-0.1, 0.1). The names and shapes are the reference model's,
 which mirror the system's: ``load_state_dict(strict=True)`` into the system
 checks that they agree.
+
+Buffers, such as a BatchNorm's running statistics, are not drawn: both
+sides start from those of a fresh reference model (``start``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from portbench import families
 from portbench.traffic import derive_seed
 
 
@@ -46,3 +50,20 @@ def make(shapes: Dict[str, tuple], seed: int, device) -> Dict[str, torch.Tensor]
 
 def shapes_of(model: torch.nn.Module) -> Dict[str, tuple]:
     return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def start(config: dict, seed: int, device) -> Tuple[Dict[str, torch.Tensor],
+                                                     Dict[str, torch.Tensor]]:
+    """(parameters, buffers) that the system and the reference both start
+    from: the family's reference model's parameters made from the seed, and
+    the buffers of its state dict as a fresh one holds them (none where it
+    has none)."""
+    family = families.of(config)
+    meta = family.build(config, "meta")
+    params = shapes_of(meta)
+    names = [n for n in meta.state_dict() if n not in params]
+    buffers = {}
+    if names:
+        fresh = family.build(config, "cpu").state_dict()
+        buffers = {n: fresh[n].to(device) for n in names}
+    return make(params, seed, device), buffers
