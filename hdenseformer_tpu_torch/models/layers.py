@@ -61,6 +61,7 @@ from hdenseformer_tpu_torch.ops.s2d import (
     upsample2x_packed,
 )
 from hdenseformer_tpu_torch.parallel.mesh import active_mesh, global_sum, sharded_draw
+from hdenseformer_tpu_torch.utils.profiling import count
 
 # the memory format of a conv weight of rank 4 / 5, channels last
 _CL = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -506,9 +507,13 @@ def self_attention(qkv: torch.Tensor, heads: int, p: float = 0.0, training: bool
 
     Plain math, not ``F.scaled_dot_product_attention``: SDPA draws its
     dropout from the global RNG, where the port draws every mask from an
-    explicit generator.
+    explicit generator. Counters (``utils.profiling``): ``attention.calls``
+    and ``attention.score_elements``, the b * heads * n^2 scores that it
+    materialises in fp32.
     """
     b, n = qkv.shape[:2]
+    count("attention.calls")
+    count("attention.score_elements", b * heads * n * n)
     qkv = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -531,12 +536,15 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     ``generator``, which lives on x's device: there is no hidden global RNG,
     so training with p > 0 and no generator raises. (``F.dropout`` takes no
     generator.) x's dim 0 is the batch: under a data-parallel mesh a rank
-    keeps its rows of the global batch's mask (``sharded_draw``).
+    keeps its rows of the global batch's mask (``sharded_draw``). The
+    counter ``dropout.drawn_elements`` adds the elements of the mask it
+    applies (the rank's rows under a mesh).
     """
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
+    count("dropout.drawn_elements", x.numel())
     keep = sharded_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
                         x.shape) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))

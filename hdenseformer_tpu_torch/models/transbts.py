@@ -45,6 +45,13 @@ transposed conv (one matmul), its 1x1 convs run packed (fp32 out, as JAX's
 ``conv1_packed``), and its ``DeBlock`` is the shift-free pair with packed
 BatchNorms; a partial-rank skip is unpacked for a fine decoder. The token
 grid is the input's 1/8 by construction (JAX's ``patch_dim`` of 8).
+
+Spans (``utils.profiling``, host work, recorded on an eager call and at a
+CUDA graph's capture): ``transbts.encoder``, ``transbts.transformer`` (BN,
+``conv_x``, the tokens and the layers) and ``transbts.decoder``. The
+attention and dropout counters are ``layers.self_attention``'s and
+``layers.dropout``'s; the channel coin adds its draws to
+``dropout.drawn_elements``.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from hdenseformer_tpu_torch.models.layers import (
 )
 from hdenseformer_tpu_torch.ops.s2d import concat_packed, pack, unpack
 from hdenseformer_tpu_torch.parallel.mesh import sharded_draw
+from hdenseformer_tpu_torch.utils.profiling import count, span
 
 CHANNEL_DROPOUT = 0.2  # the encoder's, fixed where TransBTSModel builds it, as in JAX
 
@@ -154,6 +162,7 @@ class UnetEncoder(nn.Module):
         if generator is None:
             raise ValueError("dropout in training needs an explicit torch.Generator")
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.InitConv.weight.shape[0],)
+        count("dropout.drawn_elements", shape[0] * shape[-1])
         return sharded_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
                             shape) >= self.p
 
@@ -278,15 +287,24 @@ class TransBTSModel(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        train, p = self.training, self.p
-        pk, pk_up = self.packed, self.packed_up
+        pk = self.packed
         if packed_levels(self.s2d, x.shape[1:-1]) != pk:
             raise ValueError(
                 f"input {tuple(x.shape)} would pack levels 0-1 as "
                 f"{packed_levels(self.s2d, x.shape[1:-1])}, but this model was built from its "
                 f"img_dim to pack them as {pk}: build it at the input's shape, or with s2d=False"
             )
-        x1_1, x2_1, x3_1, h = self.Unet(x, generator)
+        with span("transbts.encoder"):
+            x1_1, x2_1, x3_1, h = self.Unet(x, generator)
+        with span("transbts.transformer"):
+            tokens, grid = self._transformer(h, generator)
+        with span("transbts.decoder"):
+            return self._decoder(tokens, grid, x1_1, x2_1, x3_1)
+
+    def _transformer(self, h: torch.Tensor, generator) -> tuple:
+        """The bottleneck: BN, ReLU, ``conv_x``, the tokens and the layers;
+        returns the last layer's output, before any LayerNorm, and the grid."""
+        train, p = self.training, self.p
         h = self.conv_x(F.relu(self.bn(h)))
         b, grid, ed = h.shape[0], h.shape[1:-1], h.shape[-1]
         tokens = h.reshape(b, -1, ed) + self.position_embeddings.to(h.dtype)
@@ -297,7 +315,13 @@ class TransBTSModel(nn.Module):
             f = getattr(self, f"ff_fc1_{i}")(getattr(self, f"ff_norm_{i}")(tokens))
             f = getattr(self, f"ff_fc2_{i}")(dropout(gelu_exact(f), p, train, generator))
             tokens = tokens + dropout(f, p, train, generator)
-        y = tokens.reshape(b, *grid, ed)  # the last layer's output, before any LayerNorm
+        return tokens, grid
+
+    def _decoder(self, tokens: torch.Tensor, grid, x1_1, x2_1, x3_1) -> torch.Tensor:
+        """The ``Enblock8`` pairs, the three ``DeUp``/``DeBlock`` levels on
+        the encoder's skips, and ``endconv``: the fp32 logits."""
+        pk, pk_up = self.packed, self.packed_up
+        y = tokens.reshape(tokens.shape[0], *grid, tokens.shape[-1])
         y = self._pair("Enblock8_1_", y)
         y = self._pair("Enblock8_2_", y) + y
         y = self._deup(4, y, x3_1)
