@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hdenseformer_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--depth 24]
+    python3 chip_smoke.py [--seed 0] [--depth 24] [--phase all|mha]
 
 (``--dp-worker gloo|nccl`` runs one rank of phase 4d; the phase starts
-those processes itself.)
+those processes itself. ``--phase mha`` runs phases 0 and 1m alone.)
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
 the port's CUDA kernels from csrc/ and drives the serving paths of
@@ -29,6 +29,16 @@ removed at the end):
    serving gives it and on peaked scores, with its occupancy; then the path
    of the half-shift's backward kernel: the gradient of
    sum(conv3_packed(x, w)^2) through autograd;
+1m. the fused attention at head width 64 (``ops/mha.py``) at TransBTS's
+   (2, 8, 5832, 64) bf16 in training (dropout 0.1 by a drawn keep mask):
+   forward and backward against the plain math (largest error of O, dQ,
+   dK, dV over the plain output's largest), rerun bitwise; device times of
+   the forward and of the backward's two kernels beside their bounds (the
+   larger of products over 989 TFLOP/s with dS's three-part split counted
+   once, exponentials at 16 a clock per SM at the maximum SM clock, and the
+   mask's bytes over 3.35 TB/s), the mask's draw, the plain math's forward
+   and backward, and ``F.scaled_dot_product_attention`` with dropout 0.1
+   as ``library_ms`` (a yardstick: the port never calls it);
 1b. the InstanceNorm backward kernel (one cooperative launch) against its
    plain version (the port of fused_norm's VJP) given the same statistics,
    rerun bitwise, at the train step's largest shape (1, 144^3, 32) in bf16
@@ -237,7 +247,7 @@ from hdenseformer_tpu_torch.infer.sliding import cal_steps, predict_volume
 from hdenseformer_tpu_torch.losses import get_loss
 from hdenseformer_tpu_torch.metrics.eval3d import multi_dice, multi_hd
 from hdenseformer_tpu_torch.models import get_net
-from hdenseformer_tpu_torch.models.layers import init_weights
+from hdenseformer_tpu_torch.models.layers import dropout_keep, init_weights
 from hdenseformer_tpu_torch.ops import _build
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
 from hdenseformer_tpu_torch.ops.dense_attention import launch_plan as attention_plan
@@ -254,6 +264,8 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     shift_of,
 )
 from hdenseformer_tpu_torch.ops.instance_norm import bwd_plan as norm_bwd_plan
+from hdenseformer_tpu_torch.ops.mha import attention_ref as mha_ref
+from hdenseformer_tpu_torch.ops.mha import mha
 from hdenseformer_tpu_torch.ops.s2d import apply_shifted_mask, conv3_packed
 from hdenseformer_tpu_torch.ops.shift_pack import (
     shift_pack,
@@ -558,6 +570,87 @@ def phase_env(args) -> str:
          torch=torch.__version__, cuda=torch.version.cuda, seed=args.seed,
          depth=args.depth, kernel_build_s=round(build_s, 3), ptxas=ptxas)
     return smi
+
+
+MHA_SHAPE = (2, 8, 5832, 64)  # TransBTS at Hecktor21: batch 2, 8 heads of 64, 18^3 tokens
+MHA_P = 0.1
+
+
+def mha_bound(shape, backward: bool) -> dict:
+    """The fused attention's bound: products (forward QK^T and PV; backward
+    QK^T, dO V^T, P^T dO, dS K, dS^T Q, the split of dS counted once) over
+    the bf16 peak, the N^2 exponentials a (b, h) over the special-function
+    units, the keep mask's bytes over HBM; the largest, and which."""
+    b, h, n, d = shape
+    flops = (10 if backward else 4) * b * h * n * n * d
+    times = {"operations": flops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3,
+             "exponentials": b * h * n * n / (EX2_PER_CLOCK_SM * SM_COUNT * sm_clock_hz()) * 1e3,
+             "bytes": b * h * n * n / HBM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by], bound_by=by, **{f"{k}_ms": v for k, v in times.items()})
+
+
+def phase_mha(gen) -> dict:
+    """Phase 1m: the fused attention against the plain math at MHA_SHAPE."""
+    b, h, n, d = MHA_SHAPE
+    dev = torch.device("cuda")
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((b, n, h * d), generator=gen, device=dev).to(torch.bfloat16)
+    keep = dropout_keep((b, h, n, n), MHA_P, dev, gen)
+
+    def fwd_bwd(fn):
+        x = qkv.detach().requires_grad_()
+        out = fn(x)
+        return (out.detach(),) + torch.autograd.grad(out, x, dout)
+
+    kernel = lambda x: mha(x, h, keep, MHA_P)  # noqa: E731
+    plain = lambda x: mha_ref(x, h, keep, MHA_P)  # noqa: E731
+    got, again, ref = fwd_bwd(kernel), fwd_bwd(kernel), fwd_bwd(plain)
+    torch.cuda.synchronize()
+    rec = dict(shape=list(MHA_SHAPE), dtype="bfloat16", p=MHA_P,
+               bitwise_rerun=all(bool(torch.equal(u, v)) for u, v in zip(got, again)))
+    parts = {"o": (got[0], ref[0])}
+    for j, name in enumerate(("dq", "dk", "dv")):
+        parts[name] = (got[1].view(b, n, 3, -1)[:, :, j], ref[1].view(b, n, 3, -1)[:, :, j])
+    rec["vs_plain"] = {name: float((u.float() - v.float()).abs().max() / v.float().abs().max())
+                       for name, (u, v) in parts.items()}
+    if not rec["bitwise_rerun"]:
+        fail("mha: reruns differ")
+    # a guard against gross faults; the precision bar is tests/test_torch_cuda.py's (each
+    # output's error against float64 within twice the plain math's)
+    if not all(np.isfinite(list(rec["vs_plain"].values()))) or max(rec["vs_plain"].values()) > 0.05:
+        fail(f"mha against the plain math: {rec['vs_plain']}")
+    del again, ref
+
+    x = qkv.detach().requires_grad_()
+    out = kernel(x)
+    fwd = device_kernels(lambda: kernel(x), iters=10)
+    bwd = device_kernels(lambda: torch.autograd.grad(out, x, dout, retain_graph=True), iters=10)
+    rec["kernels_ms"] = {k: v for k, v in {**fwd, **bwd}.items() if "mha64" in k}
+    rec["fwd_ms"] = sum(v for k, v in fwd.items() if "mha64" in k)
+    rec["bwd_ms"] = sum(v for k, v in bwd.items() if "mha64" in k)
+    rec["ms"] = rec["fwd_ms"] + rec["bwd_ms"]
+    rec["fwd_bound"] = mha_bound(MHA_SHAPE, False)
+    rec["bwd_bound"] = mha_bound(MHA_SHAPE, True)
+    rec["bound_ms"] = rec["fwd_bound"]["bound_ms"] + rec["bwd_bound"]["bound_ms"]
+    rec["pct_of_bound"] = 100 * rec["bound_ms"] / rec["ms"]
+    del out, x
+    rec["mask_draw_ms"] = device_ms(lambda: dropout_keep((b, h, n, n), MHA_P, dev, gen), iters=5)
+    rec["plain_ms"] = device_ms(lambda: fwd_bwd(plain), iters=3)
+    views = [t.view(b, n, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+    grad_o = dout.view(b, n, h, d).transpose(1, 2)
+
+    def library():
+        xs = [v.detach().requires_grad_() for v in views]
+        o = F.scaled_dot_product_attention(*xs, dropout_p=MHA_P)
+        return torch.autograd.grad(o, xs, grad_o)
+
+    rec["library_ms"] = device_ms(library, iters=5)
+    emit("kernel_check", kernel="mha64", **rec)
+    del qkv, dout, keep, got
+    torch.cuda.empty_cache()
+    return {key: rec[key] for key in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "pct_of_bound", "mask_draw_ms")}
 
 
 def instance_norm_times(x, scale, bias, library: bool = True, relu: bool = True) -> dict:
@@ -2379,15 +2472,20 @@ def phase_zoo(args, gen) -> dict:
         fresh = buffers_of(net)
         with torch.inference_mode():
             reset_counts()
+            mha.launches = 0
             logits, first_ms = timed_forward(net, x)
             fwd_counts = read_counts()
+            mha_forward = mha.launches
             _, warm_ms = timed_forward(net, x)
         rec = dict(net=name, params=sum(p.numel() for p in net.parameters()),
                    batch_norm_buffers=len(fresh), eval_first_ms=first_ms, eval_warm_ms=warm_ms,
                    launches_forward=fwd_counts)
         if name in ("TransBTS", "unetr"):
-            # layers.self_attention: SDPA would draw its dropout from the global RNG
-            rec["attention"] = "plain math, fp32 scores (layers.self_attention)"
+            # layers.self_attention: bf16 heads of 64 take the fused kernel (ops/mha.py); the
+            # plain build below runs the plain math, fp32 scores
+            rec.update(attention="fused kernel (ops/mha.py)", mha_launches_forward=mha_forward)
+            if mha_forward != {"TransBTS": 4, "unetr": 12}[name]:
+                fail(f"{name} forward launched the fused attention {mha_forward} times")
         if name in ("TransBTS", "unetr"):
             plain = get_net(name, 2, N_CLS, (PATCH,) * 3, dtype=torch.bfloat16,
                             use_kernels=False, device="cuda")
@@ -3523,6 +3621,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=24, help="transformer_depth (24 = full)")
+    ap.add_argument("--phase", choices=["all", "mha"], default="all",
+                    help="mha: the environment and the fused attention's phase alone")
     ap.add_argument("--dp-worker", choices=["gloo", "nccl"], default=None,
                     help="run one rank of the data-parallel phase (the phase starts them)")
     args = ap.parse_args()
@@ -3538,6 +3638,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     smi = phase_env(args)
+    fused = phase_mha(gen)
+    if args.phase == "mha":
+        print(json.dumps({"ok": True, "mha64": fused, "device": torch.cuda.get_device_name(0)}))
+        return 0
     main_shapes = phase_kernels(gen)
     main_shapes["instance_norm_relu_backward"] = phase_norm_backward(gen)
     by_path = {"shift_grad": phase_shift_grad(gen)}
@@ -3605,7 +3709,8 @@ def main() -> int:
              launches_by_path={path: counts[name] for path, counts in by_path.items()},
              **main_shapes[name])
         for name, k in KERNELS.items()
-    ]}))
+    ] + [dict(name="mha64", route="cuda", source="hdenseformer_tpu_torch/csrc/mha64.cu",
+              replaces=None, **fused)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

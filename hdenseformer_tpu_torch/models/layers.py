@@ -45,6 +45,8 @@ from hdenseformer_tpu_torch.ops.instance_norm import (
     instance_norm_relu,
     instance_norm_relu_ref,
 )
+from hdenseformer_tpu_torch.ops.mha import applies as mha_applies
+from hdenseformer_tpu_torch.ops.mha import apply_keep, attention_ref, mha
 from hdenseformer_tpu_torch.ops.resize import upsample_linear
 from hdenseformer_tpu_torch.ops.s2d import (
     _pdims,
@@ -497,7 +499,8 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 
 def self_attention(qkv: torch.Tensor, heads: int, p: float = 0.0, training: bool = False,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   use_kernels: bool = True) -> torch.Tensor:
     """Multi-head attention of the (b, n, 3 c) output of a ``qkv`` projection,
     split as torch's ``reshape(b, n, 3, heads, c / heads)``, at JAX's
     precision (TransBTS's ``SelfAttention``, UNETR's ``ViTBlock``): scores
@@ -505,21 +508,27 @@ def self_attention(qkv: torch.Tensor, heads: int, p: float = 0.0, training: bool
     ``p`` on the probabilities, which are cast to v's dtype for P.V.
     Returns (b, n, c).
 
-    Plain math, not ``F.scaled_dot_product_attention``: SDPA draws its
-    dropout from the global RNG, where the port draws every mask from an
-    explicit generator. Counters (``utils.profiling``): ``attention.calls``
-    and ``attention.score_elements``, the b * heads * n^2 scores that it
-    materialises in fp32.
+    With ``use_kernels``, a bf16 qkv on CUDA with heads of 64 goes through
+    the hand-written kernel ``ops.mha.mha``, which keeps the n x n tiles on
+    chip; everything else (the CPU, other widths, fp32) runs the plain math
+    ``ops.mha.attention_ref``. Both take their dropout from one keep mask
+    that ``dropout_keep`` draws, as ``dropout`` would, from ``generator``:
+    there is no hidden global RNG (``F.scaled_dot_product_attention`` draws
+    from one). Counters (``utils.profiling``): ``attention.calls``,
+    ``attention.fused_calls`` (the calls the kernel took) and
+    ``attention.score_elements``, the b * heads * n^2 scores that the plain
+    math materialises in fp32.
     """
     b, n = qkv.shape[:2]
     count("attention.calls")
+    keep = None
+    if training and p > 0.0:
+        keep = dropout_keep((b, heads, n, n), p, qkv.device, generator)
+    if use_kernels and mha_applies(qkv.device.type, qkv.dtype, qkv.shape[-1] // (3 * heads)):
+        count("attention.fused_calls")
+        return mha(qkv, heads, keep, p)
     count("attention.score_elements", b * heads * n * n)
-    qkv = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    probs = dropout(torch.softmax(scores * q.shape[-1] ** -0.5, dim=-1), p, training, generator)
-    out = torch.matmul(probs.to(v.dtype), v)
-    return out.transpose(1, 2).reshape(b, n, -1)
+    return attention_ref(qkv, heads, keep, p)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -532,22 +541,31 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """flax ``nn.Dropout``: keep each element with probability 1 - p and scale
     it by 1 / (1 - p); zero the rest.
 
-    The identity in eval and at p = 0. The keep mask is drawn from
-    ``generator``, which lives on x's device: there is no hidden global RNG,
-    so training with p > 0 and no generator raises. (``F.dropout`` takes no
-    generator.) x's dim 0 is the batch: under a data-parallel mesh a rank
-    keeps its rows of the global batch's mask (``sharded_draw``). The
-    counter ``dropout.drawn_elements`` adds the elements of the mask it
-    applies (the rank's rows under a mesh).
+    The identity in eval and at p = 0; otherwise the keep mask is
+    ``dropout_keep``'s draw.
     """
     if not training or p == 0.0:
         return x
+    return apply_keep(x, dropout_keep(x.shape, p, x.device, generator), p)
+
+
+def dropout_keep(shape, p: float, device, generator: Optional[torch.Generator]
+                 ) -> torch.Tensor:
+    """The keep mask of dropout ``p`` over a tensor of ``shape`` on
+    ``device``: ``torch.rand(shape, generator=generator) >= p``.
+
+    ``generator`` lives on ``device``: there is no hidden global RNG, so a
+    draw without one raises. (``F.dropout`` takes no generator.) Dim 0 is
+    the batch: under a data-parallel mesh a rank keeps its rows of the
+    global batch's mask (``sharded_draw``). The counter
+    ``dropout.drawn_elements`` adds the elements of the mask (the rank's
+    rows under a mesh).
+    """
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
-    count("dropout.drawn_elements", x.numel())
-    keep = sharded_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
-                        x.shape) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+    shape = tuple(shape)
+    count("dropout.drawn_elements", math.prod(shape))
+    return sharded_draw(lambda s: torch.rand(s, generator=generator, device=device), shape) >= p
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -192,15 +192,16 @@ class SelfAttention(nn.Module):
     the probabilities and on the projected output."""
 
     def __init__(self, dim: int, heads: int = 8, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, use_kernels: bool = True, device=None):
         super().__init__()
-        self.heads, self.p = heads, dropout
+        self.heads, self.p, self.use_kernels = heads, dropout, use_kernels
         kw = dict(dtype=dtype, device=device)
         self.qkv = Dense(dim, 3 * dim, use_bias=False, **kw)
         self.proj = Dense(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        out = self_attention(self.qkv(x), self.heads, self.p, self.training, generator)
+        out = self_attention(self.qkv(x), self.heads, self.p, self.training, generator,
+                             self.use_kernels)
         return dropout(self.proj(out), self.p, self.training, generator)
 
 
@@ -237,7 +238,8 @@ class TransBTSModel(nn.Module):
         self.position_embeddings = nn.Parameter(torch.empty(tokens, ed, device=device))
         for i in range(num_layers):
             self.add_module(f"attn_norm_{i}", LayerNorm(ed, device=device))
-            self.add_module(f"attn_{i}", SelfAttention(ed, num_heads, attn_dropout_rate, **kw))
+            self.add_module(f"attn_{i}", SelfAttention(ed, num_heads, attn_dropout_rate,
+                                                       use_kernels=use_kernels, **kw))
             self.add_module(f"ff_norm_{i}", LayerNorm(ed, device=device))
             self.add_module(f"ff_fc1_{i}", Dense(ed, hidden_dim, **kw))
             self.add_module(f"ff_fc2_{i}", Dense(hidden_dim, ed, **kw))

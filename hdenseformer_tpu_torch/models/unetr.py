@@ -80,9 +80,9 @@ class UnetResBlock(nn.Module):
 
 class ViTBlock(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int, heads: int, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, use_kernels: bool = True, device=None):
         super().__init__()
-        self.heads, self.p = heads, dropout
+        self.heads, self.p, self.use_kernels = heads, dropout, use_kernels
         kw = dict(dtype=dtype, device=device)
         self.norm1 = LayerNorm(hidden, device=device)
         self.qkv = Dense(hidden, 3 * hidden, use_bias=False, **kw)
@@ -93,7 +93,8 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         p, train = self.p, self.training
-        out = self.proj(self_attention(self.qkv(self.norm1(x)), self.heads))
+        out = self.proj(self_attention(self.qkv(self.norm1(x)), self.heads,
+                                       use_kernels=self.use_kernels))
         x = x + dropout(out, p, train, generator)
         h = dropout(gelu_exact(self.fc1(self.norm2(x))), p, train, generator)
         return x + dropout(self.fc2(h), p, train, generator)
@@ -122,7 +123,8 @@ class UNETR(nn.Module):
         self.patch_embed = Dense(PATCH ** len(self.grid) * in_channels, hid, **kw)
         self.pos_embed = nn.Parameter(torch.empty(tokens, hid, device=device))
         for i in range(num_layers):
-            self.add_module(f"vit_{i}", ViTBlock(hid, mlp_dim, num_heads, dropout_rate, **kw))
+            self.add_module(f"vit_{i}", ViTBlock(hid, mlp_dim, num_heads, dropout_rate,
+                                                 use_kernels=use_kernels, **kw))
         self.vit_norm = LayerNorm(hid, device=device)
         self.encoder1 = UnetResBlock(in_channels, fs, **res)
         for name, out, ladder in (("encoder2", 2 * fs, 2), ("encoder3", 4 * fs, 1),

@@ -24,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dense_attention.cu", "instance_norm_relu.cu", "shift_pack.cu")
+SOURCES = ("dense_attention.cu", "instance_norm_relu.cu", "mha64.cu", "shift_pack.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -65,6 +65,10 @@ _SIGNATURES = {
     ),
     # which, dtype, vec_bytes, shifted, out (int array of 3)
     "hdf_instance_norm_relu_kernel_attributes": (_i, _i, _i, _i, _p),
+    # qkv, keep, o, o32, lse, B, H, N, sb, sn, scale, keep_scale, stream
+    "hdf_mha64_fwd": (_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _f, _f, _p),
+    # qkv, keep, dout, o32, lse, dlt, dqkv, B, H, N, sb, sn, scale, keep_scale, stream
+    "hdf_mha64_bwd": (_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _f, _f, _p),
     # x, y, forward, vec_bytes, nsp, N, g0, g1, g2, cv, stream
     "hdf_shift_pack": (_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p),
 }

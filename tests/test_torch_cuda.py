@@ -1656,3 +1656,201 @@ def test_refused_capture_raises(cuda):
     call = CapturedCall(lambda s: {"y": s["x"] * float(s["x"].sum())}, {"x": x})
     with pytest.raises(RuntimeError):
         call.replay({"x": x})
+
+
+# --- the fused attention at head width 64 (ops/mha.py, csrc/mha64.cu) ---------------------
+
+def _mha_exact(qkv, heads, keep, p, dout):
+    """O and the gradient of qkv in float64 by the formulas, one (b, h) at a
+    time: the exact values that the kernel and the plain math each round."""
+    b, n, _ = qkv.shape
+    x = qkv.double().reshape(b, n, 3, heads, 64)
+    do = dout.double().reshape(b, n, heads, 64)
+    out = torch.empty(b, n, heads, 64, dtype=torch.float64, device=qkv.device)
+    grad = torch.empty(b, n, 3, heads, 64, dtype=torch.float64, device=qkv.device)
+    scale = 64 ** -0.5
+    for i in range(b):
+        for h in range(heads):
+            q, k, v = x[i, :, 0, h], x[i, :, 1, h], x[i, :, 2, h]
+            probs = torch.softmax(q @ k.T * scale, dim=-1)
+            m = keep[i, h].double() / (1 - p) if keep is not None else 1.0
+            kept = probs * m
+            out[i, :, h] = kept @ v
+            g = do[i, :, h]
+            dp = (g @ v.T) * m
+            ds = probs * (dp - (probs * dp).sum(-1, keepdim=True))
+            grad[i, :, 0, h] = ds @ k * scale
+            grad[i, :, 1, h] = ds.T @ q * scale
+            grad[i, :, 2, h] = kept.T @ g
+            del probs, kept, dp, ds
+    return out.reshape(b, n, -1), grad.reshape(b, n, -1)
+
+
+def _mha_errors(out, grad, exact_out, exact_grad, heads):
+    """Max and mean error of O, dQ, dK, dV, each over its exact values'
+    largest / mean magnitude."""
+    b, n = out.shape[:2]
+    parts = {"o": (out, exact_out)}
+    for j, name in enumerate(("dq", "dk", "dv")):
+        parts[name] = (grad.reshape(b, n, 3, -1)[:, :, j], exact_grad.reshape(b, n, 3, -1)[:, :, j])
+    errs = {}
+    for name, (got, ref) in parts.items():
+        diff = (got.double() - ref).abs()
+        errs[name] = (float(diff.max() / ref.abs().max()), float(diff.mean() / ref.abs().mean()))
+    return errs
+
+
+def _mha_inputs(cuda, b, heads, n, p, train, seed=0):
+    from hdenseformer_tpu_torch.models.layers import dropout_keep
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * heads * 64, generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn(b, n, heads * 64, generator=g, device=cuda).to(torch.bfloat16)
+    keep = dropout_keep((b, heads, n, n), p, cuda, g) if train and p > 0 else None
+    return qkv, dout, keep
+
+
+def _out_and_grad(fn, qkv, dout):
+    x = qkv.detach().requires_grad_()
+    out = fn(x)
+    (dx,) = torch.autograd.grad(out, x, dout)
+    return out.detach(), dx
+
+
+@pytest.mark.parametrize("b,heads,n,p,train", [
+    (2, 8, 5832, 0.1, True), (2, 8, 5832, 0.1, False), (2, 12, 216, 0.0, True),
+    (1, 2, 1000, 0.1, True), (1, 2, 130, 0.1, True),
+], ids=["transbts-train", "transbts-eval", "unetr", "n1000", "n130-ragged"])
+def test_mha_kernel_is_as_precise_as_the_plain_math(cuda, b, heads, n, p, train):
+    """Forward and backward of the fused kernel against float64 formulas on
+    the same bf16 inputs and keep mask, beside the plain math's own error
+    (fp32 scores and softmax, bf16 P.V as the port runs it on the CPU): each
+    of O, dQ, dK and dV within twice the plain path's error, by the largest
+    and by the mean. TransBTS's shape in training and in eval; UNETR's 216
+    tokens of 12 heads; 1000 tokens (a ragged last tile); 130 (N % 8 != 0,
+    the mask read a byte at a time)."""
+    from hdenseformer_tpu_torch.ops.mha import attention_ref, mha
+
+    qkv, dout, keep = _mha_inputs(cuda, b, heads, n, p, train)
+    mha.launches = mha.backward_launches = 0
+    out, grad = _out_and_grad(lambda x: mha(x, heads, keep, p), qkv, dout)
+    torch.cuda.synchronize()
+    assert (mha.launches, mha.backward_launches) == (1, 1)
+    ref_out, ref_grad = _out_and_grad(lambda x: attention_ref(x, heads, keep, p), qkv, dout)
+    exact = _mha_exact(qkv, heads, keep, p, dout)
+    got = _mha_errors(out, grad, *exact, heads)
+    plain = _mha_errors(ref_out, ref_grad, *exact, heads)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(grad).all())
+    for name in got:
+        for i in range(2):
+            assert got[name][i] <= 2 * plain[name][i], (name, got, plain)
+
+
+def test_mha_draws_the_plain_paths_mask(cuda):
+    """self_attention in training through the kernel and through the plain
+    math, from one generator state: the generator ends in the same state
+    (the same draws), and the outputs agree to the bf16 rounding of P."""
+    from hdenseformer_tpu_torch.models.layers import self_attention
+    from hdenseformer_tpu_torch.utils.profiling import tracing
+
+    qkv = torch.randn(2, 216, 3 * 8 * 64, generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda).to(torch.bfloat16)
+    outs, states, counters = [], [], []
+    for use in (True, False):
+        g = torch.Generator(device=cuda).manual_seed(7)
+        with tracing() as rec:
+            outs.append(self_attention(qkv, 8, 0.1, True, g, use_kernels=use))
+        states.append(g.get_state())
+        counters.append(rec.counters)
+    assert torch.equal(states[0], states[1])
+    n_scores = 2 * 8 * 216 * 216
+    assert counters[0] == {"attention.calls": 1, "attention.fused_calls": 1,
+                           "dropout.drawn_elements": n_scores}
+    assert counters[1] == {"attention.calls": 1, "attention.score_elements": n_scores,
+                           "dropout.drawn_elements": n_scores}
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), rtol=2 ** -7, atol=2e-2)
+
+
+def test_mha_backward_is_bitwise_deterministic(cuda):
+    """Two forward and backward calls on the same inputs: the same bits (no
+    atomics; the dQ and dK/dV passes each sum in a fixed order)."""
+    from hdenseformer_tpu_torch.ops.mha import mha
+
+    qkv, dout, keep = _mha_inputs(cuda, 2, 8, 1000, 0.1, True, seed=3)
+    runs = [_out_and_grad(lambda x: mha(x, 8, keep, 0.1), qkv, dout) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_mha_captured_equals_eager(cuda):
+    """Forward and backward captured as a CUDA graph and replayed on new
+    inputs copied into the static ones: the eager call's bits."""
+    from hdenseformer_tpu_torch.ops.mha import mha
+
+    qkv, dout, keep = _mha_inputs(cuda, 2, 8, 216, 0.1, True, seed=4)
+    static = [qkv.clone(), dout.clone()]
+
+    def run():
+        return _out_and_grad(lambda x: mha(x, 8, keep, 0.1), static[0], static[1])
+
+    graph, outs = _capture(run)
+    fresh, fresh_dout, _ = _mha_inputs(cuda, 2, 8, 216, 0.1, False, seed=5)
+    static[0].copy_(fresh)
+    static[1].copy_(fresh_dout)
+    graph.replay()
+    want = _out_and_grad(lambda x: mha(x, 8, keep, 0.1), fresh, fresh_dout)
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["fp32", "width 32", "cpu", "misaligned", "keep shape",
+                                  "keep dtype", "keep strided"])
+def test_mha_wrapper_rejects_what_the_kernel_does_not_take(cuda, case):
+    from hdenseformer_tpu_torch.ops.mha import mha
+
+    qkv = torch.zeros(2, 16, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    keep = torch.ones(2, 2, 16, 16, device=cuda, dtype=torch.bool)
+    x, heads, k = {
+        "fp32": (qkv.float(), 2, None),
+        "width 32": (qkv, 4, None),
+        "cpu": (qkv.cpu(), 2, None),
+        "misaligned": (torch.zeros(2, 16, 3 * 128 + 1, device=cuda,
+                                   dtype=torch.bfloat16)[..., 1:], 2, None),
+        "keep shape": (qkv, 2, keep[:, :1]),
+        "keep dtype": (qkv, 2, keep.to(torch.uint8)),
+        "keep strided": (qkv, 2, keep.transpose(2, 3)),
+    }[case]
+    with pytest.raises(ValueError):
+        mha(x, heads, k, 0.1)
+
+
+def test_transbts_training_forward_takes_the_kernel(cuda):
+    """A bf16 TransBTS training forward at 32^3 (64 tokens, 8 heads of 64):
+    its 4 attention calls go through the kernel (``attention.fused_calls``
+    4, no materialised scores), and it draws as many dropout elements as the
+    plain build from the same generator, ending in the same state."""
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.ops.mha import mha
+    from hdenseformer_tpu_torch.utils.profiling import tracing
+
+    counters, states = {}, {}
+    for use in (True, False):
+        net = get_net("TransBTS", 2, 2, (32, 32, 32), dtype=torch.bfloat16, use_kernels=use,
+                      device=cuda)
+        init_weights(net, torch.Generator().manual_seed(0))
+        net.train()
+        x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(2)
+        mha.launches = 0
+        with tracing() as rec, torch.no_grad():
+            net(x, generator=g)
+        torch.cuda.synchronize()
+        counters[use], states[use] = dict(rec.counters, launches=mha.launches), g.get_state()
+    assert counters[True]["attention.fused_calls"] == counters[True]["launches"] == 4
+    assert counters[True].get("attention.score_elements", 0) == 0
+    assert counters[False]["launches"] == 0 and "attention.fused_calls" not in counters[False]
+    assert counters[True]["dropout.drawn_elements"] == counters[False]["dropout.drawn_elements"]
+    assert torch.equal(states[True], states[False])

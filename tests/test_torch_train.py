@@ -30,13 +30,20 @@ from hdenseformer_tpu_torch.metrics.running import (  # noqa: E402
     confusion_matrix_device,
 )
 from hdenseformer_tpu_torch.models.hdenseformer import HDenseFormer  # noqa: E402
-from hdenseformer_tpu_torch.models.layers import dropout, init_weights  # noqa: E402
+from hdenseformer_tpu_torch.models.layers import (  # noqa: E402
+    dropout,
+    dropout_keep,
+    init_weights,
+    self_attention,
+)
+from hdenseformer_tpu_torch.ops.mha import applies as mha_applies  # noqa: E402
 from hdenseformer_tpu_torch.train import state as tstate  # noqa: E402
 from hdenseformer_tpu_torch.train.loop import (  # noqa: E402
     TrainState,
     make_eval_step,
     make_train_step,
 )
+from hdenseformer_tpu_torch.utils.profiling import tracing  # noqa: E402
 from hdenseformer_tpu_torch.weights import from_jax_params, load_jax_params  # noqa: E402
 from torch_port_util import random_jax_params  # noqa: E402
 
@@ -224,6 +231,41 @@ def test_dropout_is_reproducible_and_off_in_eval():
     assert torch.equal(dropout(x, 1.0, True, torch.Generator()), torch.zeros_like(x))
     with pytest.raises(ValueError, match="Generator"):
         dropout(x, 0.5, True, None)
+
+
+def test_dropout_keep_is_the_mask_that_dropout_draws():
+    """The attention's keep mask (``dropout_keep``) is dropout's own draw:
+    the same mask from the same generator state, and the generator left in
+    the same state."""
+    shape, p = (2, 3, 9, 9), 0.1
+    ga, gb = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    keep = dropout_keep(shape, p, "cpu", ga)
+    y = dropout(torch.ones(shape), p, True, gb)
+    assert keep.dtype == torch.bool and torch.equal(keep, y != 0)
+    assert torch.equal(ga.get_state(), gb.get_state())
+    with pytest.raises(ValueError, match="Generator"):
+        dropout_keep(shape, p, "cpu", None)
+
+
+@pytest.mark.parametrize("device,dtype,width,fused", [
+    ("cuda", torch.bfloat16, 64, True), ("cpu", torch.bfloat16, 64, False),
+    ("cuda", torch.bfloat16, 32, False), ("cuda", torch.float32, 64, False),
+])
+def test_attention_takes_the_kernel_only_on_cuda_bf16_at_width_64(device, dtype, width, fused):
+    """``self_attention``'s dispatch: the fused kernel for bf16 CUDA heads of
+    64, the plain math everywhere else; on the CPU the plain path runs and
+    counts its materialised scores."""
+    assert mha_applies(device, dtype, width) is fused
+    if device != "cpu":
+        return
+    b, n, heads = 2, 5, 2
+    qkv = torch.randn(b, n, 3 * heads * width, generator=torch.Generator().manual_seed(0))
+    with tracing() as recording:
+        out = self_attention(qkv.to(dtype), heads, 0.1, True, torch.Generator().manual_seed(1))
+    assert out.shape == (b, n, heads * width) and out.dtype == dtype
+    assert recording.counters == {"attention.calls": 1,
+                                  "attention.score_elements": b * heads * n * n,
+                                  "dropout.drawn_elements": b * heads * n * n}
 
 
 def test_model_dropout_needs_a_generator_in_training():
