@@ -10,6 +10,8 @@ fp32 comparisons turn TF32 off in cuDNN and cuBLAS, since a float32
 convolution otherwise runs in TF32 on the card.
 """
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -295,19 +297,25 @@ def test_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
         shift_unpack(torch.randn(1, 4, 16, device=cuda))
 
 
-def test_hecktor_goes_through_the_kernels(cuda):
+@pytest.mark.parametrize("size,s2d", [(32, True), (64, True), (64, {1: True, 2: (2,)})])
+def test_hecktor_goes_through_the_kernels(cuda, size, s2d):
+    """Hecktor20Top1 (n_filters 32, batch 2, fp32) packed through the kernels,
+    packed through the plain versions and fine through the kernels; also at
+    64^3 and with level 2 packed over W as well (its partial-rank convs shift
+    without the kernel, so the launches are the default's)."""
     from hdenseformer_tpu_torch.models import get_net
     from hdenseformer_tpu_torch.models.layers import init_weights
 
     nets = {
-        (s2d, use): get_net("hecktor20top1", 2, 2, (32, 32, 32), s2d=s2d,
-                            use_kernels=use, device=cuda)
-        for s2d, use in ((True, True), (True, False), (False, True))
+        (packed, use): get_net("hecktor20top1", 2, 2, (size,) * 3, s2d=s2d if packed else False,
+                               use_kernels=use, device=cuda)
+        for packed, use in ((True, True), (True, False), (False, True))
     }
+    assert nets[True, True].packed2 == ((2,) if isinstance(s2d, dict) else None)
     init_weights(nets[True, True], torch.Generator().manual_seed(0))
     for net in nets.values():
         net.load_state_dict(nets[True, True].state_dict())
-    x = torch.randn(2, 32, 32, 32, 2, generator=torch.Generator(device=cuda).manual_seed(3),
+    x = torch.randn(2, size, size, size, 2, generator=torch.Generator(device=cuda).manual_seed(3),
                     device=cuda)
     shift_pack.launches = instance_norm_relu.launches = 0
     with torch.inference_mode():
@@ -322,6 +330,56 @@ def test_hecktor_goes_through_the_kernels(cuda):
     # fp32 reduction order amplified by the norms (JAX's bar, 2e-2 of the scale)
     torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, fine, rtol=0, atol=2e-2 * float(fine.abs().max()))
+
+
+# the launches of one forward at 144^3 through the kernels, each model at its preset
+# (get_net's defaults: packed levels, HDenseFormer's depth 24): (attention, InstanceNorm,
+# shifted InstanceNorm, half-shift, fused attention at head width 64)
+PRESET_FORWARD = {"HDenseFormer_32": (48, 16, 2, 0, 0), "hecktor20top1": (0, 30, 0, 4, 0),
+                  "TransBTS": (0, 0, 0, 1, 4), "unetr": (0, 15, 0, 0, 12)}
+
+
+@pytest.mark.parametrize("name", sorted(PRESET_FORWARD))
+def test_forward_at_the_preset_size_goes_through_the_kernels(cuda, name):
+    """Each model that launches a kernel, at the Hecktor21 preset's full width
+    and 144^3 patch, bf16, batch 1: its eval forward through the kernels
+    against the plain versions (``use_kernels=False``, which launches none)
+    from the same weights. bf16 rounds each path differently, so the bars
+    are on the argmax: 99 % of the voxels, and 99.9 % of those whose plain
+    top-two margin exceeds 0.1 (a tenth of the logits' order; the paths'
+    differences are far below it). TransBTS's BatchNorm statistics stay
+    where they were."""
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.ops.mha import mha
+
+    wrappers = (dense_attention, instance_norm_relu, instance_norm_relu_shifted, shift_pack, mha)
+    nets = [get_net(name, 2, 2, (144,) * 3, dtype=torch.bfloat16, use_kernels=use, device=cuda)
+            for use in (True, False)]
+    init_weights(nets[0], torch.Generator().manual_seed(0))
+    nets[1].load_state_dict(nets[0].state_dict())
+    x = torch.randn(1, 144, 144, 144, 2, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    buffers = {n: b.clone() for n, b in nets[0].named_buffers()}
+    outs, counts = [], []
+    with torch.inference_mode():
+        for net in nets:
+            for fn in wrappers:
+                fn.launches = 0
+            out = net(x)
+            outs.append(out[0] if isinstance(out, (list, tuple)) else out)
+            counts.append(tuple(fn.launches for fn in wrappers))
+    torch.cuda.synchronize()
+    assert counts == [PRESET_FORWARD[name], (0,) * 5]
+    assert all(torch.equal(b, buffers[n]) for n, b in nets[0].named_buffers())
+    got, ref = outs
+    assert got.shape == ref.shape == (1, 144, 144, 144, 2) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+    top = ref.topk(2, dim=-1).values
+    decided = top[..., 0] - top[..., 1] > 0.1
+    same = got.argmax(-1) == ref.argmax(-1)
+    assert float(same.float().mean()) >= 0.99
+    assert float(same[decided].float().mean()) >= 0.999, float(decided.float().mean())
 
 
 def _norm_backward_case(cuda, shape, dtype, affine, relu, seed, mean=1.0, spread=3.0):
@@ -1272,10 +1330,10 @@ def test_captured_train_and_eval_steps_equal_eager(cuda, deterministic_cudnn, na
     """Two train steps of every model of get_net captured as one CUDA graph
     (``CapturedTrainStep``, the trainer's step: the second batch's last
     sample masked by weight 0) against two eager steps from the same
-    weights, batches and seeds, with the graph phase's bars: the first loss within
-    1e-6 relative (the same arithmetic), the second within 1e-4 or 3x the
-    spread of eager steps on the input moved by one fp32 rounding step
-    (Adam turns rounding into whole-lr moves, and a BatchNorm bottleneck
+    weights, batches and seeds: the first loss within 1e-6 relative (the
+    same arithmetic), the second within 1e-4 or 3x the spread of eager steps
+    on the input moved by one fp32 rounding step (Adam turns rounding into
+    whole-lr moves, and a BatchNorm bottleneck
     that normalises two values a channel amplifies them), the parameters
     within 2 lr a step, and a BatchNorm model's running statistics moved by
     the captured steps (at least half as far as by the eager ones) and
@@ -1524,6 +1582,130 @@ def test_captured_window_forward_follows_rebound_parameters(cuda):
     assert float((got - want).abs().max()) <= 1e-4
     assert float((old - want).abs().max()) > 0.05
     assert model_graphs(net).captured == 1 and len(kept)
+
+
+def test_captured_predict_case_2d_equals_eager(cuda):
+    """``predict_case_2d``'s chunk captured as one graph (the default on a
+    card) against ``capture=False``: HDenseFormer_2D_16 (32^2, depth 4) on a
+    3 x 30 x 40 x 44 volume in chunks of 24 slices, the last one padded with
+    zeros: the labels equal on every voxel, one graph for both chunks."""
+    from hdenseformer_tpu_torch.infer.slices import predict_case_2d
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.utils.graphs import model_graphs
+
+    net = get_net("HDenseFormer_2D_16", 3, 2, (32, 32), transformer_depth=4, device=cuda)
+    init_weights(net, torch.Generator().manual_seed(0))
+    image = torch.randn(3, 30, 40, 44, generator=torch.Generator().manual_seed(2)).numpy()
+    got = predict_case_2d(net, image, (32, 32))
+    want = predict_case_2d(net, image, (32, 32), capture=False)
+    assert got.shape == want.shape == (30, 40, 44) and (got == want).all()
+    assert model_graphs(net).captured == 1
+
+
+# --- the trainer (train/loop.py SemanticSeg) ----------------------------------------------
+
+# tests/test_torch_trainer.py's run: HDenseFormer_16 at 32^3 patches of 40^3 cases, depth 4,
+# fp32, remat, dropout 0.5, batch 2
+TRAINER_KNOBS = dict(net_name="HDenseFormer_16", channels=2, num_classes=2, roi_number=None,
+                     input_shape=(32,) * 3, patch_size=(32,) * 3, step_size=(16,) * 3,
+                     batch_size=2, num_workers=2, lr=1e-3, weight_decay=1e-4, use_fp16=False,
+                     transformer_depth=4, transform_3d=[1, 2, 4, 5, 6], seed=3)
+TRAINER_SETUP = dict(optimizer="Adam", loss_fun="FocalLoss", use_ds=True, lr_scheduler=None)
+
+
+def _npy_reader(path: str, key: str) -> np.ndarray:
+    """A volume of a case directory of ``<key>.npy`` files (a missing one
+    raises KeyError, as the trainer's readers do)."""
+    f = os.path.join(path, key + ".npy")
+    if not os.path.exists(f):
+        raise KeyError(key)
+    return np.load(f).astype(np.float32)
+
+
+def _npy_cases(root, n: int, shape=(40, 40, 40)) -> list:
+    """tests/fixtures.py's synthetic CT+PET cases (int16-range noise, a ball
+    as the label) as ``.npy`` case directories: the card's machine may have
+    no h5py."""
+    paths = []
+    for i in range(n):
+        rng = np.random.RandomState(i)
+        image = rng.randint(-1024, 2000, size=(2,) + shape).astype(np.int16)
+        centre = [rng.randint(s // 4, 3 * s // 4) for s in shape]
+        grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+        ball = sum((g - c) ** 2 for g, c in zip(grids, centre)) <= (min(shape) // 6) ** 2
+        path = os.path.join(root, f"sample{i}_case")
+        os.makedirs(path)
+        np.save(os.path.join(path, "ct.npy"), image)
+        np.save(os.path.join(path, "seg.npy"), ball.astype(np.uint8))
+        paths.append(path)
+    return paths
+
+
+def _graphs_by_epoch(log_dir: str) -> list:
+    """(train, val) graphs captured in each epoch, from the run's metrics.jsonl."""
+    seen = {}
+    with open(os.path.join(log_dir, "fold1", "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["tag"].endswith("/graphs_captured"):
+                seen.setdefault(r["step"], {})[r["tag"].split("/")[1]] = int(r["value"])
+    return [(seen[e]["train"], seen[e]["val"]) for e in sorted(seen)]
+
+
+@pytest.mark.parametrize("device_augment", [False, True])
+def test_trainer_trains_resumes_and_serves_on_the_card(cuda, deterministic_cudnn, tmp_path,
+                                                      device_augment):
+    """``SemanticSeg``'s journey on the card with its steps captured (the
+    default), at TRAINER_KNOBS on 3 training cases and 1 validation case
+    (2 steps an epoch): two epochs straight, each step shape captured in the
+    first epoch and replayed in the second; then a run resumed from the
+    first epoch's checkpoint for the second epoch, which starts at its epoch
+    and step and ends where the straight run ended, to the bars of
+    ``test_captured_steps_equal_eager_steps`` (the epoch's loss within 1e-4,
+    the parameters within 2 lr a step: the backward's atomics round
+    differently in the two runs and Adam turns that into whole-lr moves);
+    then ``inference_slidingwindow`` of the validation case, captured
+    against ``capture=False``: equal labels on every voxel. With
+    ``device_augment`` the loader ships raw cases and the captured step
+    augments them on the card."""
+    from hdenseformer_tpu_torch.train.loop import SemanticSeg
+
+    class NpySemanticSeg(SemanticSeg):
+        reader = staticmethod(_npy_reader)
+
+    paths = _npy_cases(str(tmp_path / "cases"), 4)
+    train, val = paths[:3], paths[3:]
+
+    def run(name, **knobs):
+        seg = NpySemanticSeg(**dict(TRAINER_KNOBS, n_epoch=2, device=cuda,
+                                    device_augment=device_augment, **knobs))
+        hist = seg.trainer(train, val, 1, output_dir=str(tmp_path / name / "ckpt"),
+                           log_dir=str(tmp_path / name / "log"), **TRAINER_SETUP)
+        assert all(np.isfinite(hist[k]).all() for k in ("train_loss", "val_loss")), hist
+        return seg, hist
+
+    straight, hist = run("straight")
+    graphs = _graphs_by_epoch(str(tmp_path / "straight" / "log"))
+    assert graphs[0][0] >= 1 and graphs[0][1] >= 1 and graphs[1] == (0, 0), graphs
+    ckpts = os.listdir(tmp_path / "straight" / "ckpt" / "fold1")
+    first = [f for f in ckpts if f.startswith("epoch=0-")]
+    assert len(first) == 1 and len(ckpts) <= 3, ckpts
+    resumed, hist2 = run("resumed", pre_trained=True, ckpt_point=True,
+                         weight_path=str(tmp_path / "straight" / "ckpt" / "fold1" / first[0]))
+    assert resumed.start_epoch == 1 and resumed.state.step == straight.state.step == 4
+    assert hist2["train_loss"] == pytest.approx(hist["train_loss"][1:], rel=1e-4)
+    for (name, p), q in zip(straight.state.model.named_parameters(),
+                            resumed.state.model.parameters()):
+        torch.testing.assert_close(q, p, rtol=0, atol=2 * 2 * TRAINER_KNOBS["lr"], msg=name)
+
+    labels = {}
+    for capture in (True, False):
+        resumed.capture = capture
+        out = resumed.inference_slidingwindow(val, str(tmp_path / f"seg-{capture}"))
+        labels[capture] = np.load(out[0])
+    assert labels[True].shape == (40, 40, 40) and set(np.unique(labels[True])) <= {0, 1}
+    assert (labels[True] == labels[False]).all()
 
 
 def _world_of_one(backend: str, monkeypatch):

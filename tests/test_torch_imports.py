@@ -54,7 +54,6 @@ PORT_MODULES = [
     "hdenseformer_tpu_torch.parallel",
     "hdenseformer_tpu_torch.parallel.mesh",
     "hdenseformer_tpu_torch.cli",
-    "hdenseformer_tpu_torch.bench",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
