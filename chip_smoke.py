@@ -62,6 +62,17 @@ cores. The phases:
    HDenseFormer_2D_32's InstanceNorm shapes, forward and backward, against
    their plain versions with phase 1's and 1b's bars, timed beside their
    bounds and summed over a forward and a step;
+1a. the attention backward kernels (a dQ pass, then a dK/dV pass) at the
+   train steps' shapes in bf16, the 2-D (24, 8, 576, 4) and the 3-D
+   (2, 8, 729, 4), on head views of one qkv: dQ, dK and dV against float64
+   math, each error within twice the plain bf16 math's (by the largest and
+   by the mean, over the float64 gradient's), rerun bitwise, one backward
+   launch a backward; device
+   times against the bound (the larger of bytes over HBM and the N^2
+   exponentials a (b, h) once), beside the plain math's backward as the
+   autograd function ran it before (the forward recomputed, then its
+   vector-Jacobian product) and ``F.scaled_dot_product_attention`` forward
+   and backward as ``library_ms`` (a yardstick: the port never calls it);
 6. a {"kernels": [...]} line with each kernel's numbers;
 7. the result line {"ok": true, "device": {...}}.
 
@@ -92,6 +103,7 @@ from torch.autograd import DeviceType
 from hdenseformer_tpu_torch.models.layers import dropout_keep
 from hdenseformer_tpu_torch.ops import _build
 from hdenseformer_tpu_torch.ops.dense_attention import attention_ref, dense_attention
+from hdenseformer_tpu_torch.ops.dense_attention import bwd_launch_plan as attention_bwd_plan
 from hdenseformer_tpu_torch.ops.dense_attention import launch_plan as attention_plan
 from hdenseformer_tpu_torch.ops.instance_norm import (
     absolute_stats,
@@ -218,6 +230,8 @@ IN_2D = (((SLICE ** 2, 32), 2, True), (((SLICE // 2) ** 2, 64), 4, True),
          (((SLICE // 16) ** 2, 256), 1, False), (((SLICE // 8) ** 2, 128), 1, False),
          (((SLICE // 4) ** 2, 64), 1, False), (((SLICE // 2) ** 2, 32), 1, False))
 ATTN_2D = (SLICE_BATCH, 8, (SLICE // 16) ** 2, 4)  # one modality path's attention
+# phase 1a: the attention backward at the train steps' shapes (2-D, 3-D)
+ATTN_BWD_SHAPES = (ATTN_2D, (2, 8, (PATCH // 16) ** 3, 4))
 # phase 4p (a): the shifted InstanceNorm at HDenseFormer_32's
 # level 0 in serving (8 windows of 144^3, packed over (H, W): 144 x 73 x 73
 # shifted cells of 4 x 32 channels; its backward at the train step's batch
@@ -442,6 +456,88 @@ def phase_mha(gen) -> dict:
     torch.cuda.empty_cache()
     return {key: rec[key] for key in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "library_ms",
                                       "bound_ms", "pct_of_bound", "mask_draw_ms")}
+
+
+def attention_grads(fn, q, k, v, dout) -> tuple:
+    """dQ, dK, dV of ``fn`` at (q, k, v) against ``dout``."""
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(fn(*xs), xs, dout)
+
+
+def attention_grad_errors(q, k, v, dout, grads) -> dict:
+    """Each of dQ, dK, dV against float64 math: (largest error over the
+    largest exact value, mean error over the mean exact value)."""
+    scale = q.shape[-1] ** -0.5
+    exact = attention_grads(
+        lambda q, k, v: torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1) @ v,
+        *(t.double() for t in (q, k, v, dout)))
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, exact):
+        diff = (got.double() - ref).abs()
+        errs[name] = (float(diff.max() / ref.abs().max()), float(diff.mean() / ref.abs().mean()))
+    return errs
+
+
+def phase_attention_backward(gen) -> dict:
+    """Phase 1a: the attention backward kernels at ATTN_BWD_SHAPES, bf16."""
+    dev = torch.device("cuda")
+    out = {}
+    for shape in ATTN_BWD_SHAPES:
+        b, h, n, d = shape
+        # q, k, v as the model gives them: head views of one qkv projection
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
+        dout = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        dense_attention.backward_launches = 0
+        got = attention_grads(dense_attention, q, k, v, dout)
+        again = attention_grads(dense_attention, q, k, v, dout)
+        torch.cuda.synchronize()
+        rec = dict(shape=list(shape), dtype="bfloat16",
+                   backward_launches=dense_attention.backward_launches,
+                   bitwise_rerun=all(bool(torch.equal(u, w)) for u, w in zip(got, again)))
+        plain = attention_grads(attention_ref, q, k, v, dout)
+        rec["err_vs_f64"] = attention_grad_errors(q, k, v, dout, got)
+        rec["plain_err_vs_f64"] = attention_grad_errors(q, k, v, dout, plain)
+        del again, plain
+        if rec["backward_launches"] != 2 or not rec["bitwise_rerun"]:
+            fail(f"dense_attention backward {shape}: {rec['backward_launches']} launches for "
+                 f"2 backwards, or reruns differ")
+        # tests/test_torch_cuda.py's bar: each gradient within twice the plain math's error
+        for name, (top, mean) in rec["err_vs_f64"].items():
+            plain_top, plain_mean = rec["plain_err_vs_f64"][name]
+            if not (np.isfinite([top, mean]).all() and top <= 2 * plain_top
+                    and mean <= 2 * plain_mean):
+                fail(f"dense_attention backward {shape} {name} against float64: "
+                     f"{rec['err_vs_f64']}, the plain math's {rec['plain_err_vs_f64']}")
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = dense_attention(*xs)
+        kernels = device_kernels(lambda: torch.autograd.grad(o, xs, dout, retain_graph=True),
+                                 iters=50)
+        rec["kernels_ms"] = {name: t for name, t in kernels.items() if "dense_attention" in name}
+        rec["ms"] = sum(rec["kernels_ms"].values())
+
+        def plain_backward():  # the autograd function's backward before the kernels
+            with torch.enable_grad():
+                ys = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(attention_ref(*ys), ys, dout)
+
+        rec["plain_ms"] = device_ms(plain_backward, iters=10)
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*lib_in), lib_in, dout), iters=20)
+        nbytes = b * h * n * (4 * d * 2 + d * 4 + 4 + 3 * d * 2)  # q k v dO, O, lse; dq dk dv
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_exp = b * h * n * n / (EX2_PER_CLOCK_SM * SM_COUNT * sm_clock_hz()) * 1e3
+        rec.update(bound_ms=max(t_bytes, t_exp), bound_by="bytes" if t_bytes > t_exp
+                   else "exponentials", bytes_bound_ms=t_bytes, exp_bound_ms=t_exp)
+        rec["pct_of_bound"] = 100 * rec["bound_ms"] / rec["ms"]
+        rec["plan"] = dataclasses.asdict(attention_bwd_plan(b, h, n, d))
+        emit("kernel_check", kernel="dense_attention_backward", **rec)
+        out[f"{b}x{h}x{n}x{d}"] = {key: rec[key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "pct_of_bound")}
+        del qkv, q, k, v, dout, got, xs, o, lib_in
+        torch.cuda.empty_cache()
+    return out
 
 
 def instance_norm_times(x, scale, bias, library: bool = True, relu: bool = True) -> dict:
@@ -1122,6 +1218,7 @@ def main() -> int:
         {f"per_unetr_step_{k}": unetr[f"bwd_{k}"] for k in ("ms", "plain_ms", "bound_ms")})
     for name, rec in phase_2d_kernels(gen).items():
         main_shapes[name]["at_2d_shape"] = rec
+    main_shapes["dense_attention"]["backward"] = phase_attention_backward(gen)
 
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [

@@ -47,11 +47,48 @@
 // fp32: the same geometry in scalar fp32 fmas, two sweeps (the exact row
 // max, then exp2, the sum and p . v); each lane keeps (max, sum, acc[D]) of
 // its rows and keys, merged over the quad by warp shuffles (xor 1, then 2).
-// Inputs may be strided views as long as D is innermost.
+// Inputs may be strided views as long as D is innermost. When the backward
+// will run, the forward also writes each row's log-sum-exp (log2 units) and,
+// in bf16, O in fp32: B H N (1 + D) floats.
+//
+// Backward (both dtypes), with Delta_i = rowsum(dO_i o O_i), O in fp32:
+//   P_ij = exp2(c q_i.k_j - lse_i), dS_ij = P_ij (dO_i.v_j - Delta_i),
+//   dQ_i = scale sum_j dS_ij k_j, dK_j = scale sum_i dS_ij q_i,
+//   dV_j = sum_i P_ij dO_i.
+// Replaces: the autograd of the plain math that JAX's _fused_bwd (and the
+// port before it) recomputes, which writes and reads about a dozen (B, H, N,
+// N) fp32 tensors a call: at the 2-D train step's (24, 8, 576, 4), 255 MB
+// each, 2.04 ms a call on an H100 with its recomputed forward (0.134 ms
+// here; the bound, the exponentials once, is 0.0152). What bounds it: as
+// the forward, the per-score work that D = 4 leaves outside the tensor
+// cores. Each pass recomputes P (one ex2 a score, 2 N^2 a (b, h) in all)
+// and spends ~14 (dQ) and ~18 (dK/dV) fp32 fmas a score; nothing of size
+// N^2 leaves the chip. Design:
+//   - two launches, no atomics, so reruns agree bit for bit: a dQ pass over
+//     query rows, then a dK/dV pass over key rows; each recomputes Delta
+//     from dO and O in the same order;
+//   - two rows a lane in fp32 registers (q or k and v, dO, the sums); the
+//     block stages the other side of its (b, h) (K and V, or Q, dO, lse and
+//     Delta) in shared memory as fp32 rows, and every lane of a warp reads
+//     the same row at once (a broadcast). Those reads, not the fmas, bound
+//     a design of one row a lane (on an H100: 0.186 ms at (24, 8, 576, 4),
+//     the dK/dV pass slower than the dQ pass by its share of loads), so
+//     each column read serves two rows (four rows a lane, or two at more
+//     registers a thread, measured slower);
+//   - a block is 8 warps: `groups` row groups of 64 rows x `splits` column
+//     splits, whose partial sums meet in split 0 through shared memory, in
+//     order. bwd_launch_plan picks the fewest splits that give every SM 6
+//     blocks (two waves of the 3 that fit): 4 at (24, 8, 576, 4) (0.134 ms;
+//     1 split 0.200, 2 0.142), 8 at the 3-D step's (2, 8, 729, 4) (0.029
+//     ms; 1 split 0.088), whose 16 (b, h) slices would otherwise fill a few
+//     SMs;
+//   - past N, keys are zero rows (k = 0 adds nothing to dQ) and queries have
+//     lse = +inf (P = 0), so no step is masked.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -255,8 +292,8 @@ __global__ void __launch_bounds__(kThreads, 3)
 dense_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            int H, int N, long long sb, long long sh, long long sn, float c,
-                            bool vec_rows) {
+                            float* __restrict__ o32, float* __restrict__ lse, int H, int N,
+                            long long sb, long long sh, long long sn, float c, bool vec_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int chunks = (N + kChunk - 1) / kChunk, np = chunks * kChunk;
   const int pitch = vt_pitch(chunks);
@@ -389,15 +426,19 @@ dense_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       l[r] = __shfl_sync(0xffffffffu, acc[r / 2][2 * (r % 2)], (lane & ~3) | (D / 2));
   }
   if (2 * t >= D) return;
-  // lane t writes dims 2t, 2t + 1 of its rows
+  // lane t writes dims 2t, 2t + 1 of its rows (and, when the backward will
+  // run, lane 0 each row's log-sum-exp in log2 units and O in fp32)
 #pragma unroll
   for (int r = 0; r < 2 * kMT; ++r) {
     const int row = row0 + 16 * (r / 2) + g + 8 * (r % 2);
     if (row >= N) continue;
     const float inv = 1.f / l[r];
     const int e0 = 2 * (r % 2);
-    *reinterpret_cast<__nv_bfloat162*>(o + ((long long)bh * N + row) * D + 2 * t) =
-        __floats2bfloat162_rn(acc[r / 2][e0] * inv, acc[r / 2][e0 + 1] * inv);
+    const long long at = ((long long)bh * N + row) * D + 2 * t;
+    const float o0 = acc[r / 2][e0] * inv, o1 = acc[r / 2][e0 + 1] * inv;
+    *reinterpret_cast<__nv_bfloat162*>(o + at) = __floats2bfloat162_rn(o0, o1);
+    if (o32) *reinterpret_cast<float2*>(o32 + at) = make_float2(o0, o1);
+    if (lse && t == 0) lse[(long long)bh * N + row] = fmaf(m[r], c, log2f(l[r]));
   }
 }
 
@@ -495,7 +536,8 @@ __device__ __forceinline__ void accumulate(RowState<D> (&r)[2 * kMT], const floa
 template <int D>
 __global__ void __launch_bounds__(kThreads, 3)
 dense_attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int H, int N,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ o32, float* __restrict__ lse, int H, int N,
                            long long sb, long long sh, long long sn, float c, bool vec_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = (N + kChunk - 1) / kChunk * kChunk;
@@ -634,11 +676,13 @@ dense_attention_kernel_f32(const float* __restrict__ q, const float* __restrict_
       merge<D>(st[r], s_split[sp][group][rows[r] - row0], c);
     if (rows[r] >= N) continue;
     const float inv = 1.f / st[r].l;
-    // lane t writes dims t, t + 4 of its rows
+    // lane t writes dims t, t + 4 of its rows (o32 is null: o is fp32), lane
+    // 0 the row's log-sum-exp when the backward will run
     float* out = o + ((long long)bh * N + rows[r]) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d)
       if (d % 4 == t) out[d] = st[r].acc[d] * inv;
+    if (lse && t == 0) lse[(long long)bh * N + rows[r]] = fmaf(st[r].m, c, log2f(st[r].l));
   }
 }
 
@@ -679,8 +723,9 @@ int blocks_per_sm(int N) {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-           long long sb, long long sh, long long sn, float c, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* o32, float* lse, int B,
+           int H, int N, long long sb, long long sh, long long sn, float c,
+           cudaStream_t stream) {
   using K = Kernel<T, D>;
   // the static split-merge buffer counts against the same 48 KB default
   const size_t smem = K::smem(N);
@@ -696,8 +741,368 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const int row_groups = (N + kRows - 1) / kRows;
   const dim3 grid((row_groups + kGroups - 1) / kGroups, B * H);
   K::fn<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v), static_cast<T*>(o), H, N, sb,
-                                          sh, sn, c, vec_rows);
+                                          static_cast<const T*>(v), static_cast<T*>(o), o32, lse,
+                                          H, N, sb, sh, sn, c, vec_rows);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward: two passes of scalar fp32 fmas, two rows a lane
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdStep = 4;  // columns a split walks per unrolled step; spans are whole steps
+constexpr int kBwdR = 2;     // rows a lane: each column read from shared memory serves two
+constexpr int kBwdRows = 32 * kBwdR;  // rows a warp
+
+struct Strides {
+  long long b, h, n;
+};
+
+template <typename T>
+__device__ __forceinline__ float to_float(T x) {
+  if constexpr (std::is_same_v<T, float>) return x;
+  else return __bfloat162float(x);
+}
+
+// bf16 pair (low element first) of a 32-bit word, exactly
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// D elements at p as fp32: one 16-byte (fp32: a float4 per 4) or 8/16-byte
+// (bf16) load where `vec`, else one load an element
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* p, bool vec, float (&x)[D]) {
+  if (vec) {
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int u = 0; u < D / 4; ++u) {
+        const float4 w = reinterpret_cast<const float4*>(p)[u];
+        x[4 * u] = w.x, x[4 * u + 1] = w.y, x[4 * u + 2] = w.z, x[4 * u + 3] = w.w;
+      }
+    } else {
+      uint32_t w[D / 2];
+      if constexpr (D == 4) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        w[0] = u.x, w[1] = u.y;
+      } else {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        const float2 f = bf16x2_to_float2(w[i]);
+        x[2 * i] = f.x, x[2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = to_float(p[d]);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* p, const float (&x)[D], float scale) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    if constexpr (std::is_same_v<T, float>) p[d] = x[d] * scale;
+    else p[d] = __float2bfloat16_rn(x[d] * scale);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void sts_row(float* p, const float (&x)[D]) {
+#pragma unroll
+  for (int u = 0; u < D / 4; ++u)
+    reinterpret_cast<float4*>(p)[u] = make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2],
+                                                  x[4 * u + 3]);
+}
+
+// Delta = rowsum(dO o O), O in fp32: the same order in both passes
+template <int D>
+__device__ __forceinline__ float row_delta(const float (&g)[D], const float* o) {
+  float o_row[D];
+  load_row<float, D>(o, true, o_row);
+  float delta = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) delta = fmaf(g[d], o_row[d], delta);
+  return delta;
+}
+
+// How a backward launch walks (b, h): block x holds `groups` row groups of
+// kBwdRows rows (lane l holds rows l and l + 32) x `splits` column splits
+// (warp = split * groups + group); split s walks columns [s * span, (s + 1)
+// * span) of the block's fp32 copy in shared memory, padded with zeros to
+// splits * span, and the splits' partial sums meet in split 0 through shared
+// memory, in order.
+struct BwdGeometry {
+  int splits, groups, span, lane, group, split, row0;
+  bool live;  // the warp has rows below N (uniform across the warp)
+  __device__ BwdGeometry(int N, int splits_) : splits(splits_) {
+    groups = kBwdWarps / splits;
+    span = ((N + splits - 1) / splits + kBwdStep - 1) / kBwdStep * kBwdStep;
+    const int warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    group = warp % groups;
+    split = warp / groups;
+    row0 = (blockIdx.x * groups + group) * kBwdRows;
+    live = row0 < N;
+  }
+  __device__ int row(int r) const { return row0 + lane + 32 * r; }
+};
+
+// Sums of W floats a lane over the splits into split 0's registers, in
+// order: splits 1, 2, ... park theirs in `part` (lane-minor, conflict-free).
+template <int W>
+__device__ __forceinline__ void merge_splits(const BwdGeometry& gm, float* part, float (&x)[W]) {
+  if (gm.live && gm.split > 0) {
+    float* mine = part + ((gm.split - 1) * gm.groups + gm.group) * W * 32 + gm.lane;
+#pragma unroll
+    for (int i = 0; i < W; ++i) mine[i * 32] = x[i];
+  }
+  __syncthreads();
+  if (!gm.live || gm.split != 0) return;
+  for (int sp = 1; sp < gm.splits; ++sp) {
+    const float* other = part + ((sp - 1) * gm.groups + gm.group) * W * 32 + gm.lane;
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[i] += other[i * 32];
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *o, *lse;
+  void *dq, *dk, *dv;
+  Strides in, dos, grad;
+  int B, H, N, splits;
+  float c, scale;
+  cudaStream_t stream;
+};
+
+// dQ pass: a lane owns query rows i and walks its split's keys j:
+//   P_ij = exp2(c q_i.k_j - lse_i), dS_ij = P_ij (dO_i.v_j - Delta_i),
+//   dQ_i = scale sum_j dS_ij k_j.
+// Keys past N are zero rows: k_j = 0 adds nothing to dQ.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, D == 4 ? 3 : 2)
+dense_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ o, const float* __restrict__ lse,
+                              T* __restrict__ dq, Strides in, Strides dos, Strides grad, int H,
+                              int N, int splits, float c, float scale, unsigned vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdGeometry gm(N, splits);
+  const int np = splits * gm.span;
+  float* ks = reinterpret_cast<float*>(smem);  // (np, D)
+  float* vs = ks + np * D;                     // (np, D)
+  float* part = vs + np * D;                   // (splits - 1, groups, R D, 32)
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * in.b + h * in.h;
+  for (int j = threadIdx.x; j < np; j += kBwdThreads) {
+    float kr[D] = {}, vr[D] = {};
+    if (j < N) {
+      load_row<T, D>(k + base + j * in.n, vec & 1, kr);
+      load_row<T, D>(v + base + j * in.n, vec & 1, vr);
+    }
+    sts_row<D>(ks + j * D, kr);
+    sts_row<D>(vs + j * D, vr);
+  }
+  __syncthreads();
+
+  float acc[kBwdR * D] = {};
+  if (gm.live) {
+    // a row past N reads as q = dO = 0 and lse = +inf: P = 0, nothing NaN
+    float qr[kBwdR][D] = {}, g[kBwdR][D] = {}, l[kBwdR], delta[kBwdR];
+#pragma unroll
+    for (int r = 0; r < kBwdR; ++r) {
+      const int row = gm.row(r);
+      l[r] = INFINITY;
+      delta[r] = 0.f;
+      if (row < N) {
+        load_row<T, D>(q + base + row * in.n, vec & 1, qr[r]);
+        load_row<T, D>(dout + b * dos.b + h * dos.h + row * dos.n, vec & 2, g[r]);
+        delta[r] = row_delta<D>(g[r], o + ((long long)bh * N + row) * D);
+        l[r] = lse[(long long)bh * N + row];
+      }
+    }
+    const float* kp = ks + gm.split * gm.span * D;
+    const float* vp = vs + gm.split * gm.span * D;
+    for (int j0 = 0; j0 < gm.span; j0 += kBwdStep)
+#pragma unroll
+      for (int j = j0; j < j0 + kBwdStep; ++j) {
+        float kj[D], vj[D];
+        load_row<float, D>(kp + j * D, true, kj);
+        load_row<float, D>(vp + j * D, true, vj);
+#pragma unroll
+        for (int r = 0; r < kBwdR; ++r) {
+          float s = 0.f, dp = -delta[r];
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            s = fmaf(qr[r][d], kj[d], s);
+            dp = fmaf(g[r][d], vj[d], dp);
+          }
+          const float ds = ex2(fmaf(s, c, -l[r])) * dp;
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[r * D + d] = fmaf(ds, kj[d], acc[r * D + d]);
+        }
+      }
+  }
+  merge_splits<kBwdR * D>(gm, part, acc);
+  if (!gm.live || gm.split != 0) return;
+#pragma unroll
+  for (int r = 0; r < kBwdR; ++r) {
+    const int row = gm.row(r);
+    float x[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = acc[r * D + d];
+    if (row < N) store_row<T, D>(dq + b * grad.b + h * grad.h + row * grad.n, x, scale);
+  }
+}
+
+// dK/dV pass: a lane owns key rows j and walks its split's queries i, staged
+// with lse_i and Delta_i:
+//   dV_j = sum_i P_ij dO_i, dK_j = scale sum_i dS_ij q_i.
+// Queries past N are zero rows with lse = +inf: P = 0, dS = 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, D == 4 ? 3 : 2)
+dense_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ o, const float* __restrict__ lse,
+                               T* __restrict__ dk, T* __restrict__ dv, Strides in, Strides dos,
+                               Strides grad, int H, int N, int splits, float c, float scale,
+                               unsigned vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdGeometry gm(N, splits);
+  const int np = splits * gm.span;
+  float* qs = reinterpret_cast<float*>(smem);              // (np, D)
+  float* gs = qs + np * D;                                 // (np, D): dO
+  float2* ld = reinterpret_cast<float2*>(gs + np * D);     // (np): (lse, Delta)
+  float* part = reinterpret_cast<float*>(ld + np);         // (splits - 1, groups, 2 R D, 32)
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * in.b + h * in.h;
+  const long long dbase = b * dos.b + h * dos.h;
+  for (int i = threadIdx.x; i < np; i += kBwdThreads) {
+    float qr[D] = {}, g[D] = {};
+    float2 lv = make_float2(INFINITY, 0.f);
+    if (i < N) {
+      load_row<T, D>(q + base + i * in.n, vec & 1, qr);
+      load_row<T, D>(dout + dbase + i * dos.n, vec & 2, g);
+      lv = make_float2(lse[(long long)bh * N + i],
+                       row_delta<D>(g, o + ((long long)bh * N + i) * D));
+    }
+    sts_row<D>(qs + i * D, qr);
+    sts_row<D>(gs + i * D, g);
+    ld[i] = lv;
+  }
+  __syncthreads();
+
+  float acc[2 * kBwdR * D] = {};  // per row r: dK at r 2D, dV at r 2D + D
+  if (gm.live) {
+    float kr[kBwdR][D] = {}, vr[kBwdR][D] = {};
+#pragma unroll
+    for (int r = 0; r < kBwdR; ++r) {
+      const int row = gm.row(r);
+      if (row < N) {
+        load_row<T, D>(k + base + row * in.n, vec & 1, kr[r]);
+        load_row<T, D>(v + base + row * in.n, vec & 1, vr[r]);
+      }
+    }
+    const float* qp = qs + gm.split * gm.span * D;
+    const float* gp = gs + gm.split * gm.span * D;
+    const float2* lp = ld + gm.split * gm.span;
+    for (int i0 = 0; i0 < gm.span; i0 += kBwdStep)
+#pragma unroll
+      for (int i = i0; i < i0 + kBwdStep; ++i) {
+        float qi[D], gi[D];
+        load_row<float, D>(qp + i * D, true, qi);
+        load_row<float, D>(gp + i * D, true, gi);
+        const float2 lv = lp[i];
+#pragma unroll
+        for (int r = 0; r < kBwdR; ++r) {
+          float s = 0.f, dp = -lv.y;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            s = fmaf(kr[r][d], qi[d], s);
+            dp = fmaf(vr[r][d], gi[d], dp);
+          }
+          const float p = ex2(fmaf(s, c, -lv.x));
+          const float ds = p * dp;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            acc[2 * r * D + d] = fmaf(ds, qi[d], acc[2 * r * D + d]);
+            acc[2 * r * D + D + d] = fmaf(p, gi[d], acc[2 * r * D + D + d]);
+          }
+        }
+      }
+  }
+  merge_splits<2 * kBwdR * D>(gm, part, acc);
+  if (!gm.live || gm.split != 0) return;
+#pragma unroll
+  for (int r = 0; r < kBwdR; ++r) {
+    const int row = gm.row(r);
+    float dkr[D], dvr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) dkr[d] = acc[2 * r * D + d], dvr[d] = acc[2 * r * D + D + d];
+    if (row >= N) continue;
+    const long long at = b * grad.b + h * grad.h + row * grad.n;
+    store_row<T, D>(dk + at, dkr, scale);
+    store_row<T, D>(dv + at, dvr, 1.f);
+  }
+}
+
+// shared memory of the two passes (bwd_launch_plan mirrors it)
+__host__ __forceinline__ size_t bwd_span(int N, int splits) {
+  return ((N + splits - 1) / splits + kBwdStep - 1) / kBwdStep * kBwdStep;
+}
+template <int D>
+size_t dq_smem(int N, int splits) {
+  const size_t np = splits * bwd_span(N, splits);
+  return (2 * np * D + (size_t)(splits - 1) * (kBwdWarps / splits) * kBwdR * D * 32) *
+         sizeof(float);
+}
+template <int D>
+size_t dkv_smem(int N, int splits) {
+  const size_t np = splits * bwd_span(N, splits);
+  return (2 * np * D + 2 * np + (size_t)(splits - 1) * (kBwdWarps / splits) * 2 * kBwdR * D * 32) *
+         sizeof(float);
+}
+
+// every pointer and (b, h, n) stride a multiple of `unit` bytes
+__host__ __forceinline__ bool aligned(std::initializer_list<const void*> ptrs, Strides st,
+                                      size_t elem, size_t unit) {
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % unit) return false;
+  return (st.b * elem) % unit == 0 && (st.h * elem) % unit == 0 && (st.n * elem) % unit == 0;
+}
+
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a) {
+  const size_t s_dq = dq_smem<D>(a.N, a.splits), s_dkv = dkv_smem<D>(a.N, a.splits);
+  cudaError_t e = cudaFuncSetAttribute(dense_attention_bwd_dq_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_dq);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dense_attention_bwd_dkv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_dkv);
+  if (e != cudaSuccess) return (int)e;
+  // bit 0: q, k, v rows as vector loads; bit 1: dO rows; o rows are always
+  // 16-byte aligned (contiguous fp32, D a multiple of 4)
+  const size_t unit = std::is_same_v<T, float> ? 16 : D * sizeof(T);
+  const unsigned vec = (aligned({a.q, a.k, a.v}, a.in, sizeof(T), unit) ? 1u : 0u) |
+                       (aligned({a.dout}, a.dos, sizeof(T), unit) ? 2u : 0u);
+  const int groups = kBwdWarps / a.splits;
+  const dim3 grid(((a.N + kBwdRows - 1) / kBwdRows + groups - 1) / groups, a.B * a.H);
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k);
+  const T *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+  dense_attention_bwd_dq_kernel<T, D><<<grid, kBwdThreads, s_dq, a.stream>>>(
+      q, k, v, dout, a.o, a.lse, static_cast<T*>(a.dq), a.in, a.dos, a.grad, a.H, a.N, a.splits,
+      a.c, a.scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dense_attention_bwd_dkv_kernel<T, D><<<grid, kBwdThreads, s_dkv, a.stream>>>(
+      q, k, v, dout, a.o, a.lse, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.in, a.dos,
+      a.grad, a.H, a.N, a.splits, a.c, a.scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -705,21 +1110,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 // dtype: 0 = float32, 1 = bfloat16. q, k and v share shape (B, H, N, D) and
 // the strides (sb, sh, sn) in elements, with D innermost and contiguous; o is
-// a contiguous (B, H, N, D) tensor. The grid is (ceil(N / 128), B * H)
-// blocks of 256 threads (ops/dense_attention.py::launch_plan mirrors it).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a dtype or D it was not built for.
+// a contiguous (B, H, N, D) tensor. o32 and lse are null, or (when the
+// backward will run) contiguous (B, H, N, D) and (B, H, N) fp32 tensors for
+// O in fp32 (bf16 only; fp32's o is already) and each row's log-sum-exp in
+// log2 units. The grid is (ceil(N / 128), B * H) blocks of 256 threads
+// (ops/dense_attention.py::launch_plan mirrors it). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a dtype
+// or D it was not built for.
 extern "C" int hdf_dense_attention(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int H, int N, int D,
-                                   long long sb, long long sh, long long sn,
+                                   void* o, void* o32, void* lse, int dtype, int B, int H,
+                                   int N, int D, long long sb, long long sh, long long sn,
                                    float scale, void* stream) {
   const float c = scale * 1.4426950408889634f;  // log2(e)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || B * H < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 4) return launch<float, 4>(q, k, v, o, B, H, N, sb, sh, sn, c, s);
-  if (dtype == 0 && D == 8) return launch<float, 8>(q, k, v, o, B, H, N, sb, sh, sn, c, s);
-  if (dtype == 1 && D == 4) return launch<__nv_bfloat16, 4>(q, k, v, o, B, H, N, sb, sh, sn, c, s);
-  if (dtype == 1 && D == 8) return launch<__nv_bfloat16, 8>(q, k, v, o, B, H, N, sb, sh, sn, c, s);
+  float* o2 = static_cast<float*>(o32);
+  float* l2 = static_cast<float*>(lse);
+  if (N < 1 || B * H < 1 || B * H > 65535 || (dtype == 0 && o32)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 4) return launch<float, 4>(q, k, v, o, o2, l2, B, H, N, sb, sh, sn, c, s);
+  if (dtype == 0 && D == 8) return launch<float, 8>(q, k, v, o, o2, l2, B, H, N, sb, sh, sn, c, s);
+  if (dtype == 1 && D == 4)
+    return launch<__nv_bfloat16, 4>(q, k, v, o, o2, l2, B, H, N, sb, sh, sn, c, s);
+  if (dtype == 1 && D == 8)
+    return launch<__nv_bfloat16, 8>(q, k, v, o, o2, l2, B, H, N, sb, sh, sn, c, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -731,4 +1143,30 @@ extern "C" int hdf_dense_attention_blocks_per_sm(int dtype, int D, int N) {
   if (dtype == 1 && D == 4) return blocks_per_sm<__nv_bfloat16, 4>(N);
   if (dtype == 1 && D == 8) return blocks_per_sm<__nv_bfloat16, 8>(N);
   return -1;
+}
+
+// The backward. q, k, v, dtype, B, H, N, D, (sb, sh, sn) and scale as the
+// forward's; dout: (B, H, N, D) in the input type with strides (db, dh, dn)
+// and D contiguous; o: contiguous (B, H, N, D) fp32 (the forward's o32, or
+// its o in fp32); lse: the forward's; dq, dk, dv: (B, H, N, D) in the input
+// type with the strides (gb, gh, gn), D contiguous, every element written.
+// splits in {1, 2, 4, 8} is the launch plan's (ops/dense_attention.py::
+// bwd_launch_plan). Two launches on `stream`: dQ, then dK and dV.
+extern "C" int hdf_dense_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* o, const void* lse,
+                                       void* dq, void* dk, void* dv, int dtype, int B, int H,
+                                       int N, int D, long long sb, long long sh, long long sn,
+                                       long long db, long long dh, long long dn, long long gb,
+                                       long long gh, long long gn, int splits, float scale,
+                                       void* stream) {
+  if (N < 1 || B * H < 1 || B * H > 65535 || kBwdWarps % splits != 0 || splits > kBwdWarps)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(o), static_cast<const float*>(lse),
+                  dq, dk, dv, {sb, sh, sn}, {db, dh, dn}, {gb, gh, gn}, B, H, N, splits,
+                  scale * 1.4426950408889634f, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0 && D == 4) return launch_bwd<float, 4>(a);
+  if (dtype == 0 && D == 8) return launch_bwd<float, 8>(a);
+  if (dtype == 1 && D == 4) return launch_bwd<__nv_bfloat16, 4>(a);
+  if (dtype == 1 && D == 8) return launch_bwd<__nv_bfloat16, 8>(a);
+  return (int)cudaErrorInvalidValue;
 }

@@ -40,8 +40,14 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, dtype, B, H, N, D, sb, sh, sn, scale, stream
-    "hdf_dense_attention": (_p, _p, _p, _p, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f, _p),
+    # q, k, v, o, o32, lse, dtype, B, H, N, D, sb, sh, sn, scale, stream
+    "hdf_dense_attention": (_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f, _p),
+    # q, k, v, dout, o, lse, dq, dk, dv, dtype, B, H, N, D, sb, sh, sn, db, dh, dn, gb, gh,
+    # gn, splits, scale, stream
+    "hdf_dense_attention_bwd": (
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _ll, _ll,
+        _ll, _ll, _ll, _i, _f, _p,
+    ),
     # dtype, D, N
     "hdf_dense_attention_blocks_per_sm": (_i, _i, _i),
     # x, scale, bias, y, part, stats, dtype, vec_bytes, N, S, C, CT, chunk, K, eps,

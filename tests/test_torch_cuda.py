@@ -611,19 +611,145 @@ def test_instance_norm_gradient_through_autograd(cuda, affine):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
+def _qkv_views(cuda, b, h, n, d, dtype, seed):
+    """q, k, v as the model gives them: head views of one qkv projection, and
+    a gradient for the output."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
+    return q, k, v, torch.randn(b, h, n, d, generator=g, device=cuda).to(dtype)
+
+
+def _attention_grads(fn, q, k, v, dout):
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(fn(*xs), xs, dout)
+
+
+def _attention_grads_f64(q, k, v, dout):
+    d = q.shape[-1]
+
+    def f64(q, k, v):
+        return torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, dim=-1) @ v
+
+    return _attention_grads(f64, *(t.double() for t in (q, k, v, dout)))
+
+
+def _grad_errors(grads, exact):
+    """Each of dQ, dK, dV: largest error over the largest exact value, mean
+    error over the mean exact value."""
+    errs = []
+    for got, ref in zip(grads, exact):
+        diff = (got.double() - ref).abs()
+        errs.append((float(diff.max() / ref.abs().max()), float(diff.mean() / ref.abs().mean())))
+    return errs
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((24, 8, 576, 4), torch.bfloat16), ((2, 8, 729, 4), torch.bfloat16),
+    ((2, 8, 130, 4), torch.float32), ((2, 8, 130, 4), torch.bfloat16),
+    ((2, 8, 130, 8), torch.float32), ((2, 8, 130, 8), torch.bfloat16),
+], ids=["2d-step", "3d-step", "n130-d4-fp32", "n130-d4-bf16", "n130-d8-fp32", "n130-d8-bf16"])
+def test_attention_backward_is_as_precise_as_the_plain_math(cuda, shape, dtype):
+    """The backward kernels' dQ, dK and dV against float64 math on the same
+    inputs (strided head views of one qkv), beside the plain path's own
+    error: each within twice it, by the largest and by the mean. One backward
+    launch a backward, and none for the plain path."""
+    q, k, v, dout = _qkv_views(cuda, *shape, dtype, seed=92)
+    dense_attention.backward_launches = 0
+    got = _attention_grads(dense_attention, q, k, v, dout)
+    torch.cuda.synchronize()
+    assert dense_attention.backward_launches == 1
+    plain = _attention_grads(attention_ref, q, k, v, dout)
+    assert dense_attention.backward_launches == 1
+    exact = _attention_grads_f64(q, k, v, dout)
+    assert all(g.dtype == dtype and g.shape == q.shape and bool(torch.isfinite(g).all())
+               for g in got)
+    for name, e, p in zip(("dq", "dk", "dv"), _grad_errors(got, exact),
+                          _grad_errors(plain, exact)):
+        assert e[0] <= 2 * p[0] and e[1] <= 2 * p[1], (name, e, p)
+
+
 def test_attention_gradient_through_autograd(cuda):
+    """The gradient of the qkv projection through the kernels (fp32, the
+    serving shape's 729 tokens): one forward and one backward launch, within
+    twice the plain path's error against float64 (the kernels recompute P
+    from the saved log-sum-exp, so the paths no longer agree up to summation
+    order alone)."""
     g = torch.Generator(device=cuda).manual_seed(91)
     qkv = torch.randn(2, 729, 96, generator=g, device=cuda, requires_grad=True)
     w = torch.randn(2, 8, 729, 4, generator=g, device=cuda)
     grads = []
     for fn in (dense_attention, attention_ref):
         q, k, v = (t.view(2, 729, 8, 4).transpose(1, 2) for t in qkv.split(32, dim=-1))
-        dense_attention.launches = 0
+        dense_attention.launches = dense_attention.backward_launches = 0
         (gq,) = torch.autograd.grad((fn(q, k, v) * w).sum(), qkv)
-        grads.append((gq, dense_attention.launches))
-    assert grads[0][1] == 1 and grads[1][1] == 0
-    # the backward is the plain math's on both paths: equal up to summation order
-    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-5)
+        grads.append((gq, dense_attention.launches, dense_attention.backward_launches))
+    assert grads[0][1:] == (1, 1) and grads[1][1:] == (0, 0)
+    x = qkv.detach().double().requires_grad_()
+    q, k, v = (t.view(2, 729, 8, 4).transpose(1, 2) for t in x.split(32, dim=-1))
+    probs = torch.softmax(q @ k.transpose(-1, -2) * 0.5, dim=-1)
+    (exact,) = torch.autograd.grad(((probs @ v) * w.double()).sum(), x)
+    got, plain = _grad_errors([grads[0][0], grads[1][0]], [exact, exact])
+    assert got[0] <= 2 * plain[0] and got[1] <= 2 * plain[1], (got, plain)
+
+
+def test_attention_backward_is_bitwise_deterministic(cuda):
+    """Two backwards on the same inputs give the same bits: no atomics, and
+    the splits' sums meet in a fixed order (the 3-D step's 8 splits)."""
+    q, k, v, dout = _qkv_views(cuda, 2, 8, 729, 4, torch.bfloat16, seed=93)
+    runs = [_attention_grads(dense_attention, q, k, v, dout) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_attention_backward_captured_equals_eager(cuda):
+    """The forward and backward kernels captured in a CUDA graph and replayed
+    on new inputs copied into the static ones: the eager call's bits; the
+    capture counts its one backward launch, a replay none."""
+    q, k, v, dout = _qkv_views(cuda, 24, 8, 576, 4, torch.bfloat16, seed=94)
+    static = [t.clone() for t in (q, k, v, dout)]
+    dense_attention.backward_launches = 0
+    graph, outs = _capture(lambda: _attention_grads(dense_attention, *static))
+    captured = dense_attention.backward_launches
+    fresh = _qkv_views(cuda, 24, 8, 576, 4, torch.bfloat16, seed=95)
+    for s_, x in zip(static, fresh):
+        s_.copy_(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert dense_attention.backward_launches == captured
+    for got, ref in zip(outs, _attention_grads(dense_attention, *fresh)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_serving_attention_writes_nothing_for_a_backward(cuda, monkeypatch):
+    """Under inference_mode (serving) and without grad, the forward kernel is
+    called with null O and log-sum-exp pointers, as before the backward
+    kernels; a forward that will be differentiated passes both (bf16: O in
+    fp32; fp32: O is the output itself, so only the log-sum-exp)."""
+    from hdenseformer_tpu_torch.ops import dense_attention as ops
+
+    lib = ops.load_library()
+    seen = []
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def hdf_dense_attention(self, q, k, v, o, o32, lse, *rest):
+            seen.append((o32 is not None, lse is not None))
+            return lib.hdf_dense_attention(q, k, v, o, o32, lse, *rest)
+
+    monkeypatch.setattr(ops, "load_library", Recording)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = _qkv_views(cuda, 8, 8, 729, 4, dtype, seed=96)
+        with torch.inference_mode():
+            dense_attention(q, k, v)
+        with torch.no_grad():
+            dense_attention(*(t.detach().requires_grad_() for t in (q, k, v)))
+        dense_attention(*(t.detach().requires_grad_() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert seen == [(False, False), (False, False), (True, True),
+                    (False, False), (False, False), (False, True)]
 
 
 def test_model_gradients_through_the_kernels(cuda):
@@ -926,10 +1052,11 @@ def test_instance_norm_kernels_at_the_2d_shapes(cuda, s, c, affine):
 def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
     """One train step of HDenseFormer_2D_16 (64^2, depth 4, 3 modalities,
     get_net's remat, dropout 0.5 from one seed), fp32 with TF32 off, through
-    the kernels and through the plain versions: 2 x 12 attention, 36 + 18
-    InstanceNorm launches; loss within 1e-5; gradients within 3x the plain
-    path's own difference on the input moved by 1e-6 (worst and median
-    tensor, as test_unetr_train_step_goes_through_the_kernels)."""
+    the kernels and through the plain versions: 2 x 12 attention forward and
+    12 backward, 36 + 18 InstanceNorm launches; loss within 1e-5; gradients
+    within 3x the plain path's own difference on the input moved by 1e-6
+    (worst and median tensor, as
+    test_unetr_train_step_goes_through_the_kernels)."""
     from hdenseformer_tpu_torch.losses import get_loss
     from hdenseformer_tpu_torch.models import get_net
     from hdenseformer_tpu_torch.models.layers import init_weights
@@ -951,15 +1078,16 @@ def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
     losses, counts = [], []
     for net, inp in zip(nets, inputs):
         opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
-        dense_attention.launches = 0
+        dense_attention.launches = dense_attention.backward_launches = 0
         reset_norm_counts()
         _, out = step(TrainState(net, opt), {"image": inp, "label": label},
                       torch.Generator(device=cuda).manual_seed(5))
         losses.append(float(out["loss"]))
-        counts.append((dense_attention.launches,) + norm_counts())
+        counts.append((dense_attention.launches, dense_attention.backward_launches)
+                      + norm_counts())
     # levels 0-1 packed at full rank: 4 of the 18 norms shifted, each twice
-    # with the recompute
-    assert counts == [(24, 28, 14, 8, 4), (0,) * 5, (0,) * 5]
+    # with the recompute; one attention backward a layer of each modality
+    assert counts == [(24, 12, 28, 14, 8, 4), (0,) * 6, (0,) * 6]
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     grads = [dict(net.named_parameters()) for net in nets]
     ratios = {"kernels": [], "moved": []}
@@ -972,6 +1100,39 @@ def test_hdenseformer_2d_step_goes_through_the_kernels(cuda):
             ratios[key].append(float((other - ref).abs().max() / ref.abs().max()))
     got, noise = sorted(ratios["kernels"]), sorted(ratios["moved"])
     assert got[-1] <= 3 * noise[-1] and got[len(got) // 2] <= 3 * noise[len(noise) // 2]
+
+
+@pytest.mark.parametrize("name,channels,shape,backwards", [
+    ("HDenseFormer_32", 2, (32, 32, 32), 48), ("HDenseFormer_2D_32", 3, (64, 64), 72),
+], ids=["3d", "2d"])
+def test_preset_depth_step_launches_one_attention_backward_a_layer(cuda, name, channels, shape,
+                                                                     backwards):
+    """One bf16 train step of each HDenseFormer at its presets' depth (24)
+    and modalities (Hecktor21's 2, PI-CAI22's 3), on a small patch (the
+    counts do not depend on it): one attention backward kernel launch a
+    transformer layer of each modality path, 48 a 3-D step and 72 a 2-D
+    step, and the forward twice a layer (get_net's remat recomputes it)."""
+    from hdenseformer_tpu_torch.losses import get_loss
+    from hdenseformer_tpu_torch.models import get_net
+    from hdenseformer_tpu_torch.models.layers import init_weights
+    from hdenseformer_tpu_torch.train.loop import TrainState, make_train_step
+    from hdenseformer_tpu_torch.train.state import get_optimizer
+
+    net = get_net(name, channels, 2, shape, dtype=torch.bfloat16, device=cuda)
+    init_weights(net, torch.Generator().manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(2, *shape, channels, generator=g, device=cuda)
+    label = torch.zeros(2, *shape, 2, device=cuda)
+    label[..., 0] = 1
+    step = make_train_step(get_loss("FocalLoss", use_ds=True), 2)
+    opt = get_optimizer("Adam", 1e-3, weight_decay=1e-4, params=net.parameters())
+    dense_attention.launches = dense_attention.backward_launches = 0
+    _, out = step(TrainState(net, opt), {"image": x, "label": label},
+                  torch.Generator(device=cuda).manual_seed(5))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out["loss"]))
+    assert (dense_attention.launches, dense_attention.backward_launches) == (2 * backwards,
+                                                                            backwards)
 
 
 # --- the shifted InstanceNorm (packed-shifted input, pad slots masked) -----

@@ -1,8 +1,9 @@
 """The launch plans of the port's InstanceNorm and attention kernels, on CPU.
 
 ``ops/instance_norm.py::launch_plan`` (the forward), ``bwd_launch_plan``
-(the backward's persistent grid) and ``ops/dense_attention.py::launch_plan``
-cut a call into the grid that the CUDA kernels in ``csrc/`` walk. The kernels
+(the backward's persistent grid), ``ops/dense_attention.py::launch_plan``
+and its ``bwd_launch_plan`` (the backward's two passes) cut a call into the
+grid that the CUDA kernels in ``csrc/`` walk. The kernels
 run only on the card (tests/test_torch_cuda.py), but their geometry is plain
 arithmetic: these tests replay it in Python and check that every row, channel
 and key is visited exactly once, that vectors fit the rows and addresses, and
@@ -13,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from hdenseformer_tpu_torch.ops import dense_attention as attention_ops  # noqa: E402
+from hdenseformer_tpu_torch.ops.dense_attention import (  # noqa: E402
+    bwd_launch_plan as attention_bwd_plan,
+)
 from hdenseformer_tpu_torch.ops.dense_attention import (  # noqa: E402
     launch_plan as attention_plan,
 )
@@ -251,3 +256,114 @@ def test_attention_plan_at_the_serving_shape():
     # row groups, so no block is mostly empty
     assert plan.grid == (6, 64)
     assert 729 - (plan.grid[0] - 1) * plan.groups_per_block * plan.rows_per_warp > 64
+
+
+# the backward at the train steps' shapes (2-D: one modality path at batch 24;
+# 3-D: batch 2 over 9^3 tokens), ragged N and both head widths
+ATTENTION_BWD = ATTENTION + [(24, 8, 576, 4), (2, 8, 729, 4), (2, 8, 130, 4), (2, 8, 130, 8),
+                             (2, 8, 729, 8), (1, 1, 2048, 8), (4, 2, 33, 4)]
+
+
+def _attention_bwd_rows(plan, n):
+    """Rows the lanes own, as the kernels compute them: block x, row group g,
+    lane l, r -> (x * groups + g) * rows_per_warp + l + 32 r."""
+    x = np.arange(plan.grid[0])[:, None, None, None]
+    g = np.arange(plan.groups_per_block)[None, :, None, None]
+    lane = np.arange(32)[None, None, :, None]
+    r = np.arange(plan.rows_per_lane)[None, None, None, :]
+    rows = ((x * plan.groups_per_block + g) * plan.rows_per_warp + lane + 32 * r).ravel()
+    return rows[rows < n]
+
+
+@pytest.mark.parametrize("b,h,n,d", ATTENTION_BWD)
+def test_attention_bwd_plan_owns_every_row_and_column_once(b, h, n, d):
+    """Each pass: every row (a query in the dQ pass, a key in the dK/dV pass)
+    has one lane of one warp, and its splits walk every column once, so each
+    (query, key) pair is visited once by each pass."""
+    plan = attention_bwd_plan(b, h, n, d)
+    np.testing.assert_array_equal(np.sort(_attention_bwd_rows(plan, n)), np.arange(n))
+    cols = np.concatenate([np.arange(sp * plan.span, (sp + 1) * plan.span)
+                           for sp in range(plan.splits)])
+    np.testing.assert_array_equal(np.sort(cols[cols < n]), np.arange(n))
+    # whole unrolled steps of 4, and no split wholly past N but what the
+    # padding of the last step leaves
+    assert plan.span % 4 == 0 and plan.splits * plan.span - n < plan.splits * 4
+
+
+@pytest.mark.parametrize("b,h,n,d", ATTENTION_BWD)
+def test_attention_bwd_plan_fits_the_card(b, h, n, d):
+    plan = attention_bwd_plan(b, h, n, d)
+    assert plan.splits in (1, 2, 4, 8)
+    assert plan.threads == 32 * plan.groups_per_block * plan.splits == 256
+    assert plan.rows_per_warp == 32 * plan.rows_per_lane
+    assert plan.grid[1] == b * h <= GRID_YZ and 1 <= plan.grid[0] <= GRID_X
+    # no block wholly past N
+    assert (plan.grid[0] - 1) * plan.groups_per_block * plan.rows_per_warp < n
+    padded = plan.splits * plan.span
+    merge = (plan.splits - 1) * plan.groups_per_block * plan.rows_per_warp
+    # dQ: K and V in fp32; dK/dV: Q and dO in fp32 and (lse, Delta) a query;
+    # each beside the rows' sums that splits 1, 2, ... park for split 0
+    assert plan.dq_smem_bytes == 4 * (2 * padded * d + merge * d)
+    assert plan.dkv_smem_bytes == 4 * (2 * padded * d + 2 * padded + 2 * merge * d)
+    assert max(plan.dq_smem_bytes, plan.dkv_smem_bytes) <= SMEM
+
+
+@pytest.mark.parametrize("b,h,n,sms,splits,grid", [
+    (24, 8, 576, 132, 4, (5, 192)),  # the 2-D step: 192 slices
+    (2, 8, 729, 132, 8, (12, 16)),  # the 3-D step: 16 slices, one warp a split
+    (24, 8, 576, 16, 1, (2, 192)),  # a small card: one split is enough
+    (64, 8, 729, 132, 1, (2, 512)),
+])
+def test_attention_bwd_plan_fills_the_card(b, h, n, sms, splits, grid):
+    """The fewest splits that give every SM two waves of blocks, up to 8:
+    the grid follows the shape and the card, not a knob."""
+    plan = attention_bwd_plan(b, h, n, 4, sms)
+    assert (plan.splits, plan.grid) == (splits, grid)
+    assert plan.grid[0] * plan.grid[1] >= 6 * sms or plan.splits == 8
+
+
+@pytest.mark.parametrize("n,d", [(8192, 8), (4096, 8), (12000, 4)])
+def test_attention_bwd_plan_refuses_what_exceeds_shared_memory(n, d):
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_bwd_plan(1, 1, n, d)
+
+
+def test_attention_cpu_backward_is_the_plain_maths(monkeypatch):
+    """On the CPU the autograd function's backward recomputes attention_ref
+    and takes its vector-Jacobian product: no kernel backward runs."""
+    calls = []
+    plain = attention_ops.attention_ref
+
+    def counted(*args):
+        calls.append(torch.is_grad_enabled())
+        return plain(*args)
+
+    monkeypatch.setattr(attention_ops, "attention_ref", counted)
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn(2, 33, 3 * 8 * 4, generator=g, requires_grad=True)
+    q, k, v = (t.view(2, 33, 8, 4).transpose(1, 2) for t in qkv.split(32, dim=-1))
+    dout = torch.randn(2, 8, 33, 4, generator=g)
+    attention_ops.dense_attention.backward_launches = 0
+    (got,) = torch.autograd.grad(attention_ops.dense_attention(q, k, v), qkv, dout)
+    # the forward (grad off inside an autograd function), then the backward's
+    # recompute under grad
+    assert calls == [False, True]
+    assert attention_ops.dense_attention.backward_launches == 0
+    (want,) = torch.autograd.grad(plain(q, k, v), qkv, dout)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,h,n,d", [(24, 8, 576, 4), (2, 8, 729, 4), (2, 8, 130, 8)])
+def test_attention_grads_flow_back_through_the_head_views_uncopied(b, h, n, d):
+    """The backward's dQ, dK, dV (``_grad_views``) as the model's head views
+    take them back: each becomes its (B, N, H * D) third of one buffer with no
+    copy, and those thirds side by side are the qkv projection's gradient."""
+    grads = attention_ops._grad_views(b, h, n, d, torch.bfloat16, "cpu")
+    flat = [t.transpose(1, 2).reshape(b, n, h * d) for t in grads]
+    base = grads[0].data_ptr()
+    assert [t.data_ptr() for t in flat] == [base + 2 * i * h * d for i in range(3)]
+    assert all(t.shape == (b, h, n, d) and t.stride(3) == 1 for t in grads)
+    whole = torch.as_strided(grads[0], (b, n, 3 * h * d), (n * 3 * h * d, 3 * h * d, 1))
+    for i, t in enumerate(flat):
+        t.copy_(torch.full_like(t, i + 1))
+    torch.testing.assert_close(whole, torch.cat(flat, dim=-1), rtol=0, atol=0)
